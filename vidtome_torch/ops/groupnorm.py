@@ -1,0 +1,201 @@
+"""GroupNorm(+SiLU): a Triton kernel for Hopper and its plain version.
+
+Counterpart of ``vidtome_tpu/ops/groupnorm.py``.  :func:`group_norm`
+replaces the Pallas ``group_norm_stats`` (``_stats_kernel``) with the
+normalize pass of ``fused_group_norm``: on a CUDA tensor it launches the
+Triton kernels below, on a CPU tensor it runs
+:func:`reference_group_norm`.  Every GroupNorm of the UNet and the VAE goes
+through it on the card; the TPU row/channel thresholds were v5e
+measurements and are not carried over.
+
+What bounds it on the H100: memory bandwidth.  The work is a reduction
+followed by one elementwise pass, two reads and one write of the
+activation; the largest slab on the main path is [8, 512*512, 128] bf16
+(512 MiB read twice).  The design:
+
+  * pass 1 (``_partial_kernel``) reads whole contiguous NHWC rows of one
+    batch element and accumulates per-channel fp32 sums and sums of
+    squares over a span of rows, one program per (batch, span), into a
+    [B, n_spans, C] buffer: coalesced loads, no atomics, so the sum order
+    is fixed and the result is the same run to run;
+  * pass 2 (``_stats_kernel``) reduces the spans and the channels of one
+    (batch, group) into mean and rsqrt(max(E[x^2] - mean^2, 0) + eps),
+    the clamp the Pallas kernel and flax apply;
+  * pass 3 (``_apply_kernel``) folds mean, rstd, scale and bias into one
+    multiply-add per element, optionally applies SiLU, and writes the
+    input dtype.
+
+The TPU kernel's [C, G] / [G, C] collapse matmuls are a layout trick for
+its lanes and are not used.  Triton is imported, and the kernels compiled,
+on the first CUDA call; importing this module needs no Triton.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from vidtome_torch.ops.cuda_build import BUILD_DIR
+
+# Triton resolves ``tl`` in this module's globals when it compiles the
+# kernels below; _kernels() binds it on the first CUDA call.
+tl = None
+_JIT = None
+_MAX_SPANS = 64          # spans per batch element in pass 1 (pass 2 tile)
+_TILE_ELEMS = 8192       # elements of one [BLOCK_R, BLOCK_C] tile
+
+
+def reference_group_norm(x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, num_groups: int,
+                         eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
+    """Plain GroupNorm over x [B, ..., C] (channels last), statistics in
+    fp32 with var = max(E[x^2] - mean^2, 0) as flax computes it."""
+    B, C = x.shape[0], x.shape[-1]
+    xf = x.reshape(B, -1, num_groups, C // num_groups).float()
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = ((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp_min(0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y.reshape(B, -1, C) * weight.float() + bias.float()
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def _partial_kernel(x_ptr, sum_ptr, sq_ptr, rows, C, span,
+                    BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+    b = tl.program_id(0)
+    s = tl.program_id(1)
+    n_spans = tl.num_programs(1)
+    cols = tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    base = x_ptr + b.to(tl.int64) * rows * C
+    acc = tl.zeros([BLOCK_C], dtype=tl.float32)
+    acc2 = tl.zeros([BLOCK_C], dtype=tl.float32)
+    r_lo = s * span
+    r_hi = tl.minimum(r_lo + span, rows)
+    for r0 in range(r_lo, r_hi, BLOCK_R):
+        rr = r0 + tl.arange(0, BLOCK_R)
+        m = (rr < r_hi)[:, None] & cmask[None, :]
+        xv = tl.load(base + rr.to(tl.int64)[:, None] * C + cols[None, :],
+                     mask=m, other=0.0).to(tl.float32)
+        acc += tl.sum(xv, axis=0)
+        acc2 += tl.sum(xv * xv, axis=0)
+    out = (b * n_spans + s) * C + cols
+    tl.store(sum_ptr + out, acc, mask=cmask)
+    tl.store(sq_ptr + out, acc2, mask=cmask)
+
+
+def _stats_kernel(sum_ptr, sq_ptr, mean_ptr, rstd_ptr, n_spans, C, G,
+                  group_size, inv_count, eps,
+                  BLOCK_S: tl.constexpr, BLOCK_G: tl.constexpr):
+    b = tl.program_id(0)
+    g = tl.program_id(1)
+    ss = tl.arange(0, BLOCK_S)
+    cc = tl.arange(0, BLOCK_G)
+    m = (ss < n_spans)[:, None] & (cc < group_size)[None, :]
+    offs = (b * n_spans + ss)[:, None] * C + g * group_size + cc[None, :]
+    tot = tl.sum(tl.sum(tl.load(sum_ptr + offs, mask=m, other=0.0), axis=1),
+                 axis=0)
+    tot2 = tl.sum(tl.sum(tl.load(sq_ptr + offs, mask=m, other=0.0), axis=1),
+                  axis=0)
+    mean = tot * inv_count
+    var = tl.maximum(tot2 * inv_count - mean * mean, 0.0)
+    tl.store(mean_ptr + b * G + g, mean)
+    tl.store(rstd_ptr + b * G + g, 1.0 / tl.sqrt(var + eps))
+
+
+def _apply_kernel(x_ptr, y_ptr, w_ptr, bias_ptr, mean_ptr, rstd_ptr, rows, C,
+                  G, group_size, BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
+                  SILU: tl.constexpr):
+    b = tl.program_id(0)
+    rb = tl.program_id(1)
+    cols = tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    grp = cols // group_size
+    mean = tl.load(mean_ptr + b * G + grp, mask=cmask, other=0.0)
+    rstd = tl.load(rstd_ptr + b * G + grp, mask=cmask, other=0.0)
+    w = tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+    bb = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
+    mul = rstd * w
+    add = bb - mean * mul
+    rr = rb * BLOCK_R + tl.arange(0, BLOCK_R)
+    m = (rr < rows)[:, None] & cmask[None, :]
+    offs = (b.to(tl.int64) * rows + rr.to(tl.int64))[:, None] * C + cols[None, :]
+    xv = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
+    y = xv * mul[None, :] + add[None, :]
+    if SILU:
+        y = y * tl.sigmoid(y)
+    tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=m)
+
+
+def _kernels():
+    global tl, _JIT
+    if _JIT is None:
+        # Triton's compile cache goes under build/ with the other kernels,
+        # not under $HOME
+        os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+        import triton
+        import triton.language as tl  # noqa: F811  (binds the module global)
+
+        _JIT = tuple(triton.jit(f) for f in
+                     (_partial_kernel, _stats_kernel, _apply_kernel))
+    return _JIT
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    partial, stats, apply = _kernels()
+    B, C = x.shape[0], x.shape[-1]
+    rows = x.numel() // (B * C)
+    if C % num_groups:
+        raise ValueError(f"{C} channels do not split into {num_groups} groups")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.shape != (C,) or t.device != x.device:
+            raise ValueError(f"{name}: expected [{C}] on {x.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    x = x.contiguous()
+    gsize = C // num_groups
+    block_c = _next_pow2(C)
+    block_r = max(1, _TILE_ELEMS // block_c)
+    n_spans = max(1, min(_MAX_SPANS, -(-rows // block_r)))
+    span = -(-rows // n_spans)
+    span = -(-span // block_r) * block_r
+    n_spans = -(-rows // span)
+
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sums = torch.empty(B, n_spans, C, **f32)
+    sqs = torch.empty(B, n_spans, C, **f32)
+    mean = torch.empty(B, num_groups, **f32)
+    rstd = torch.empty(B, num_groups, **f32)
+    y = torch.empty_like(x)
+    partial[(B, n_spans)](x, sums, sqs, rows, C, span,
+                          BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8)
+    stats[(B, num_groups)](sums, sqs, mean, rstd, n_spans, C, num_groups,
+                           gsize, 1.0 / (rows * gsize), eps,
+                           BLOCK_S=_next_pow2(n_spans),
+                           BLOCK_G=_next_pow2(gsize), num_warps=4)
+    apply[(B, -(-rows // block_r))](x, y, weight, bias, mean, rstd, rows, C,
+                                    num_groups, gsize, BLOCK_R=block_r,
+                                    BLOCK_C=block_c, SILU=silu, num_warps=8)
+    return y
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 1e-5,
+               silu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU) over x [B, ..., C] (channels last) with fp32
+    statistics; returns x's dtype.  CUDA tensors launch the Triton kernels,
+    CPU tensors run :func:`reference_group_norm`."""
+    if not x.is_cuda:
+        return reference_group_norm(x, weight, bias, num_groups, eps, silu)
+    y = _launch(x, weight, bias, num_groups, eps, silu)
+    group_norm.launches += 1
+    return y
+
+
+group_norm.launches = 0
