@@ -9,7 +9,13 @@ Each kernel runs in bf16 and is held against its plain version in fp32 on
 the same bf16 inputs.  Tolerances: attention, 2e-2 absolute on O(1)
 outputs (bf16 probabilities and bf16 output, 2^-8 relative each);
 GroupNorm, 3e-2 relative to max(1, |y|) (one bf16 ulp of values up to 4 is
-2^-6, plus fp32 sums in another order).
+2^-6, plus fp32 sums in another order); fused resnet, 2e-2 of max |ref|
+(the kernel rounds the activations entering both convolutions and the
+intermediate h to bf16, 2^-9 relative each, over K = 9 * Cin products);
+best match, max scores to 1e-4 absolute (fp32 sums of up to 1728 products
+in another order) and argmax equal wherever the plain version's top two
+scores differ by more than 1e-3 (closer pairs are near-ties that the sum
+order may flip), exact duplicate dst rows going to the lowest index.
 """
 
 from __future__ import annotations
@@ -20,11 +26,16 @@ import torch
 
 from vidtome_torch.ops import attention as t_attn
 from vidtome_torch.ops import groupnorm as t_gn
+from vidtome_torch.ops import matching as t_match
+from vidtome_torch.ops import resnet as t_res
 
 torch.set_num_threads(2)
 
 ATTN_TOL = 2e-2
 GN_TOL = 3e-2
+RESNET_TOL = 2e-2
+MATCH_TOL = 1e-4
+MATCH_GAP = 1e-3
 
 
 @pytest.fixture
@@ -101,3 +112,96 @@ def test_group_norm_kernel_matches_plain(cuda, B, rows, C, silu, eps):
     assert got.dtype == torch.bfloat16
     err = ((got.float() - want).abs() / want.abs().clamp_min(1.0)).max()
     assert err.item() < GN_TOL
+
+
+def _resnet_args(rng, cuda, B, H, W, Ci, Co):
+    f32 = lambda *shape, s=1.0, m=0.0: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=shape) * s + m).astype(np.float32)).to(cuda)
+    args = [_bf16(rng, (B, H, W, Ci), cuda), f32(B, Co, s=0.3),
+            f32(Ci, s=0.2, m=1.0), f32(Ci, s=0.1),
+            f32(Co, Ci, 3, 3, s=(9 * Ci) ** -0.5).bfloat16(), f32(Co, s=0.1),
+            f32(Co, s=0.2, m=1.0), f32(Co, s=0.1),
+            f32(Co, Co, 3, 3, s=(9 * Co) ** -0.5).bfloat16(), f32(Co, s=0.1)]
+    if Ci != Co:
+        args += [f32(Co, Ci, s=Ci ** -0.5).bfloat16(), f32(Co, s=0.1)]
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Ci,Co", [
+    (8, 64, 64, 320, 320),    # SD1.5 level 0, identity shortcut
+    (4, 64, 64, 960, 320),    # ragged width, projection, cfg-skip batch
+    (2, 8, 8, 96, 32),        # tiny widths, projection, 8x8 image
+    (1, 13, 21, 64, 64),      # ragged tiles on both image axes
+])
+def test_fused_resnet_kernel_matches_plain(cuda, B, H, W, Ci, Co):
+    rng = np.random.default_rng(5)
+    args = _resnet_args(rng, cuda, B, H, W, Ci, Co)
+    before = t_res.fused_resnet.launches
+    got = t_res.fused_resnet(*args)
+    torch.cuda.synchronize()
+    assert t_res.fused_resnet.launches == before + 1
+    want = t_res.reference_fused_resnet(*[a.float() for a in args])
+    assert got.shape == (B, H, W, Co) and got.dtype == torch.bfloat16
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() < RESNET_TOL
+
+
+@pytest.mark.cuda
+def test_fused_resnet_kernel_rejects_fp32(cuda):
+    args = _resnet_args(np.random.default_rng(0), cuda, 1, 8, 8, 32, 32)
+    with pytest.raises(TypeError):
+        t_res.fused_resnet(*[a.float() for a in args])
+
+
+def _unit_bf16(rng, shape, cuda):
+    a = rng.normal(size=shape).astype(np.float32)
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    return torch.from_numpy(a).to(cuda, torch.bfloat16)
+
+
+def _check_match(got, want, scores):
+    top2 = scores.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > MATCH_GAP
+    assert (got[0] - want[0]).abs().max().item() < MATCH_TOL
+    assert torch.equal(got[1][clear], want[1][clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,C", [
+    (2, 12288, 4096, 320),    # level-0 local round
+    (2, 300, 211, 40),        # ragged S and D, C not a multiple of 16
+    (1, 64, 64, 1728),        # widest C the kernel takes
+])
+def test_best_match_kernel_matches_plain(cuda, B, S, D, C):
+    rng = np.random.default_rng(6)
+    src, dst = _unit_bf16(rng, (B, S, C), cuda), _unit_bf16(rng, (B, D, C), cuda)
+    before = t_match.best_match.launches
+    got = t_match.best_match(src, dst)
+    torch.cuda.synchronize()
+    assert t_match.best_match.launches == before + 1
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.long
+    scores = torch.bmm(src.float(), dst.float().transpose(1, 2))
+    _check_match(got, t_match.reference_best_match(src.float(), dst.float()),
+                 scores)
+
+
+@pytest.mark.cuda
+def test_best_match_kernel_ties_to_lowest_index(cuda):
+    """dst is a set of rows followed by an exact copy of it: every score
+    appears twice and the lowest index must win."""
+    rng = np.random.default_rng(7)
+    src = _unit_bf16(rng, (2, 500, 64), cuda)
+    base = _unit_bf16(rng, (2, 130, 64), cuda)
+    got = t_match.best_match(src, torch.cat([base, base], dim=1))
+    want = t_match.reference_best_match(src.float(), base.float())
+    scores = torch.bmm(src.float(), base.float().transpose(1, 2))
+    assert (got[1] < 130).all()
+    _check_match(got, want, scores)
+
+
+@pytest.mark.cuda
+def test_best_match_kernel_rejects_fp32(cuda):
+    x = torch.zeros(1, 64, 32, device=cuda)
+    with pytest.raises(TypeError):
+        t_match.best_match(x, x)

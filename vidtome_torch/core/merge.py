@@ -13,7 +13,9 @@ host-side Python ints and ``merge`` slices them instead of gathering.
 
 Semantics kept from the JAX package: the metric is cosine-normalised in
 fp32 and cast to bf16 before scoring (scores accumulate in fp32); every src
-token's best dst is the plain score product plus max/argmax; the kept set
+token's best dst comes from ``ops/matching.best_match`` (the Hopper kernel
+on the card, the plain score product plus max/argmax on the CPU, ties to
+the lowest dst index either way); the kept set
 is the ``S - r`` lowest best-scores (ties broken by position); and
 ``len_quantum`` rounds ``r`` up so merged lengths land on tile multiples,
 which changes ``r`` and so is part of the semantics.
@@ -25,6 +27,8 @@ import dataclasses
 from typing import Sequence
 
 import torch
+
+from vidtome_torch.ops.matching import best_match
 
 
 @dataclasses.dataclass
@@ -54,13 +58,6 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     flat = idx + torch.arange(B, device=idx.device)[:, None] * N
     return x.reshape(B * N, C).index_select(0, flat.reshape(-1)).reshape(
         B, idx.shape[1], C)
-
-
-def best_match(src_m: torch.Tensor, dst_m: torch.Tensor):
-    """Per-src best dst: bf16 operands, fp32 scores -> (max [B, S] f32,
-    argmax [B, S] int64)."""
-    scores = torch.bmm(src_m.float(), dst_m.float().transpose(1, 2))
-    return scores.max(dim=-1)
 
 
 def _build_plan(metric: torch.Tensor, a_idx: torch.Tensor,

@@ -1,7 +1,7 @@
 """Building blocks of the Stable Diffusion UNet, NHWC at every boundary.
 
-Counterpart of ``vidtome_tpu/models/layers.py`` (the exact path: no int8,
-no fused resnet or sublayer, no PnP injection).  Activations are
+Counterpart of ``vidtome_tpu/models/layers.py`` (no int8, no fused
+sublayer, no PnP injection).  Activations are
 [B, H, W, C] (or [B, S, C] tokens) as in the JAX package; a contiguous NHWC
 tensor permuted to NCHW is already ``channels_last``, so ``F.conv2d`` takes
 it without a copy.  Parameter names follow the diffusers layout
@@ -9,8 +9,10 @@ it without a copy.  Parameter names follow the diffusers layout
 checkpoint loads with few renames (``models/convert.py``).
 
 On CUDA every GroupNorm runs the Triton kernel (``ops/groupnorm.py``) and
-every attention the flash kernel (``ops/attention.py``); LayerNorm, convs
-and dense layers stay PyTorch's, as the JAX package leaves them to XLA.
+every attention the flash kernel (``ops/attention.py``); with
+``resnet_mode="fused"`` every ResnetBlock2D runs the fused resnet kernel
+(``ops/resnet.py``).  LayerNorm, the other convs and dense layers stay
+PyTorch's, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ from vidtome_torch.core import merge as merge_ops
 from vidtome_torch.models.tome import ToMeCall
 from vidtome_torch.ops.attention import flash_attention
 from vidtome_torch.ops.groupnorm import group_norm
+from vidtome_torch.ops.resnet import fused_resnet
+
+RESNET_MODES = ("off", "fused")
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -74,7 +79,14 @@ class TimestepEmbedding(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """GN+SiLU -> conv3x3 -> +temb -> GN+SiLU -> conv3x3 (+shortcut)."""
+    """GN+SiLU -> conv3x3 -> +temb -> GN+SiLU -> conv3x3 (+shortcut).
+
+    ``resnet_mode="fused"`` (config key ``generation.resnet_mode`` /
+    ``inversion.resnet_mode``, passed per call) runs the block through
+    ``ops/resnet.fused_resnet`` on the same parameters: the kernel on a
+    CUDA tensor (bf16; anything else raises), its plain version on a CPU
+    tensor.  The time-embedding projection is computed here, in fp32, as
+    the JAX package does (``layers.py:321-322``)."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int):
         super().__init__()
@@ -86,13 +98,32 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                resnet_mode: str = "off") -> torch.Tensor:
+        if resnet_mode == "fused":
+            return self._fused(x, temb)
+        if resnet_mode != "off":
+            raise ValueError(f"resnet_mode must be one of {RESNET_MODES}, "
+                             f"got {resnet_mode!r}")
         h = self.conv1(self.norm1(x))
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
         h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
+
+    def _fused(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        proj = self.time_emb_proj
+        tvec = F.linear(F.silu(temb.float()), proj.weight.float(),
+                        proj.bias.float())
+        sc = self.conv_shortcut
+        return fused_resnet(
+            x, tvec, self.norm1.weight, self.norm1.bias, self.conv1.weight,
+            self.conv1.bias, self.norm2.weight, self.norm2.bias,
+            self.conv2.weight, self.conv2.bias,
+            None if sc is None else sc.weight[:, :, 0, 0],
+            None if sc is None else sc.bias,
+            self.norm1.num_groups, self.norm2.num_groups, self.norm1.eps)
 
 
 class Downsample2D(nn.Module):

@@ -1,8 +1,8 @@
 """Conditional UNet of Stable Diffusion 1.x, NHWC.
 
-Counterpart of ``vidtome_tpu/models/unet.py`` on the exact path: no
-deep-feature cache (``cache_mode="off"`` only), no PnP injection, no
-ControlNet residuals, no SDXL embeddings.  Module names follow diffusers'
+Counterpart of ``vidtome_tpu/models/unet.py``: the exact path and the
+deep-feature cache split (``cache_mode``); no PnP injection, no ControlNet
+residuals, no SDXL embeddings.  Module names follow diffusers'
 ``UNet2DConditionModel`` (``down_blocks.0.resnets.1`` ...), so its state
 dict is the diffusers one.  Token merging enters through ``tome_call``
 (``models/tome.py``) in every transformer block at downsample <=
@@ -115,9 +115,28 @@ class UNet2DConditionModel(nn.Module):
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor, t, context: torch.Tensor,
-                tome_call: ToMeCall | None = None) -> torch.Tensor:
+                tome_call: ToMeCall | None = None, cache_mode: str = "off",
+                deep_cache: torch.Tensor | None = None,
+                resnet_mode: str = "off"):
         """x [B, H, W, Cin], t scalar timestep, context [B, S, Dctx]
-        -> eps [B, H, W, Cout] in the weights' dtype."""
+        -> eps [B, H, W, Cout] in the weights' dtype.
+
+        ``cache_mode`` (the deep-feature step cache, JAX ``unet.py:
+        166-310``): "full" returns ``(eps, deep)``, ``deep`` being the input
+        of the last up block after the preceding upsample; "shallow" runs
+        only conv_in, down block 0 (without its downsample), the last up
+        block and the head around a cached ``deep``.  A shallow call fed
+        the ``deep`` of a full call at the same t reproduces its eps.
+        ``resnet_mode`` ("off" / "fused") is passed to every
+        ResnetBlock2D of this call."""
+        if cache_mode not in ("off", "full", "shallow"):
+            raise ValueError(f"cache_mode {cache_mode!r}")
+        n_up = len(self.up_blocks)
+        if cache_mode != "off" and n_up < 2:
+            raise ValueError("deep-feature caching needs >= 2 UNet levels")
+        run_deep = cache_mode != "shallow"
+        if not run_deep and deep_cache is None:
+            raise ValueError("cache_mode='shallow' needs deep_cache")
         dtype = self.conv_in.weight.dtype
         B = x.shape[0]
         temb = timestep_embedding(t, self.config.block_out_channels[0])
@@ -127,27 +146,36 @@ class UNet2DConditionModel(nn.Module):
 
         h = self.conv_in(x.to(dtype))
         skips = [h]
-        for blk in self.down_blocks:
+        for blk in self.down_blocks if run_deep else self.down_blocks[:1]:
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
+                h = res(h, temb, resnet_mode)
                 if len(blk.attentions):
                     h = blk.attentions[j](h, context, tome_call)
                 skips.append(h)
-            for down in blk.downsamplers:
+            for down in blk.downsamplers if run_deep else ():
                 h = down(h)
                 skips.append(h)
 
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h = mid.attentions[0](h, context, tome_call)
-        h = mid.resnets[1](h, temb)
+        if run_deep:
+            mid = self.mid_block
+            h = mid.resnets[0](h, temb, resnet_mode)
+            h = mid.attentions[0](h, context, tome_call)
+            h = mid.resnets[1](h, temb, resnet_mode)
+        else:
+            h = deep_cache.to(dtype)
 
-        for blk in self.up_blocks:
+        deep = None
+        for i, blk in enumerate(self.up_blocks):
+            if not run_deep and i < n_up - 1:
+                continue
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = res(torch.cat([h, skips.pop()], dim=-1), temb, resnet_mode)
                 if len(blk.attentions):
                     h = blk.attentions[j](h, context, tome_call)
             for up in blk.upsamplers:
                 h = up(h)
+                if i == n_up - 2:
+                    deep = h  # input of the last up block: the cache cut
 
-        return self.conv_out(self.conv_norm_out(h))
+        out = self.conv_out(self.conv_norm_out(h))
+        return (out, deep) if cache_mode == "full" else out

@@ -147,9 +147,55 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1).bit_length())
 
 
+def stats_from_partials(sums: torch.Tensor, sqs: torch.Tensor,
+                         num_groups: int, count: int,
+                         eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2: per-span channel sums and sums of squares [B, n_spans, C]
+    (fp32) over ``count`` rows -> group mean and rstd [B, G], reduced in a
+    fixed order."""
+    _, stats, _ = _kernels()
+    B, n_spans, C = sums.shape
+    if C % num_groups:
+        raise ValueError(f"{C} channels do not split into {num_groups} groups")
+    gsize = C // num_groups
+    mean = torch.empty(B, num_groups, dtype=torch.float32, device=sums.device)
+    rstd = torch.empty_like(mean)
+    stats[(B, num_groups)](sums, sqs, mean, rstd, n_spans, C, num_groups,
+                           gsize, 1.0 / (count * gsize), eps,
+                           BLOCK_S=_next_pow2(n_spans),
+                           BLOCK_G=_next_pow2(gsize), num_warps=4)
+    return mean, rstd
+
+
+def _tiling(rows: int, C: int) -> tuple[int, int, int]:
+    """(block_r, block_c, span) of passes 1 and 3."""
+    block_c = _next_pow2(C)
+    block_r = max(1, _TILE_ELEMS // block_c)
+    n_spans = max(1, min(_MAX_SPANS, -(-rows // block_r)))
+    span = -(-rows // n_spans)
+    return block_r, block_c, -(-span // block_r) * block_r
+
+
+def group_stats(x: torch.Tensor, num_groups: int,
+                eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm statistics of a contiguous CUDA x [B, ..., C]: mean and
+    rstd [B, G] in fp32 (passes 1 and 2).  The fused resnet block
+    (``ops/resnet.py``) takes its GN1 statistics from here."""
+    partial, _, _ = _kernels()
+    B, C = x.shape[0], x.shape[-1]
+    rows = x.numel() // (B * C)
+    block_r, block_c, span = _tiling(rows, C)
+    n_spans = -(-rows // span)
+    sums = torch.empty(B, n_spans, C, dtype=torch.float32, device=x.device)
+    sqs = torch.empty_like(sums)
+    partial[(B, n_spans)](x, sums, sqs, rows, C, span,
+                          BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8)
+    return stats_from_partials(sums, sqs, num_groups, rows, eps)
+
+
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             num_groups: int, eps: float, silu: bool) -> torch.Tensor:
-    partial, stats, apply = _kernels()
+    _, _, apply = _kernels()
     B, C = x.shape[0], x.shape[-1]
     rows = x.numel() // (B * C)
     if C % num_groups:
@@ -159,29 +205,13 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             raise ValueError(f"{name}: expected [{C}] on {x.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
     x = x.contiguous()
-    gsize = C // num_groups
-    block_c = _next_pow2(C)
-    block_r = max(1, _TILE_ELEMS // block_c)
-    n_spans = max(1, min(_MAX_SPANS, -(-rows // block_r)))
-    span = -(-rows // n_spans)
-    span = -(-span // block_r) * block_r
-    n_spans = -(-rows // span)
-
-    f32 = dict(dtype=torch.float32, device=x.device)
-    sums = torch.empty(B, n_spans, C, **f32)
-    sqs = torch.empty(B, n_spans, C, **f32)
-    mean = torch.empty(B, num_groups, **f32)
-    rstd = torch.empty(B, num_groups, **f32)
+    mean, rstd = group_stats(x, num_groups, eps)
+    block_r, block_c, _ = _tiling(rows, C)
     y = torch.empty_like(x)
-    partial[(B, n_spans)](x, sums, sqs, rows, C, span,
-                          BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8)
-    stats[(B, num_groups)](sums, sqs, mean, rstd, n_spans, C, num_groups,
-                           gsize, 1.0 / (rows * gsize), eps,
-                           BLOCK_S=_next_pow2(n_spans),
-                           BLOCK_G=_next_pow2(gsize), num_warps=4)
     apply[(B, -(-rows // block_r))](x, y, weight, bias, mean, rstd, rows, C,
-                                    num_groups, gsize, BLOCK_R=block_r,
-                                    BLOCK_C=block_c, SILU=silu, num_warps=8)
+                                    num_groups, C // num_groups,
+                                    BLOCK_R=block_r, BLOCK_C=block_c,
+                                    SILU=silu, num_warps=8)
     return y
 
 

@@ -63,12 +63,9 @@ class VAECoder:
 # Options of the JAX package that the port does not run yet, with their
 # off value: a config that turns one on is refused rather than run without it.
 _UNPORTED = {
-    "control": "none", "cache_interval": 0, "cache_schedule": None,
-    "cfg_interval": 0, "cfg_schedule": None, "eps_interval": 0,
-    "eps_schedule": None, "chunk_batch": False, "chunk_boundaries": "rotate",
+    "control": "none", "chunk_batch": False, "chunk_boundaries": "rotate",
     "merge_crossattn": False, "merge_ff": False, "refiner": None,
-    "use_lora": False, "resnet_mode": "off", "sublayer_mode": "off",
-    "quant": "none",
+    "use_lora": False, "sublayer_mode": "off", "quant": "none",
 }
 
 

@@ -1,12 +1,26 @@
 """Generation stage: chunked CFG denoising with token merging.
 
-Counterpart of the exact path of ``vidtome_tpu/pipeline/generator.py``.  Per
-timestep, the frames are cut into chunks of ``chunk_size`` (the rotate-mode
-schedule of ``core/chunk.py``); each chunk runs [uncond; cond] lanes through
-the merging UNet, the first chunk initialising every block's global token
-bank and the rest merging against it and replacing it; the CFG combine is
-fp32; the DDIM update follows.  The JAX package's jit / fori_loop / scan
+Counterpart of ``vidtome_tpu/pipeline/generator.py``.  Per timestep, the
+frames are cut into chunks of ``chunk_size`` (the rotate-mode schedule of
+``core/chunk.py``); each chunk runs [uncond; cond] lanes through the merging
+UNet, the first chunk initialising every block's global token bank and the
+rest merging against it and replacing it; the CFG combine is fp32; the DDIM
+update follows.  The JAX package's jit / fori_loop / scan / lax.cond
 structure is a plain Python loop here.
+
+The serving caches (``configs/serve.yaml``; each is off unless its
+interval or schedule is set, see :func:`refresh_mask`):
+
+  * deep-feature cache ``cache_interval`` / ``cache_schedule``: refresh
+    steps run the full UNet and keep the input of its last up block per
+    lane and frame; the steps between run only the level-0 path around it;
+  * CFG delta cache ``cfg_interval`` / ``cfg_schedule``: refresh steps keep
+    the guidance delta (cond - uncond) per frame; the steps between drop the
+    uncond lane from the batch and apply eps = cond + (gs - 1) * delta;
+  * eps skip ``eps_interval`` / ``eps_schedule``: the steps between run no
+    UNet at all, only the DDIM update on the last guidance-combined eps,
+    extrapolated from the last refreshes with ``eps_extrapolate`` 1
+    (linear) or 2 (quadratic) by :func:`extrap_weights`.
 
 Randomness: the chunk schedule comes from ``np.random.default_rng(seed)`` as
 in the JAX package; the merge draws (dst frame per local round, global
@@ -17,21 +31,179 @@ every prompt, so every edit sees the same schedule and draws.
 
 from __future__ import annotations
 
+import collections
+import sys
+
 import numpy as np
 import torch
 
 from vidtome_torch.core import chunk as chunking
 from vidtome_torch.core.scheduler import DDIMScheduler, ddim_step
+from vidtome_torch.models.layers import RESNET_MODES
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            reject_unported, resolve_precision)
 
 
+def refresh_mask(spec: str | None, interval: int, num_steps: int,
+                 start: int = 0, kind: str = "cache") -> np.ndarray:
+    """Boolean refresh mask [num_steps] for a step cache.
+
+    ``spec`` (wins over ``interval``) is a comma-separated list of
+    segments consumed in order from ``start``:
+
+      * ``full:K``    -- K consecutive refresh (full) steps;
+      * ``shallow:K`` -- K consecutive cached (shallow) steps;
+      * ``every:NxK`` -- every-Nth refresh for the next K steps;
+      * ``uniform:N`` -- every-Nth refresh for the remaining steps (must be
+                         the last segment).
+
+    Without a spec, ``interval`` gives the uniform every-Nth pattern.
+    Steps past the listed segments refresh; entries before ``start`` are
+    marked full.  The first step must refresh (the cache starts empty)."""
+    mask = np.ones(num_steps, bool)
+    i = start
+    if spec:
+        segments = [s.strip() for s in str(spec).split(",") if s.strip()]
+        for seg_no, seg in enumerate(segments):
+            seg_kind, _, arg = seg.partition(":")
+            if seg_kind not in ("full", "shallow", "uniform",
+                                "every") or not arg:
+                raise ValueError(f"bad cache schedule segment {seg!r} "
+                                 f"in {spec!r}")
+            if seg_kind == "every":
+                n_s, _, span_s = arg.partition("x")
+                if not n_s or not span_s:
+                    raise ValueError(f"'every' segment needs NxK (every-"
+                                     f"Nth for K steps): {seg!r}")
+                n, span = int(n_s), int(span_s)
+                if n < 1 or span < 1:
+                    raise ValueError(f"every:NxK needs N,K >= 1: {seg!r}")
+                stop = min(i + span, num_steps)
+                for j in range(i, stop):
+                    mask[j] = (j - i) % n == 0
+                i = stop
+                continue
+            n = int(arg)
+            if seg_kind == "uniform":
+                if seg_no != len(segments) - 1:
+                    raise ValueError(
+                        f"'uniform' must be the last segment: {spec!r}")
+                if n < 1:
+                    raise ValueError(f"uniform interval must be >=1: "
+                                     f"{spec!r}")
+                for j in range(i, num_steps):
+                    mask[j] = (j - i) % n == 0
+                i = num_steps
+            else:
+                stop = min(i + n, num_steps)
+                mask[i:stop] = seg_kind == "full"
+                i = stop
+        mask[i:] = True
+    elif interval:
+        for j in range(start, num_steps):
+            mask[j] = (j - start) % interval == 0
+    if start < num_steps and not mask[start]:
+        what = ("eps schedule must run the UNet on its first step"
+                if kind == "eps"
+                else f"{kind} schedule must refresh on its first step")
+        raise ValueError(f"{what} (step {start}, spec {spec!r}): "
+                         "the cache starts empty")
+    return mask
+
+
+def extrap_weights(t: float, s2: float, s1: float, s0: float,
+                   order: int) -> tuple[float, float, float]:
+    """Combination weights (w2, w1, w0) for an eps-skip prediction at step
+    ``t`` from the last refreshes at steps s2 (newest), s1, s0:
+    eps_hat = w2*eps2 + w1*eps1 + w0*eps0.  Order reduces while the history
+    is short (aliased or missing nodes): 0 or one refresh -> plain reuse;
+    two -> linear; three (order 2) -> quadratic Lagrange.  The one
+    predictor of both stages (the JAX generator's in-graph Newton form
+    computes the same polynomial)."""
+    if order < 1 or s1 < 0 or s1 == s2:
+        return 1.0, 0.0, 0.0
+    if order < 2 or s0 < 0 or s0 == s1:
+        f = (t - s2) / (s2 - s1)
+        return 1.0 + f, -f, 0.0
+    w0 = (t - s1) * (t - s2) / ((s0 - s1) * (s0 - s2))
+    w1 = (t - s0) * (t - s2) / ((s1 - s0) * (s1 - s2))
+    w2 = (t - s0) * (t - s1) / ((s2 - s0) * (s2 - s1))
+    return w2, w1, w0
+
+
+class EpsHistory:
+    """The eps-skip predictor's state: the eps of the last three UNet steps
+    (fp32) and their step indices, newest first.  Until the second and
+    third refreshes the older slots alias the newest, so the prediction
+    reduces to reuse / linear, as in both JAX stages."""
+
+    def __init__(self, order: int):
+        self.order = order
+        self.eps: list[torch.Tensor] = []
+        self.steps: list[int] = []
+
+    def push(self, eps: torch.Tensor, step: int) -> None:
+        if not self.eps:
+            self.eps, self.steps = [eps] * 3, [step] * 3
+        else:
+            self.eps = [eps] + self.eps[:2]
+            self.steps = [step] + self.steps[:2]
+
+    def predict(self, step: int) -> torch.Tensor:
+        w = extrap_weights(step, *self.steps, self.order)
+        out = w[0] * self.eps[0]
+        for wi, e in zip(w[1:], self.eps[1:]):
+            if wi:
+                out = out + wi * e
+        return out
+
+
+def parse_eps_extrapolate(cfg) -> int:
+    order = int(cfg.get("eps_extrapolate", 0) or 0)
+    if order not in (0, 1, 2):
+        raise ValueError("eps_extrapolate must be false/true/1/2 "
+                         f"(got {order!r})")
+    return order
+
+
+def parse_resnet_mode(stage_cfg, config) -> str:
+    mode = str(stage_cfg.get("resnet_mode", config.get("resnet_mode", "off"))
+               or "off")
+    if mode not in RESNET_MODES:
+        raise ValueError(f"resnet_mode must be one of {RESNET_MODES}, got "
+                         f"{mode!r}")
+    return mode
+
+
 class Generator:
     def __init__(self, bundle: ModelBundle, config):
         gene = config["generation"]
+        use_pnp = gene.get("control", "none") == "pnp"
+        self.cache_interval = int(gene.get("cache_interval", 0) or 0)
+        self.cache_schedule = gene.get("cache_schedule") or None
+        self.cfg_interval = int(gene.get("cfg_interval", 0) or 0)
+        self.cfg_schedule = gene.get("cfg_schedule") or None
+        self.eps_interval = int(gene.get("eps_interval", 0) or 0)
+        self.eps_schedule = gene.get("eps_schedule") or None
+        self.eps_extrapolate = parse_eps_extrapolate(gene)
+        self.cache_on = bool(self.cache_interval or self.cache_schedule)
+        self.cfg_on = bool(self.cfg_interval or self.cfg_schedule)
+        self.eps_on = bool(self.eps_interval or self.eps_schedule)
+        if self.eps_on and use_pnp:
+            raise ValueError(
+                "eps_interval/eps_schedule cannot be combined with "
+                "control: pnp -- skipped steps run no UNet, dropping that "
+                "timestep's PnP injections.")
+        if self.cache_on and use_pnp:
+            raise ValueError(
+                "cache_interval/cache_schedule cannot be combined with "
+                "control: pnp -- cached (shallow) steps skip the up-block-1 "
+                "feature injections.  Use cfg_interval/cfg_schedule or "
+                "disable the deep-feature cache.")
         reject_unported("generation", gene, config)
+        self.resnet_mode = parse_resnet_mode(gene, config)
         self.bundle = bundle
         self.seed = int(config.get("seed", 123))
         self.n_timesteps = int(gene["n_timesteps"])
@@ -59,6 +231,12 @@ class Generator:
         self.scheduler = DDIMScheduler.create(self.n_timesteps)
         self.text = TextEncoder(bundle)
         self.vae = VAECoder(bundle, batch_size=int(gene.get("batch_size", 8)))
+        # UNet calls of the last ddim_sample by kind: "full" (the whole
+        # UNet, cache off or refresh), "shallow" (level-0 path around the
+        # deep cache), "cfg_skip" (uncond lane dropped) and "eps_skip"
+        # (steps that ran no UNet)
+        self.unet_calls: collections.Counter = collections.Counter()
+        self._eps_align_warned = False
 
     def configure_frames(self, n: int) -> None:
         """Set n_frames / n_padded / pad_src for an n-frame clip."""
@@ -77,6 +255,47 @@ class Generator:
             self.tome, self.scheduler.num_steps, n_chunks,
             torch.Generator().manual_seed(self.seed))
 
+    def mode_masks(self, start: int = 0) -> np.ndarray | None:
+        """[num_steps, 3] bool refresh table (column 0: deep-feature cache,
+        column 1: CFG delta cache, column 2: run the UNet at all), or None
+        when all three caches are off.  Refresh steps of an active deep or
+        CFG cache that fall on eps-skip steps run the UNet; deep refreshes
+        that fall on CFG-skip steps also refresh the CFG delta (the uncond
+        lane's deep slice refreshes only on steps that run that lane)."""
+        if not (self.cache_on or self.cfg_on or self.eps_on):
+            return None
+        n = self.scheduler.num_steps
+        deep = refresh_mask(self.cache_schedule, self.cache_interval or 1,
+                            n, start, kind="cache")
+        cfgm = refresh_mask(self.cfg_schedule, self.cfg_interval or 1,
+                            n, start, kind="cfg")
+        epsm = refresh_mask(self.eps_schedule, self.eps_interval or 1,
+                            n, start, kind="eps")
+        if self.eps_on:
+            align = np.zeros(n, bool)
+            if self.cache_on:
+                align |= deep
+            if self.cfg_on:
+                align |= cfgm
+            forced = int((align[start:] & ~epsm[start:]).sum())
+            if forced:
+                if not self._eps_align_warned:
+                    print(f"[WARNING] {forced} deep/CFG cache refresh steps "
+                          "fall on eps-skip steps; those steps now run the "
+                          "UNet (eps-run mask auto-aligned upward).",
+                          file=sys.stderr)
+                    self._eps_align_warned = True
+                epsm = epsm | align
+        if self.cache_on and self.cfg_on:
+            misaligned = int((deep[start:] & ~cfgm[start:]).sum())
+            if misaligned:
+                print(f"[WARNING] {misaligned} deep-cache refresh steps fall "
+                      "on CFG-skip steps (stale uncond deep slice). "
+                      "Auto-aligning: those steps now also refresh the CFG "
+                      "delta cache.")
+                cfgm = cfgm | deep
+        return np.stack([deep, cfgm, epsm], axis=1)
+
     @torch.inference_mode()
     def ddim_sample(self, x: torch.Tensor, context: torch.Tensor,
                     fidx_table: np.ndarray | None = None,
@@ -91,11 +310,33 @@ class Generator:
             draws = self.draw_source(n_chunks)
         unet = self.bundle.unet
         gs = self.guidance_scale
-        ctx = context.repeat_interleave(F, dim=0)  # lane-major [uncond*F; cond*F]
         fidx_all = torch.as_tensor(fidx_table, dtype=torch.long,
                                    device=x.device)
+        modes = self.mode_masks()
+        deep = ucond = None
+        if self.cache_on:  # [lanes, Fpad, h, w, C1]
+            ch = unet.config.block_out_channels[1]
+            deep = x.new_zeros((2,) + x.shape[:3] + (ch,))
+        if self.cfg_on:  # the guidance delta, [Fpad, h, w, 4] fp32
+            ucond = torch.zeros(x.shape[:3] + (4,), dtype=torch.float32,
+                                device=x.device)
+        history = EpsHistory(self.eps_extrapolate)
+        calls = self.unet_calls = collections.Counter()
         for i in range(sch.num_steps):
+            if modes is not None and not modes[i, 2]:
+                # eps skip: no UNet, the DDIM update on the predicted eps
+                calls["eps_skip"] += 1
+                x = ddim_step(x, history.predict(i),
+                              *sch.sample_alpha_pair(i)).to(x.dtype)
+                continue
             t = int(sch.timesteps[i])
+            cache_mode = "off"
+            if self.cache_on:
+                cache_mode = "full" if modes[i, 0] else "shallow"
+            cfg_skip = self.cfg_on and not modes[i, 1]
+            # lane-major [uncond*F; cond*F], or [cond*F] on a CFG skip
+            lanes = [1] if cfg_skip else [0, 1]
+            ctx = context[lanes].repeat_interleave(F, dim=0)
             eps = torch.zeros_like(x)
             banks: dict = {}
             for c in range(n_chunks):
@@ -106,11 +347,35 @@ class Generator:
                 call = draws.call(self.tome, i, c, mode, banks)
                 gather, scatter = fidx_all[i, c, :, 0], fidx_all[i, c, :, 1]
                 x_chunk = x[gather]
-                eps_all = unet(torch.cat([x_chunk, x_chunk]), t, ctx,
-                               tome_call=call)
-                eps_u, eps_c = eps_all[:F].float(), eps_all[F:].float()
-                # CFG combine in fp32, cast before the difference
-                eps[scatter] = (eps_u + gs * (eps_c - eps_u)).to(eps.dtype)
+                deep_in = None
+                if cache_mode == "shallow":
+                    # frame gather first: the small result takes the lanes
+                    deep_in = deep[:, gather][lanes].flatten(0, 1)
+                out = unet(x_chunk if cfg_skip else torch.cat([x_chunk,
+                                                               x_chunk]),
+                           t, ctx, tome_call=call, cache_mode=cache_mode,
+                           deep_cache=deep_in, resnet_mode=self.resnet_mode)
+                calls["shallow" if cache_mode == "shallow" else "full"] += 1
+                if cfg_skip:
+                    calls["cfg_skip"] += 1
+                if cache_mode == "full":
+                    out, d = out
+                    d = d.unflatten(0, (len(lanes), F))
+                    for li, lane in enumerate(lanes):
+                        deep[lane, scatter] = d[li]
+                eps_c = out[-F:].float()
+                if cfg_skip:
+                    e = eps_c + (gs - 1.0) * ucond[gather]
+                else:
+                    # CFG combine in fp32, cast before the difference
+                    eps_u = out[:F].float()
+                    delta = eps_c - eps_u
+                    if self.cfg_on:
+                        ucond[scatter] = delta
+                    e = eps_u + gs * delta
+                eps[scatter] = e.to(eps.dtype)
+            if self.eps_on:
+                history.push(eps.float(), i)
             x = ddim_step(x, eps, *sch.sample_alpha_pair(i)).to(x.dtype)
         return x
 

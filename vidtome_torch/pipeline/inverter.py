@@ -1,15 +1,24 @@
 """DDIM inversion stage: source frames -> noisy latents.
 
-Counterpart of the exact path of ``vidtome_tpu/pipeline/inverter.py``
-(``_run`` / ``ddim_inversion``): VAE-encode the clip, walk the DDIM
-schedule upward predicting noise with the UNet (no merging: merging applies
-during generation only), frames in fixed micro-batches.  No step caches and
-no control.  File I/O (loading the video, saving latents) is the caller's:
-``cli.py`` does it for the command line.
+Counterpart of ``vidtome_tpu/pipeline/inverter.py`` (``_run`` /
+``ddim_inversion``): VAE-encode the clip, walk the DDIM schedule upward
+predicting noise with the UNet (no merging: merging applies during
+generation only), frames in fixed micro-batches.  No control.  File I/O
+(loading the video, saving latents) is the caller's: ``cli.py`` does it for
+the command line.
+
+Two of the generator's serving caches apply (inversion has one lane, so no
+CFG cache): the deep-feature cache (``cache_interval`` /
+``cache_schedule``) and the eps skip (``eps_interval`` / ``eps_schedule`` /
+``eps_extrapolate``).  DIRECTION NOTE: schedule specs are read in
+INVERSION step order, which walks the noise schedule upward, so "full:K"
+front-loads refreshes at the LOW-noise end; ``cache_reverse: true`` flips
+both masks so "full:K" refreshes the high-noise end instead.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Callable
 
 import torch
@@ -19,6 +28,9 @@ from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            reject_unported, resolve_precision)
+from vidtome_torch.pipeline.generator import (EpsHistory,
+                                              parse_eps_extrapolate,
+                                              parse_resnet_mode, refresh_mask)
 
 
 def _pad_frames(a: torch.Tensor, n_target: int) -> torch.Tensor:
@@ -30,6 +42,15 @@ class Inverter:
     def __init__(self, bundle: ModelBundle, config):
         inv = config["inversion"]
         reject_unported("inversion", inv, config)
+        self.cache_interval = int(inv.get("cache_interval", 0) or 0)
+        self.cache_schedule = inv.get("cache_schedule") or None
+        self.cache_reverse = bool(inv.get("cache_reverse", False))
+        self.cache_on = bool(self.cache_interval or self.cache_schedule)
+        self.eps_interval = int(inv.get("eps_interval", 0) or 0)
+        self.eps_schedule = inv.get("eps_schedule") or None
+        self.eps_on = bool(self.eps_interval or self.eps_schedule)
+        self.eps_extrapolate = parse_eps_extrapolate(inv)
+        self.resnet_mode = parse_resnet_mode(inv, config)
         self.bundle = bundle
         self.steps = int(inv["steps"])
         self.save_steps = int(inv.get("save_steps", self.steps))
@@ -44,12 +65,50 @@ class Inverter:
             int(t) for t in DDIMScheduler.create(self.save_steps).timesteps)
         self.text = TextEncoder(bundle)
         self.vae = VAECoder(bundle, batch_size=self.batch_size)
+        # UNet calls of the last run by kind ("full", "shallow") and the
+        # steps that ran none ("eps_skip")
+        self.unet_calls: collections.Counter = collections.Counter()
+
+    def step_masks(self, inversion: bool):
+        """(deep-cache refresh mask or None, eps-run mask or None) over the
+        steps in run order; refresh steps of the deep cache that fall on
+        eps-skip steps run the UNet."""
+        n = self.scheduler.num_steps
+        flip = self.cache_reverse and inversion
+        mask = eps_mask = None
+        if self.cache_on:
+            mask = refresh_mask(self.cache_schedule, self.cache_interval or 1,
+                                n)
+            if flip:
+                mask = mask[::-1]
+            if not mask[0]:
+                # a shallow first step would read an empty deep cache
+                raise ValueError("inversion cache schedule must refresh on "
+                                 "its first step (after cache_reverse): the "
+                                 "deep cache starts empty")
+        if self.eps_on:
+            eps_mask = refresh_mask(self.eps_schedule,
+                                    self.eps_interval or 1, n)
+            if flip:
+                eps_mask = eps_mask[::-1]
+            if mask is not None:
+                forced = int((mask & ~eps_mask).sum())
+                if forced:
+                    print(f"[WARNING] {forced} deep-cache refresh steps "
+                          "fall on eps-skip steps; running the UNet there "
+                          "(eps-run mask auto-aligned upward).")
+                    eps_mask = eps_mask | mask
+            if not eps_mask[0]:
+                raise ValueError("inversion eps schedule must run the "
+                                 "first step: the eps cache starts empty")
+        return mask, eps_mask
 
     @torch.inference_mode()
     def _run(self, latents: torch.Tensor, conds: torch.Tensor,
              inversion: bool, on_step: Callable | None = None) -> torch.Tensor:
         """One UNet call per micro-batch of frames and timestep, then the
-        DDIM (inverse) update of all frames (reference invert.py:122-131)."""
+        DDIM (inverse) update of all frames (reference invert.py:122-131);
+        eps-skip steps run only the update on the predicted eps."""
         n, bs = latents.shape[0], self.batch_size
         n_p = -(-n // bs) * bs
         x = _pad_frames(latents, n_p).clone()
@@ -57,15 +116,38 @@ class Inverter:
         sch = self.scheduler
         ts = sch.timesteps[::-1] if inversion else sch.timesteps
         unet = self.bundle.unet
+        mask, eps_mask = self.step_masks(inversion)
+        deep = None
+        if mask is not None:
+            ch = unet.config.block_out_channels[1]
+            deep = x.new_zeros(x.shape[:3] + (ch,))
+        history = EpsHistory(self.eps_extrapolate)
+        calls = self.unet_calls = collections.Counter()
+        update = ddim_inverse_step if inversion else ddim_step
+        alphas = sch.inversion_alpha_pair if inversion else sch.sample_alpha_pair
         for i in range(sch.num_steps):
-            t = int(ts[i])
-            eps = torch.cat([unet(x[b:b + bs], t, conds[b:b + bs])
-                             for b in range(0, n_p, bs)])
-            if inversion:
-                x = ddim_inverse_step(x, eps, *sch.inversion_alpha_pair(i))
+            if eps_mask is not None and not eps_mask[i]:
+                calls["eps_skip"] += 1
+                eps = history.predict(i)
             else:
-                x = ddim_step(x, eps, *sch.sample_alpha_pair(i))
-            x = x.to(latents.dtype)
+                t = int(ts[i])
+                mode = "off" if mask is None else (
+                    "full" if mask[i] else "shallow")
+                parts = []
+                for b in range(0, n_p, bs):
+                    out = unet(x[b:b + bs], t, conds[b:b + bs],
+                               cache_mode=mode,
+                               deep_cache=(deep[b:b + bs]
+                                           if mode == "shallow" else None),
+                               resnet_mode=self.resnet_mode)
+                    calls["shallow" if mode == "shallow" else "full"] += 1
+                    if mode == "full":
+                        out, deep[b:b + bs] = out
+                    parts.append(out)
+                eps = torch.cat(parts)
+                if self.eps_on:
+                    history.push(eps.float(), i)
+            x = update(x, eps, *alphas(i)).to(latents.dtype)
             if on_step is not None:
                 on_step(i, x[:n])
         return x[:n]
