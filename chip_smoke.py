@@ -4,12 +4,13 @@
 
 Phases (any failure exits non-zero before the last line):
   1. device: the card's name and power limit;
-  2. build: compile the CUDA libraries (flash attention, fused resnet, best
-     match: one nvcc each, all started together, sm_90a) and the Triton
+  2. build: compile the CUDA libraries (flash attention, single-pass
+     small-KV attention, fused resnet, best match, fused cross-attention
+     sublayer: one nvcc each, all started together, sm_90a) and the Triton
      GroupNorm kernels from this checkout's sources;
-  3. kernel vs plain: each kernel in bf16 against its plain PyTorch version
-     in fp32 on the same bf16 inputs, at the main paths' shapes, with both
-     times (CUDA events);
+  3. kernel vs plain: each of the six kernels in bf16 against its plain
+     PyTorch version in fp32 on the same bf16 inputs, at the main paths'
+     shapes, with both times (CUDA events);
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
@@ -26,9 +27,23 @@ Phases (any failure exits non-zero before the last line):
      kernels' launch counters must rise, the frames must be finite in
      [0, 1]; prints the stage seconds and the PSNR of the serving frames
      against the exact path's frames from the same inverted latents (with
-     random weights the PSNR bounds nothing: printed only).
-Then one JSON line with the kernels' numbers (launches: the serving
-path's), and last:
+     random weights the PSNR bounds nothing: printed only);
+  7. PnP path: the SD1.5 bundle freed, SD2.1 at full width with random
+     weights (seeded), bf16, the same clip through configs/dog.yaml's
+     inversion and generation keys (prompts aside; default.yaml beneath
+     them, as dog.yaml's base_config) at 50+50 DDIM steps, with
+     save_intermediate and generation.sublayer_mode: fused: the source lane
+     reads the inversion latents of every step, attention / conv injection
+     on the first 25 / 40 steps.  The small-KV kernel must launch exactly
+     once per inversion UNet call and transformer block routed to it, the
+     sublayer kernel 16 times per generation UNet call (SD2.1's transformer
+     blocks); flash, GroupNorm and best match must rise;
+  8. SD2.1 reference check: one UNet call at an 8x8 latent with 3 lanes,
+     both injections on and sublayer_mode="fused", card (bf16 kernels) vs
+     CPU (fp32 plain); the same call with the injections off must differ
+     from it by more than the tolerance.
+Then one JSON line with the kernels' numbers (launches: summed over the
+exact, serving and PnP paths, each counted from 0), and last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 
@@ -36,6 +51,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -56,6 +72,10 @@ RESNET_TOL = 2e-2  # relative to max |ref|: bf16 activations and h (2^-9 each)
 MATCH_TOL = 1e-4  # absolute on max scores: fp32 sums in another order
 MATCH_GAP = 1e-3  # argmax compared where the plain top-2 gap exceeds this
 REF_TOL = 5e-2    # relative to max |ref|: bf16 path vs fp32 path, many layers
+SMALL_KV_TOL = 2e-2  # absolute, as ATTN_TOL: bf16 probabilities and output
+SUBLAYER_TOL = 5e-2  # absolute on x3, y3: x3 up to |6| rounds by 2^-6, and
+#                      y2, q, p, a are rounded in the kernel, not the plain
+PNP_STEPS = 50
 
 # demo.yaml on top of default.yaml (generation / inversion keys of the
 # exact path), with STEPS DDIM steps instead of 50
@@ -100,17 +120,43 @@ def exact_config(steps: int) -> dict:
     return cfg
 
 
-KERNELS = ("flash_attention", "group_norm", "fused_resnet", "best_match")
+def pnp_config() -> dict:
+    """configs/dog.yaml's inversion and generation keys over default.yaml's
+    (dog.yaml's base_config), its first edit prompt only, at PNP_STEPS DDIM
+    steps, with generation.sublayer_mode: fused."""
+    import yaml
+
+    def load(name):
+        with open(ROOT / "configs" / name) as f:
+            return yaml.safe_load(f)
+
+    default, dog = load("default.yaml"), load("dog.yaml")
+    cfg = {"seed": dog["seed"], "float_precision": "bf16",
+           "sd_version": dog["sd_version"]}
+    for stage in ("inversion", "generation"):
+        cfg[stage] = {**default[stage], **dog[stage]}
+    name, prompt = next(iter(dog["generation"]["prompt"].items()))
+    cfg["generation"].update(prompt={name: prompt}, sublayer_mode="fused",
+                             n_timesteps=PNP_STEPS)
+    cfg["inversion"].update(steps=PNP_STEPS, save_steps=PNP_STEPS)
+    return cfg
+
+
+KERNELS = ("flash_attention", "small_kv_attention", "group_norm",
+           "fused_resnet", "best_match", "fused_cross_sublayer")
 
 
 def counters() -> dict:
     """The launch counter of each kernel wrapper."""
-    from vidtome_torch.ops import attention, groupnorm, matching, resnet
+    from vidtome_torch.ops import (attention, groupnorm, matching, resnet,
+                                   sublayer)
 
     return {"flash_attention": attention.flash_attention,
+            "small_kv_attention": attention.small_kv_attention,
             "group_norm": groupnorm.group_norm,
             "fused_resnet": resnet.fused_resnet,
-            "best_match": matching.best_match}
+            "best_match": matching.best_match,
+            "fused_cross_sublayer": sublayer.fused_cross_sublayer}
 
 
 def reset_launches() -> None:
@@ -130,6 +176,24 @@ FLASH_SHAPES = [  # (B, H, Sq, Skv, D)
     (8, 8, 256, 256, 160),    # L2 per frame
     (8, 8, 4096, 77, 40),     # L0 cross-attention against the prompt
     (8, 1, 4096, 4096, 512),  # VAE mid-block attention
+    (3, 5, 5120, 5120, 64),   # SD2.1 PnP: L0 merged, 3 lanes
+    (3, 5, 6144, 6144, 64),   # SD2.1 PnP: L0 merged (+ global merge)
+    (3, 10, 1536, 1536, 64),  # SD2.1 PnP: L1 merged (+ global merge)
+    (8, 5, 4096, 4096, 64),   # SD2.1 inversion: L0 per frame
+]
+SMALL_KV_SHAPES = [  # (B, H, Sq, Skv, D)
+    (8, 5, 4096, 77, 64),     # SD2.1 inversion: L0 cross-attention
+    (12, 5, 4096, 77, 64),    # SD2.1 PnP generation: L0 cross-attention
+    (12, 20, 256, 256, 64),   # SD2.1 PnP generation: 16x16 self-attention
+    (12, 20, 64, 77, 64),     # SD2.1 mid block cross-attention
+    (8, 8, 4096, 77, 40),     # SD1.5 L0 cross-attention (flash above)
+    (8, 8, 256, 256, 160),    # SD1.5 16x16 self-attention: widest tile
+]
+SUBLAYER_SHAPES = [  # (B, S, C, heads): SD2.1 PnP generation, 77 keys
+    (12, 4096, 320, 5),
+    (12, 1024, 640, 10),
+    (12, 256, 1280, 20),
+    (12, 64, 1280, 20),
 ]
 GN_SHAPES = [  # (B, rows, C, silu, eps)
     (8, 512 * 512, 128, True, 1e-5),   # VAE decoder at 512x512
@@ -177,18 +241,22 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build(dev) -> None:
-    from vidtome_torch.ops import attention, groupnorm, matching, resnet
+    from vidtome_torch.ops import (attention, groupnorm, matching, resnet,
+                                   sublayer)
     from vidtome_torch.ops.cuda_build import build_library
 
     t0 = time.perf_counter()
     libs = {"vidtome_flash": "flash_attention.cu",
-            "vidtome_resnet": "resnet.cu", "vidtome_matching": "matching.cu"}
+            "vidtome_small_kv": "small_kv_attention.cu",
+            "vidtome_resnet": "resnet.cu", "vidtome_matching": "matching.cu",
+            "vidtome_sublayer": "sublayer.cu"}
     logs = {name: [] for name in libs}
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build_library, name, (src,), log=logs[name])
                     for name, src in libs.items()]:
             fut.result()
-    attention._library(), resnet._library(), matching._library()
+    attention._library(), attention._small_kv_library()
+    resnet._library(), matching._library(), sublayer._library()
     t1 = time.perf_counter()
     x = torch.zeros(1, 64, 32, device=dev, dtype=torch.bfloat16)
     for silu in (False, True):
@@ -221,7 +289,8 @@ def global_match_shape() -> tuple:
 
 
 def phase_kernels(dev) -> dict:
-    from vidtome_torch.ops import attention, groupnorm, matching, resnet
+    from vidtome_torch.ops import (attention, groupnorm, matching, resnet,
+                                   sublayer)
 
     rng = np.random.default_rng(0)
 
@@ -230,9 +299,7 @@ def phase_kernels(dev) -> dict:
         return torch.from_numpy(a).to(dev, torch.bfloat16)
 
     # per kernel: max |err| over its shapes, summed kernel ms, summed plain ms
-    stats = {"flash_attention": [0.0, 0.0, 0.0],
-             "group_norm": [0.0, 0.0, 0.0], "fused_resnet": [0.0, 0.0, 0.0],
-             "best_match": [0.0, 0.0, 0.0]}
+    stats = {k: [0.0, 0.0, 0.0] for k in KERNELS}
     for B, H, Sq, Skv, D in FLASH_SHAPES:
         q, k, v = bf16((B, H, Sq, D)), bf16((B, H, Skv, D)), bf16((B, H, Skv, D))
         qf, kf, vf = q.float(), k.float(), v.float()
@@ -247,6 +314,26 @@ def phase_kernels(dev) -> dict:
         if not err < ATTN_TOL:
             raise AssertionError(f"flash kernel disagrees at {(B, H, Sq, Skv, D)}")
         s = stats["flash_attention"]
+        s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
+        del q, k, v, qf, kf, vf, got
+        torch.cuda.empty_cache()
+
+    for B, H, Sq, Skv, D in SMALL_KV_SHAPES:
+        q, k, v = bf16((B, H, Sq, D)), bf16((B, H, Skv, D)), bf16((B, H, Skv, D))
+        qf, kf, vf = q.float(), k.float(), v.float()
+        got = attention.small_kv_attention(q, k, v)
+        want = attention.reference_attention(qf, kf, vf)
+        err = (got.float() - want).abs().max().item()
+        del want
+        ms = cuda_time(lambda: attention.small_kv_attention(q, k, v), 10)
+        plain = cuda_time(lambda: attention.reference_attention(qf, kf, vf), 3)
+        print(f"[kernel] small_kv [{B},{H},{Sq}x{Skv},{D}] max|err| {err:.2e} "
+              f"(tol {SMALL_KV_TOL}) kernel {ms:.3f} ms, plain fp32 "
+              f"{plain:.3f} ms")
+        if not err < SMALL_KV_TOL:
+            raise AssertionError(f"small-KV kernel disagrees at "
+                                 f"{(B, H, Sq, Skv, D)}")
+        s = stats["small_kv_attention"]
         s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
         del q, k, v, qf, kf, vf, got
         torch.cuda.empty_cache()
@@ -337,6 +424,33 @@ def phase_kernels(dev) -> dict:
         s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
         del src, dst, srcf, dstf
         torch.cuda.empty_cache()
+
+    for B, S, C, heads in SUBLAYER_SHAPES:
+        args = [bf16((B, S, C)), bf16((B, S, C), 0.5), bf16((B, 77, C)),
+                bf16((B, 77, C)), f32(C, C, scale=C ** -0.5).bfloat16(),
+                f32(C, C, scale=C ** -0.5).bfloat16(), f32(C, scale=0.1),
+                f32(C, scale=0.1, shift=1.0), f32(C, scale=0.1),
+                f32(C, scale=0.1, shift=1.0), f32(C, scale=0.1)]
+        args_f = [a.float() for a in args]
+        kw = dict(heads=heads, kv_len=77)
+        x3, y3 = sublayer.fused_cross_sublayer(*args, **kw)
+        wx3, wy3 = sublayer.reference_cross_sublayer(*args_f, **kw)
+        err = max((x3.float() - wx3).abs().max().item(),
+                  (y3.float() - wy3).abs().max().item())
+        del x3, y3, wx3, wy3
+        ms = cuda_time(lambda: sublayer.fused_cross_sublayer(*args, **kw), 10)
+        plain = cuda_time(lambda: sublayer.reference_cross_sublayer(
+            *args_f, **kw), 3)
+        print(f"[kernel] fused_cross_sublayer [{B},{S},{C}] heads {heads}, 77 "
+              f"keys: max|err| x3, y3 {err:.2e} (tol {SUBLAYER_TOL}); kernel "
+              f"{ms:.3f} ms, plain fp32 {plain:.3f} ms")
+        if not err < SUBLAYER_TOL:
+            raise AssertionError(f"fused sublayer kernel disagrees at "
+                                 f"{(B, S, C, heads)}")
+        s = stats["fused_cross_sublayer"]
+        s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
+        del args, args_f
+        torch.cuda.empty_cache()
     return stats
 
 
@@ -391,7 +505,8 @@ def phase_main_path(dev, bundle) -> dict:
         raise AssertionError("frames not finite or outside [0, 1]")
     if not torch.isfinite(inverted).all():
         raise AssertionError("inverted latents not finite")
-    for k in ("flash_attention", "group_norm", "best_match"):
+    for k in ("flash_attention", "small_kv_attention", "group_norm",
+              "best_match"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched on the exact "
                                  f"path")
@@ -473,7 +588,7 @@ def phase_serving(dev, bundle) -> dict:
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError("serving frames not finite or outside [0, 1]")
     for k in KERNELS:
-        if launches[k] <= 0:
+        if k != "fused_cross_sublayer" and launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched on the serving "
                                  f"path")
 
@@ -529,6 +644,135 @@ def phase_reference(dev, bundle) -> None:
           + f" (tol {REF_TOL})")
 
 
+def small_kv_blocks(unet, latent: int) -> int:
+    """Attentions of one unmerged UNet call at a latent x latent input that
+    the dispatch sends to the small-KV kernel: every cross-attention (77
+    keys) and the self-attentions over at most SMALL_KV tokens."""
+    from vidtome_torch.models.layers import TransformerBlock
+    from vidtome_torch.ops.attention import SMALL_KV
+
+    blocks = [m for m in unet.modules() if isinstance(m, TransformerBlock)]
+    return sum(1 + ((latent // b.downsample) ** 2 <= SMALL_KV)
+               for b in blocks)
+
+
+def phase_pnp(dev, bundle) -> dict:
+    from vidtome_torch.models.layers import TransformerBlock
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = pnp_config()
+    frames = make_frames()
+    inverter = Inverter(bundle, cfg)
+    generator = Generator(bundle, cfg)
+    times = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    reset_launches()
+    latents, conds = stage("encode", lambda: inverter.encode(frames))
+    enc = read_launches()
+    inverted = stage("invert", lambda: inverter.ddim_inversion(latents, conds))
+    inv_launches = {k: v - enc[k] for k, v in read_launches().items()}
+    generator.configure_frames(N_FRAMES)
+    name, prompt = next(iter(generator.prompt.items()))
+    context = stage("text", lambda: generator.context(prompt))
+    table = generator.fidx_table()
+    pad = torch.as_tensor(generator.pad_src, device=dev)
+    src = inverter.source_table(generator.scheduler.timesteps)[:, pad]
+    gen_before = read_launches()
+    clean = stage("generate", lambda: generator.ddim_sample(
+        inverted[pad], context, fidx_table=table, src_table=src))
+    gen_launches = {k: v - gen_before[k] for k, v in read_launches().items()}
+    out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
+    launches = read_launches()
+
+    n_blocks = sum(isinstance(m, TransformerBlock)
+                   for m in bundle.unet.modules())
+    inv_calls = sum(inverter.unet_calls.values())
+    gen_calls = sum(v for k, v in generator.unet_calls.items()
+                    if k != "eps_skip")
+    want_small = inv_calls * small_kv_blocks(bundle.unet, SIZE // 8)
+    print(f"[pnp] SD2.1, {N_FRAMES} frames {SIZE}x{SIZE}, {PNP_STEPS}+"
+          f"{PNP_STEPS} DDIM steps, {table.shape[1]} chunks x 3 lanes, "
+          f"configs/dog.yaml keys, sublayer_mode fused; steps with attention "
+          f"injection {generator.pnp_attn_steps}, with conv injection "
+          f"{generator.pnp_conv_steps}; {n_blocks} transformer blocks")
+    print(f"[pnp] UNet calls: inversion {dict(inverter.unet_calls)}, "
+          f"generation {dict(generator.unet_calls)}; small-KV launches in "
+          f"the inversion {inv_launches['small_kv_attention']} (want "
+          f"{want_small}); sublayer launches in the generation "
+          f"{gen_launches['fused_cross_sublayer']} (want {n_blocks} x "
+          f"{gen_calls})")
+    if table.shape[1] != 2 or generator.num_lanes != 3:
+        raise AssertionError("expected 2 chunks of 3 lanes")
+    if inv_launches["small_kv_attention"] != want_small:
+        raise AssertionError("small-KV launches differ from the inversion's "
+                             "UNet calls x routed attentions")
+    if gen_launches["fused_cross_sublayer"] != n_blocks * gen_calls:
+        raise AssertionError("sublayer launches differ from 16 per "
+                             "generation UNet call")
+    if inv_launches["fused_cross_sublayer"] or launches["fused_resnet"]:
+        raise AssertionError("a kernel outside this path launched")
+    for k in ("flash_attention", "group_norm", "best_match",
+              "small_kv_attention"):
+        if gen_launches[k] <= 0:
+            raise AssertionError(f"{k} kernel never launched in the PnP "
+                                 f"generation")
+    if tuple(out.shape) != (N_FRAMES, SIZE, SIZE, 3):
+        raise AssertionError(f"frames shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("PnP frames not finite or outside [0, 1]")
+    if not torch.isfinite(inverted).all():
+        raise AssertionError("inverted latents not finite")
+    print(f"[pnp] frames mean {out.mean().item():.4f} std "
+          f"{out.std().item():.4f}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"[pnp] kernel launches in this run: {launches}")
+    return launches
+
+
+def phase_reference_sd21(dev, bundle) -> None:
+    """SD2.1 weights, one UNet call at an 8x8 latent with 3 lanes, both PnP
+    injections on and sublayer_mode="fused": bf16 kernels on the card vs
+    fp32 plain versions on the CPU; injections off must differ."""
+    rng = np.random.default_rng(2)
+    width = bundle.unet.config.cross_attention_dim
+    x = torch.from_numpy(rng.standard_normal((3, 8, 8, 4), np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((3, 77, width), np.float32))
+    cpu = copy.deepcopy(bundle.unet).to("cpu", torch.float32)
+    with torch.inference_mode():
+        def run(m, d, inject):
+            return m(x.to(d), 501, ctx.to(d), sublayer_mode="fused",
+                     attn_inject=inject, conv_inject=inject,
+                     num_lanes=3).float().cpu()
+
+        before = counters()["fused_cross_sublayer"].launches
+        got = run(bundle.unet, dev, True)
+        if counters()["fused_cross_sublayer"].launches == before:
+            raise AssertionError("the reference call ran no sublayer kernel")
+        want = run(cpu, "cpu", True)
+        off = run(cpu, "cpu", False)
+    scale = want.abs().max()
+    err = ((got - want).abs().max() / scale).item()
+    gap = ((off - want).abs().max() / scale).item()
+    print(f"[reference] SD2.1 weights, 64x64 input, 3 lanes, injections on, "
+          f"sublayer fused: card bf16 kernels vs CPU fp32 plain max rel err "
+          f"{err:.2e} (tol {REF_TOL}); injections off vs on {gap:.2e} (must "
+          f"exceed {REF_TOL})")
+    if not err < REF_TOL:
+        raise AssertionError(f"SD2.1 card vs CPU reference rel err {err}")
+    if not gap > REF_TOL:
+        raise AssertionError(f"PnP injections change the output by only "
+                             f"{gap}")
+    del cpu
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -549,16 +793,39 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[main] SD1.5 random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s")
-    phase_main_path(dev, bundle)
+    exact = phase_main_path(dev, bundle)
     torch.cuda.synchronize()
     phase_reference(dev, bundle)
     torch.cuda.synchronize()
     launches = phase_serving(dev, bundle)
     torch.cuda.synchronize()
 
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bundle = init_model("2.1", weight_dtype="bf16", device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[pnp] SD2.1 random weights on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pnp = phase_pnp(dev, bundle)
+    torch.cuda.synchronize()
+    phase_reference_sd21(dev, bundle)
+    torch.cuda.synchronize()
+    for path in (exact, pnp):
+        launches = {k: launches[k] + path[k] for k in KERNELS}
+    missing = [k for k in KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"never launched on a main path: {missing}")
+
     sources = {
         "flash_attention": ("cuda", "vidtome_torch/csrc/flash_attention.cu",
                             "vidtome_tpu/ops/attention.py:121"),
+        "small_kv_attention": ("cuda",
+                               "vidtome_torch/csrc/small_kv_attention.cu",
+                               "vidtome_tpu/ops/attention.py:248"),
+        "fused_cross_sublayer": ("cuda", "vidtome_torch/csrc/sublayer.cu",
+                                 "vidtome_tpu/ops/sublayer.py:165"),
         "group_norm": ("triton", "vidtome_torch/ops/groupnorm.py",
                        "vidtome_tpu/ops/groupnorm.py:108"),
         "fused_resnet": ("cuda", "vidtome_torch/csrc/resnet.cu",

@@ -15,7 +15,11 @@ intermediate h to bf16, 2^-9 relative each, over K = 9 * Cin products);
 best match, max scores to 1e-4 absolute (fp32 sums of up to 1728 products
 in another order) and argmax equal wherever the plain version's top two
 scores differ by more than 1e-3 (closer pairs are near-ties that the sum
-order may flip), exact duplicate dst rows going to the lowest index.
+order may flip), exact duplicate dst rows going to the lowest index;
+single-pass attention, 2e-2 absolute as flash; fused sublayer, 5e-2
+absolute on x3 and y3 (x3 up to |6| rounds to bf16 by up to 2^-6, and the
+kernel rounds y2, q, p and a to bf16 where the fp32 plain version does
+not, about 1e-2 more).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from vidtome_torch.ops import attention as t_attn
 from vidtome_torch.ops import groupnorm as t_gn
 from vidtome_torch.ops import matching as t_match
 from vidtome_torch.ops import resnet as t_res
+from vidtome_torch.ops import sublayer as t_sub
 
 torch.set_num_threads(2)
 
@@ -36,6 +41,7 @@ GN_TOL = 3e-2
 RESNET_TOL = 2e-2
 MATCH_TOL = 1e-4
 MATCH_GAP = 1e-3
+SUBLAYER_TOL = 5e-2
 
 
 @pytest.fixture
@@ -205,3 +211,90 @@ def test_best_match_kernel_rejects_fp32(cuda):
     x = torch.zeros(1, 64, 32, device=cuda)
     with pytest.raises(TypeError):
         t_match.best_match(x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Skv,D,kv_valid", [
+    (8, 5, 4096, 77, 64, None),     # SD2.1 cross-attention (inversion)
+    (8, 8, 4096, 77, 40, None),     # SD1.5 cross-attention, level 0
+    (8, 8, 256, 256, 160, None),    # SD1.5 16x16 self-attention: widest
+    (24, 20, 64, 64, 64, None),     # SD2.1 8x8 self-attention
+    (2, 3, 300, 80, 64, 77),        # masked key tail, ragged Sq
+    (2, 2, 100, 16, 16, None),      # tiny test widths
+])
+def test_small_kv_kernel_matches_plain(cuda, B, H, Sq, Skv, D, kv_valid):
+    rng = np.random.default_rng(8)
+    q, k, v = (_bf16(rng, (B, H, s, D), cuda) for s in (Sq, Skv, Skv))
+    before = t_attn.small_kv_attention.launches
+    got = t_attn.small_kv_attention(q, k, v, kv_valid_len=kv_valid)
+    torch.cuda.synchronize()
+    assert t_attn.small_kv_attention.launches == before + 1
+    want = t_attn.reference_attention(q.float(), k.float(), v.float(),
+                                      kv_valid_len=kv_valid)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max().item() < ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_small_kv_kernel_takes_head_views_and_dispatch(cuda):
+    rng = np.random.default_rng(9)
+    B, S, H, D = 2, 333, 5, 64
+    x = _bf16(rng, (B, S, H * D), cuda)
+    ctx = [_bf16(rng, (B, 77, H * D), cuda) for _ in range(2)]
+    q = x.view(B, S, H, D).transpose(1, 2)
+    k, v = (t.view(B, 77, H, D).transpose(1, 2) for t in ctx)
+    before = (t_attn.small_kv_attention.launches,
+              t_attn.flash_attention.launches)
+    got = t_attn.attention(q, k, v)
+    assert (t_attn.small_kv_attention.launches,
+            t_attn.flash_attention.launches) == (before[0] + 1, before[1])
+    want = t_attn.reference_attention(q.float(), k.float(), v.float())
+    assert (got.float() - want).abs().max().item() < ATTN_TOL
+    t_attn.attention(q, q, q)  # 333 keys: flash
+    assert t_attn.flash_attention.launches == before[1] + 1
+
+
+def _sublayer_args(rng, cuda, B, S, C, skv):
+    def f32(*shape, s=1.0, m=0.0):
+        return torch.from_numpy((rng.normal(size=shape) * s + m).astype(
+            np.float32)).to(cuda)
+
+    return [_bf16(rng, (B, S, C), cuda), _bf16(rng, (B, S, C), cuda, 0.5),
+            _bf16(rng, (B, skv, C), cuda), _bf16(rng, (B, skv, C), cuda),
+            f32(C, C, s=C ** -0.5).bfloat16(), f32(C, C, s=C ** -0.5).bfloat16(),
+            f32(C, s=0.1), f32(C, s=0.1, m=1.0), f32(C, s=0.1),
+            f32(C, s=0.1, m=1.0), f32(C, s=0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C,heads,skv,kv_len", [
+    (12, 4096, 320, 5, 77, 77),     # SD2.1 PnP generation, level 0
+    (12, 1024, 640, 10, 77, 77),    # level 1
+    (12, 256, 1280, 20, 77, 77),    # level 2
+    (12, 64, 1280, 20, 77, 77),     # mid block
+    (2, 4096, 320, 8, 77, 77),      # SD1.5 level 0: D = 40
+    (2, 100, 640, 8, 80, 77),       # D = 80, ragged S, masked key tail
+    (2, 16, 64, 4, 16, 16),         # tiny test widths
+])
+def test_fused_sublayer_kernel_matches_plain(cuda, B, S, C, heads, skv,
+                                             kv_len):
+    args = _sublayer_args(np.random.default_rng(10), cuda, B, S, C, skv)
+    before = t_sub.fused_cross_sublayer.launches
+    x3, y3 = t_sub.fused_cross_sublayer(*args, heads=heads, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert t_sub.fused_cross_sublayer.launches == before + 1
+    wx3, wy3 = t_sub.reference_cross_sublayer(*[a.float() for a in args],
+                                              heads=heads, kv_len=kv_len)
+    assert x3.dtype == y3.dtype == torch.bfloat16
+    assert (x3.float() - wx3).abs().max().item() < SUBLAYER_TOL
+    assert (y3.float() - wy3).abs().max().item() < SUBLAYER_TOL
+
+
+@pytest.mark.cuda
+def test_fused_sublayer_kernel_rejects_what_it_cannot_take(cuda):
+    args = _sublayer_args(np.random.default_rng(11), cuda, 1, 32, 320, 77)
+    with pytest.raises(TypeError):
+        t_sub.fused_cross_sublayer(*[a.float() for a in args], heads=8,
+                                   kv_len=77)
+    with pytest.raises(ValueError):  # D = 320 / 3 is not an integer
+        t_sub.fused_cross_sublayer(*args, heads=3, kv_len=77)

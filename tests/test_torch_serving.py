@@ -191,11 +191,11 @@ def test_serve_yaml_builds_both_stages():
 
 
 @pytest.mark.parametrize("stage,key,value", [
-    ("generation", "sublayer_mode", "fused"),
+    ("generation", "use_lora", True),
     ("generation", "quant", "int8"),
     ("generation", "chunk_batch", True),
     ("generation", "chunk_boundaries", "ragged"),
-    ("inversion", "sublayer_mode", "fused"),
+    ("inversion", "control", "canny"),
     ("top", "quant", "int8"),
 ])
 def test_serve_yaml_still_refuses_unported(stage, key, value):

@@ -71,6 +71,14 @@ def port_bundle_from_jax(bundle, sd_version: str = "tiny"):
     return port
 
 
+def module_state(tree) -> dict[str, torch.Tensor]:
+    """A flax parameter tree of one UNet module (a block, an attention, a
+    transformer) -> the port module's state dict, by the UNet rules."""
+    tree = jax.tree.map(np.asarray, jax.device_get(tree))
+    state = convert.from_jax_params({"m": tree}, "unet")
+    return {k.removeprefix("m."): v for k, v in state.items()}
+
+
 def psnr(a, b) -> float:
     mse = float(np.mean((np.asarray(a, np.float64)
                          - np.asarray(b, np.float64)) ** 2))

@@ -69,10 +69,21 @@ def run_generation(config, bundle):
                               gene.get("frame_ids", None))
     latents_dir = artifacts.get_latents_dir(gene["latents_path"],
                                             bundle.model_key)
-    init = artifacts.load_latent(latents_dir,
-                                 int(generator.scheduler.timesteps[0]),
-                                 frame_ids=frame_ids)
-    outputs = generator(torch.from_numpy(np.asarray(init)))
+    # PnP reads the inversion latents of every generation timestep (JAX
+    # generator.py:966-971, :1010-1019)
+    ts = [int(t) for t in generator.scheduler.timesteps]
+    if not generator.use_pnp:
+        ts = ts[:1]
+    if not artifacts.check_latents_exist(latents_dir, ts):
+        raise FileNotFoundError(
+            f"Required latents not found at {latents_dir}. Note: PnP needs "
+            f"inversion latents saved at every generation timestep "
+            f"(inversion.save_intermediate).")
+    table = torch.from_numpy(np.stack([
+        artifacts.load_latent(latents_dir, t, frame_ids=frame_ids)
+        for t in ts]))
+    outputs = generator(table[0],
+                        src_table=table if generator.use_pnp else None)
     for name, frames in outputs.items():
         out_dir = os.path.join(gene["output_path"], name)
         save_config(config, out_dir, gene=True)

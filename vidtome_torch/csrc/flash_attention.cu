@@ -35,9 +35,7 @@
 // returns the CUDA error of the launch (0 on success); the Python wrapper
 // raises on anything else.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -45,45 +43,12 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key/value rows per tile
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
 constexpr int kPad = 8;        // shared-memory row padding (elements)
-constexpr float kNegBig = -1e30f;
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Copy `rows` x `cols` (cols a multiple of 8) from global memory into a
-// shared tile with row stride `ld`, 16 bytes per thread and step.  Rows at
-// or past `valid_rows` and columns at or past `valid_cols` are zero.
-__device__ __forceinline__ void load_tile(
-    __nv_bfloat16* smem, int ld, const __nv_bfloat16* base, long long row_stride,
-    int rows, int cols, int valid_rows, int valid_cols) {
-  const int chunks = cols / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows && c < valid_cols) {
-      val = *reinterpret_cast<const uint4*>(base + r * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(smem + r * ld + c) = val;
-  }
-}
+using vt::kNegBig;
+using vt::load_tile;
+using vt::mma_16816;
+using vt::pack_bf16;
+using vt::pack_raw;
 
 template <int DP, int DV>
 __global__ void __launch_bounds__(kThreads)

@@ -33,9 +33,7 @@
 // returns the CUDA error of the launch (0 on success), or -1 for an
 // unsupported C; the Python wrapper raises on anything but 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -46,14 +44,7 @@ constexpr int kThreads = 128;
 constexpr int kPad = 8;        // shared-memory row padding (elements)
 constexpr int kMaxC = 1728;
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using vt::mma_16816;
 
 __global__ void __launch_bounds__(kThreads)
 best_match_kernel(const __nv_bfloat16* __restrict__ src,

@@ -43,9 +43,7 @@
 // or -1 for arguments the kernel does not take; the Python wrapper raises
 // on anything but 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -72,14 +70,7 @@ struct ConvArgs {
   int H, W, Cin, Cout, G;
 };
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using vt::mma_16816;
 
 template <int TW>
 __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {

@@ -1,10 +1,12 @@
-"""CLIP text encoder (SD1.x: ViT-L/14, 12 layers, quick-gelu, 768 wide).
+"""CLIP text encoder (SD1.x: ViT-L/14, 12 layers, quick-gelu, 768 wide;
+SD2.x: OpenCLIP ViT-H, 23 layers, exact gelu, 1024 wide).
 
-Counterpart of ``vidtome_tpu/models/clip_text.py`` for ``SD15_TEXT`` and
-``TINY_TEXT``: a pre-LayerNorm transformer with causal masking whose final
-LayerNorm'd hidden state feeds the UNet's cross-attention.  Module names
-follow transformers' ``CLIPTextModel``.  The causal attention is plain
-PyTorch in fp32, as the JAX package computes it outside any kernel.
+Counterpart of ``vidtome_tpu/models/clip_text.py`` for ``SD15_TEXT``,
+``SD21_TEXT`` and ``TINY_TEXT``: a pre-LayerNorm transformer with causal
+masking whose final LayerNorm'd hidden state feeds the UNet's
+cross-attention.  Module names follow transformers' ``CLIPTextModel``.
+The causal attention is plain PyTorch in fp32, as the JAX package
+computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -23,10 +26,13 @@ class CLIPTextConfig:
     num_heads: int = 12
     intermediate_size: int = 3072
     max_positions: int = 77
+    hidden_act: str = "quick_gelu"   # SD2.x OpenCLIP: "gelu"
     layer_norm_eps: float = 1e-5
 
 
 SD15_TEXT = CLIPTextConfig()
+SD21_TEXT = CLIPTextConfig(hidden_size=1024, num_layers=23, num_heads=16,
+                           intermediate_size=4096, hidden_act="gelu")
 TINY_TEXT = CLIPTextConfig(vocab_size=1000, hidden_size=32, num_layers=2,
                            num_heads=2, intermediate_size=64,
                            max_positions=16)
@@ -61,12 +67,17 @@ class CLIPAttention(nn.Module):
 class CLIPMLP(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
+        if cfg.hidden_act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"hidden_act {cfg.hidden_act!r}")
+        self.quick = cfg.hidden_act == "quick_gelu"
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
-        return self.fc2(h * torch.sigmoid(1.702 * h))  # quick_gelu
+        # gelu: the exact (erf) form, transformers' ACT2FN["gelu"]
+        return self.fc2(h * torch.sigmoid(1.702 * h) if self.quick
+                        else F.gelu(h))
 
 
 class CLIPLayer(nn.Module):

@@ -1,7 +1,6 @@
 """Building blocks of the Stable Diffusion UNet, NHWC at every boundary.
 
-Counterpart of ``vidtome_tpu/models/layers.py`` (no int8, no fused
-sublayer, no PnP injection).  Activations are
+Counterpart of ``vidtome_tpu/models/layers.py`` (no int8).  Activations are
 [B, H, W, C] (or [B, S, C] tokens) as in the JAX package; a contiguous NHWC
 tensor permuted to NCHW is already ``channels_last``, so ``F.conv2d`` takes
 it without a copy.  Parameter names follow the diffusers layout
@@ -9,10 +8,19 @@ it without a copy.  Parameter names follow the diffusers layout
 checkpoint loads with few renames (``models/convert.py``).
 
 On CUDA every GroupNorm runs the Triton kernel (``ops/groupnorm.py``) and
-every attention the flash kernel (``ops/attention.py``); with
-``resnet_mode="fused"`` every ResnetBlock2D runs the fused resnet kernel
-(``ops/resnet.py``).  LayerNorm, the other convs and dense layers stay
+every attention one of the attention kernels (``ops/attention.py``: the
+single-pass kernel for KV of at most 256 tokens, flash above); with
+``resnet_mode="fused"`` every ResnetBlock2D without a PnP injection runs
+the fused resnet kernel (``ops/resnet.py``), and with
+``sublayer_mode="fused"`` every bf16 TransformerBlock runs its
+norm2 -> attn2 -> norm3 chain through the fused sublayer kernel
+(``ops/sublayer.py``).  LayerNorm, the other convs and dense layers stay
 PyTorch's, as the JAX package leaves them to XLA.
+
+PnP (``control: pnp``) rides the batch as lane-major blocks
+[source | uncond | cond]: :func:`inject_lane0` hands lane 0's values to
+every lane, for the q and k of the injected self-attentions and for the
+conv features of the injected resnet (JAX ``layers.py:344-430``).
 """
 
 from __future__ import annotations
@@ -23,11 +31,27 @@ from torch import nn
 
 from vidtome_torch.core import merge as merge_ops
 from vidtome_torch.models.tome import ToMeCall
-from vidtome_torch.ops.attention import flash_attention
+from vidtome_torch.ops.attention import attention
 from vidtome_torch.ops.groupnorm import group_norm
 from vidtome_torch.ops.resnet import fused_resnet
+from vidtome_torch.ops.sublayer import fused_cross_sublayer
 
 RESNET_MODES = ("off", "fused")
+SUBLAYER_MODES = ("off", "fused")
+
+
+def inject_lane0(x: torch.Tensor, num_lanes: int,
+                 flag: bool = True) -> torch.Tensor:
+    """Every lane's rows replaced by lane 0's when ``flag`` is true.  The
+    batch is lane-major, ``num_lanes`` blocks of equal size (reference
+    utils/pnp_utils.py:62-70,146-155)."""
+    if not flag or num_lanes < 2:
+        return x
+    return _tile_lanes(x[:x.shape[0] // num_lanes], num_lanes)
+
+
+def _tile_lanes(lane0: torch.Tensor, num_lanes: int) -> torch.Tensor:
+    return lane0.repeat(num_lanes, *([1] * (lane0.ndim - 1)))
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -86,7 +110,12 @@ class ResnetBlock2D(nn.Module):
     ``ops/resnet.fused_resnet`` on the same parameters: the kernel on a
     CUDA tensor (bf16; anything else raises), its plain version on a CPU
     tensor.  The time-embedding projection is computed here, in fp32, as
-    the JAX package does (``layers.py:321-322``)."""
+    the JAX package does (``layers.py:321-322``).
+
+    PnP conv injection (``inject``, a bool, or None where the block takes
+    none): when true, lanes 1.. take lane 0's features after conv2, before
+    the shortcut.  A block given an ``inject`` never takes the fused
+    kernel, whatever ``resnet_mode`` says (JAX ``layers.py:262-264``)."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int):
         super().__init__()
@@ -99,15 +128,18 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                resnet_mode: str = "off") -> torch.Tensor:
-        if resnet_mode == "fused":
-            return self._fused(x, temb)
-        if resnet_mode != "off":
+                resnet_mode: str = "off", inject: bool | None = None,
+                num_lanes: int = 1) -> torch.Tensor:
+        if resnet_mode not in RESNET_MODES:
             raise ValueError(f"resnet_mode must be one of {RESNET_MODES}, "
                              f"got {resnet_mode!r}")
+        if resnet_mode == "fused" and inject is None:
+            return self._fused(x, temb)
         h = self.conv1(self.norm1(x))
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
         h = self.conv2(self.norm2(h))
+        if inject:
+            h = inject_lane0(h, num_lanes)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -151,7 +183,12 @@ class Upsample2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention; self-attention when ``context`` is None."""
+    """Multi-head attention; self-attention when ``context`` is None.
+
+    ``share_qk`` (PnP source-attention injection): q and k come from lane
+    0 for every lane, so all lanes reuse the source attention map on their
+    own values (reference utils/pnp_utils.py:47-95).  Only lane 0's q and k
+    are projected then."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: int | None = None):
@@ -163,8 +200,8 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                share_qk: bool = False, num_lanes: int = 1) -> torch.Tensor:
         ctx = x if context is None else context
         B, S, _ = x.shape
 
@@ -172,8 +209,13 @@ class CrossAttention(nn.Module):
             return t.view(B, t.shape[1], self.heads,
                           self.head_dim).transpose(1, 2)
 
-        out = flash_attention(heads(self.to_q(x)), heads(self.to_k(ctx)),
-                              heads(self.to_v(ctx)))
+        if share_qk and num_lanes > 1:
+            q = _tile_lanes(self.to_q(x[:B // num_lanes]), num_lanes)
+            k = _tile_lanes(self.to_k(ctx[:ctx.shape[0] // num_lanes]),
+                            num_lanes)
+        else:
+            q, k = self.to_q(x), self.to_k(ctx)
+        out = attention(heads(q), heads(k), heads(self.to_v(ctx)))
         out = out.transpose(1, 2).reshape(B, S, self.heads * self.head_dim)
         return self.to_out[0](out)
 
@@ -203,7 +245,16 @@ class TransformerBlock(nn.Module):
     """Transformer block with cross-frame token merging around attn1
     (reference patch.py:148-169): norm1 -> [join frames -> local merge ->
     global merge against the bank] -> attn1 -> unmerge -> residual ->
-    norm2 -> attn2 -> residual -> norm3 -> ff -> residual."""
+    norm2 -> attn2 -> residual -> norm3 -> ff -> residual.
+
+    ``attn_inject`` (PnP) shares lane 0's q and k in attn1, merged or not.
+    ``sublayer_mode="fused"`` (config key ``generation.sublayer_mode`` /
+    ``inversion.sublayer_mode``, passed per call) runs residual + norm2 +
+    attn2 + residual + norm3 as one ``ops/sublayer.fused_cross_sublayer``
+    call on the same parameters, where the JAX package would
+    (``layers.py:526-537``): bf16 weights and ``heads * head_dim == dim``;
+    the K/V projections of the text context stay two matmuls outside it
+    (``layers.py:665-667``)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  downsample: int):
@@ -217,19 +268,43 @@ class TransformerBlock(nn.Module):
         self.ff = GEGLUFeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                tome_call: ToMeCall | None = None) -> torch.Tensor:
+                tome_call: ToMeCall | None = None,
+                attn_inject: bool = False, num_lanes: int = 1,
+                sublayer_mode: str = "off") -> torch.Tensor:
+        if sublayer_mode not in SUBLAYER_MODES:
+            raise ValueError(f"sublayer_mode must be one of "
+                             f"{SUBLAYER_MODES}, got {sublayer_mode!r}")
         norm_x = self.norm1(x)
         cfg = tome_call.cfg if tome_call is not None else None
         if (cfg is not None and self.downsample <= cfg.max_downsample
                 and cfg.frames > 1):
-            x = x + self._merged_attn1(norm_x, tome_call)
+            a1 = self._merged_attn1(norm_x, tome_call, attn_inject, num_lanes)
         else:
-            x = x + self.attn1(norm_x)
+            a1 = self.attn1(norm_x, share_qk=attn_inject, num_lanes=num_lanes)
+        if sublayer_mode == "fused" and self._fused_sublayer_ok():
+            x3, y3 = self._fused_sublayer(x, a1, context)
+            return x3 + self.ff(y3)
+        x = x + a1
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
-    def _merged_attn1(self, norm_x: torch.Tensor,
-                      call: ToMeCall) -> torch.Tensor:
+    def _fused_sublayer_ok(self) -> bool:
+        attn = self.attn2
+        return (attn.to_q.weight.dtype == torch.bfloat16
+                and attn.heads * attn.head_dim == self.norm2.weight.shape[0])
+
+    def _fused_sublayer(self, x, a1, context):
+        attn = self.attn2
+        ctx = context.to(attn.to_k.weight.dtype)
+        return fused_cross_sublayer(
+            x.contiguous(), a1.contiguous(), attn.to_k(ctx), attn.to_v(ctx),
+            attn.to_q.weight, attn.to_out[0].weight, attn.to_out[0].bias,
+            self.norm2.weight, self.norm2.bias, self.norm3.weight,
+            self.norm3.bias, heads=attn.heads, kv_len=context.shape[1],
+            eps=self.norm2.eps)
+
+    def _merged_attn1(self, norm_x: torch.Tensor, call: ToMeCall,
+                      attn_inject: bool, num_lanes: int) -> torch.Tensor:
         cfg = call.cfg
         F_ = cfg.frames
         joined = merge_ops.join_frames(norm_x, F_)
@@ -276,7 +351,7 @@ class TransformerBlock(nn.Module):
         if cache is not None and cached is None:
             cache.setdefault(key, {})["plans"] = plans
 
-        out = self.attn1(tokens)
+        out = self.attn1(tokens, share_qk=attn_inject, num_lanes=num_lanes)
         if global_plan is not None:
             full = merge_ops.unmerge(out, global_plan)
             out = full[:, :L] if local_is_src else full[:, L:]
@@ -285,23 +360,31 @@ class TransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer, conv projections (SD1.x): GN -> proj_in ->
-    blocks -> proj_out (+residual)."""
+    """Spatial transformer: GN -> proj_in -> blocks -> proj_out
+    (+residual).  ``linear``: SD2.x projects with dense layers on the
+    [B, H*W, C] tokens, SD1.x with 1x1 convolutions."""
 
     def __init__(self, channels: int, heads: int, head_dim: int,
-                 context_dim: int, downsample: int, depth: int = 1):
+                 context_dim: int, downsample: int, depth: int = 1,
+                 linear: bool = False):
         super().__init__()
         self.norm = GroupNorm(channels, eps=1e-6)
-        self.proj_in = Conv2d(channels, channels, 1)
+        proj = nn.Linear if linear else (
+            lambda c_in, c_out: Conv2d(c_in, c_out, 1))
+        self.proj_in = proj(channels, channels)
         self.transformer_blocks = nn.ModuleList([
             TransformerBlock(channels, heads, head_dim, context_dim,
                              downsample) for _ in range(depth)])
-        self.proj_out = Conv2d(channels, channels, 1)
+        self.proj_out = proj(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                tome_call: ToMeCall | None = None) -> torch.Tensor:
+                tome_call: ToMeCall | None = None, attn_inject: bool = False,
+                num_lanes: int = 1, sublayer_mode: str = "off") -> torch.Tensor:
         B, H, W, C = x.shape
+        # a 1x1 convolution on NHWC is the dense layer on the tokens, so
+        # both projections run on [B, H, W, C] and the reshapes are views
         h = self.proj_in(self.norm(x)).reshape(B, H * W, C)
         for blk in self.transformer_blocks:
-            h = blk(h, context, tome_call)
+            h = blk(h, context, tome_call, attn_inject, num_lanes,
+                    sublayer_mode)
         return self.proj_out(h.reshape(B, H, W, C)) + x

@@ -1,8 +1,9 @@
 """Model factory: SD version -> modules with weights on a device.
 
-Counterpart of ``vidtome_tpu/models/registry.py`` for ``"1.5"`` and
-``"tiny"``.  ``model_key`` names a local checkpoint directory in the
-standard layout (unet/ vae/ text_encoder/ tokenizer/, safetensors); without
+Counterpart of ``vidtome_tpu/models/registry.py`` for ``"1.5"``,
+``"2.1"`` / ``"2.0"`` (one architecture) and ``"tiny"``.  ``model_key``
+names a local checkpoint directory in the standard layout (unet/ vae/
+text_encoder/ tokenizer/, safetensors); without
 one, weights are random (warned), drawn from a seeded ``torch.Generator``
 with the flax initializer families the JAX package uses: truncated
 ``lecun_normal`` for conv and dense kernels, zero biases, unit / zero norm
@@ -21,19 +22,26 @@ import torch
 from torch import nn
 
 from vidtome_torch.models import convert
-from vidtome_torch.models.clip_text import (SD15_TEXT, TINY_TEXT,
-                                            CLIPTextModel)
+from vidtome_torch.models.clip_text import (SD15_TEXT, SD21_TEXT,
+                                            TINY_TEXT, CLIPTextModel)
 from vidtome_torch.models.layers import GroupNorm
 from vidtome_torch.models.tokenizer import load_tokenizer
-from vidtome_torch.models.unet import (SD15_UNET, TINY_UNET,
+from vidtome_torch.models.unet import (SD15_UNET, SD21_UNET, TINY_UNET,
                                        UNet2DConditionModel)
 from vidtome_torch.models.vae import AutoencoderKL
 
-SD_MODEL_KEYS = {"1.5": "stable-diffusion-v1-5", "tiny": "sd-tiny"}
+SD_MODEL_KEYS = {"2.1": "stable-diffusion-2-1-base",
+                 "2.0": "stable-diffusion-2-base",
+                 "1.5": "stable-diffusion-v1-5", "tiny": "sd-tiny"}
+_SD_VAE = ((128, 256, 512, 512), 2)
 SD_CONFIGS = {
-    "1.5": (SD15_UNET, SD15_TEXT, ((128, 256, 512, 512), 2)),
+    "1.5": (SD15_UNET, SD15_TEXT, _SD_VAE),
+    "2.0": (SD21_UNET, SD21_TEXT, _SD_VAE),
+    "2.1": (SD21_UNET, SD21_TEXT, _SD_VAE),
     "tiny": (TINY_UNET, TINY_TEXT, ((8, 8, 8, 8), 1)),
 }
+# versions the JAX package runs that the port does not yet
+_UNPORTED_VERSIONS = ("depth", "xl", "xl-refiner", "tiny-refiner")
 
 
 @dataclasses.dataclass
@@ -81,6 +89,9 @@ def init_model(sd_version: str = "1.5", model_key: str | None = None,
                seed: int = 0) -> ModelBundle:
     """Build the SD stack on ``device`` (reference utils/utils.py:19-67).
     ``weight_dtype``: 'bf16' (or 'fp16', which means bf16 here) or 'fp32'."""
+    if sd_version in _UNPORTED_VERSIONS:
+        raise NotImplementedError(f"sd_version {sd_version!r} is not ported "
+                                  f"to vidtome_torch yet (ROADMAP.md, queue 1)")
     if sd_version not in SD_CONFIGS:
         raise ValueError(f"Stable-diffusion version {sd_version!r} not "
                          f"supported by the port (choices: "

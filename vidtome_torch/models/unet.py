@@ -1,8 +1,8 @@
-"""Conditional UNet of Stable Diffusion 1.x, NHWC.
+"""Conditional UNet of Stable Diffusion 1.x / 2.x, NHWC.
 
-Counterpart of ``vidtome_tpu/models/unet.py``: the exact path and the
-deep-feature cache split (``cache_mode``); no PnP injection, no ControlNet
-residuals, no SDXL embeddings.  Module names follow diffusers'
+Counterpart of ``vidtome_tpu/models/unet.py``: the exact path, the
+deep-feature cache split (``cache_mode``) and the PnP injection flags; no
+ControlNet residuals, no SDXL embeddings.  Module names follow diffusers'
 ``UNet2DConditionModel`` (``down_blocks.0.resnets.1`` ...), so its state
 dict is the diffusers one.  Token merging enters through ``tome_call``
 (``models/tome.py``) in every transformer block at downsample <=
@@ -31,7 +31,9 @@ class UNetConfig:
     block_out_channels: Sequence[int] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
     cross_attention_dim: int = 768
-    num_heads: int = 8                  # SD1.x: fixed head count per level
+    num_heads: int | None = 8           # SD1.x: fixed head count per level
+    head_dim: int | None = None         # SD2.x: fixed head dim (64)
+    use_linear_projection: bool = False  # SD2.x: dense proj_in / proj_out
     down_block_types: Sequence[str] = (
         "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
         "CrossAttnDownBlock2D", "DownBlock2D")
@@ -39,8 +41,16 @@ class UNetConfig:
         "UpBlock2D", "CrossAttnUpBlock2D",
         "CrossAttnUpBlock2D", "CrossAttnUpBlock2D")
 
+    def heads_for(self, channels: int) -> tuple[int, int]:
+        """(heads, head_dim) of a transformer at this width."""
+        if self.head_dim is not None:
+            return channels // self.head_dim, self.head_dim
+        return self.num_heads, channels // self.num_heads
+
 
 SD15_UNET = UNetConfig()
+SD21_UNET = UNetConfig(cross_attention_dim=1024, num_heads=None, head_dim=64,
+                       use_linear_projection=True)
 TINY_UNET = UNetConfig(
     block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=32,
     num_heads=2,
@@ -70,9 +80,10 @@ class UNet2DConditionModel(nn.Module):
         self.time_embedding = TimestepEmbedding(ch0, temb_ch)
 
         def transformer(ch: int, level: int) -> Transformer2D:
-            return Transformer2D(ch, cfg.num_heads, ch // cfg.num_heads,
+            return Transformer2D(ch, *cfg.heads_for(ch),
                                  cfg.cross_attention_dim,
-                                 downsample=2 ** level)
+                                 downsample=2 ** level,
+                                 linear=cfg.use_linear_projection)
 
         skip_ch = [ch0]
         self.down_blocks = nn.ModuleList()
@@ -117,7 +128,9 @@ class UNet2DConditionModel(nn.Module):
     def forward(self, x: torch.Tensor, t, context: torch.Tensor,
                 tome_call: ToMeCall | None = None, cache_mode: str = "off",
                 deep_cache: torch.Tensor | None = None,
-                resnet_mode: str = "off"):
+                resnet_mode: str = "off", sublayer_mode: str = "off",
+                attn_inject: bool | None = None,
+                conv_inject: bool | None = None, num_lanes: int = 1):
         """x [B, H, W, Cin], t scalar timestep, context [B, S, Dctx]
         -> eps [B, H, W, Cout] in the weights' dtype.
 
@@ -128,7 +141,14 @@ class UNet2DConditionModel(nn.Module):
         block and the head around a cached ``deep``.  A shallow call fed
         the ``deep`` of a full call at the same t reproduces its eps.
         ``resnet_mode`` ("off" / "fused") is passed to every
-        ResnetBlock2D of this call."""
+        ResnetBlock2D of this call, ``sublayer_mode`` ("off" / "fused") to
+        every TransformerBlock.
+
+        PnP (JAX ``unet.py:283-298``): the batch holds ``num_lanes``
+        lane-major blocks, lane 0 the source.  ``conv_inject`` goes to up
+        block 1, resnet 1 only; ``attn_inject`` to up block 1's attentions
+        1 and up and to every attention of the later up blocks.  None means
+        no PnP (the injected resnet may then take the fused kernel)."""
         if cache_mode not in ("off", "full", "shallow"):
             raise ValueError(f"cache_mode {cache_mode!r}")
         n_up = len(self.up_blocks)
@@ -146,11 +166,12 @@ class UNet2DConditionModel(nn.Module):
 
         h = self.conv_in(x.to(dtype))
         skips = [h]
+        blk_kw = dict(num_lanes=num_lanes, sublayer_mode=sublayer_mode)
         for blk in self.down_blocks if run_deep else self.down_blocks[:1]:
             for j, res in enumerate(blk.resnets):
                 h = res(h, temb, resnet_mode)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, context, tome_call)
+                    h = blk.attentions[j](h, context, tome_call, **blk_kw)
                 skips.append(h)
             for down in blk.downsamplers if run_deep else ():
                 h = down(h)
@@ -159,7 +180,7 @@ class UNet2DConditionModel(nn.Module):
         if run_deep:
             mid = self.mid_block
             h = mid.resnets[0](h, temb, resnet_mode)
-            h = mid.attentions[0](h, context, tome_call)
+            h = mid.attentions[0](h, context, tome_call, **blk_kw)
             h = mid.resnets[1](h, temb, resnet_mode)
         else:
             h = deep_cache.to(dtype)
@@ -169,9 +190,14 @@ class UNet2DConditionModel(nn.Module):
             if not run_deep and i < n_up - 1:
                 continue
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=-1), temb, resnet_mode)
+                inj = conv_inject if (i == 1 and j == 1) else None
+                h = res(torch.cat([h, skips.pop()], dim=-1), temb, resnet_mode,
+                        inject=inj, num_lanes=num_lanes)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, context, tome_call)
+                    pnp_here = i >= 2 or (i == 1 and j >= 1)
+                    h = blk.attentions[j](
+                        h, context, tome_call,
+                        attn_inject=bool(attn_inject) and pnp_here, **blk_kw)
             for up in blk.upsamplers:
                 h = up(h)
                 if i == n_up - 2:

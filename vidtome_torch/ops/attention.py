@@ -1,14 +1,22 @@
-"""Attention: the hand-written Hopper flash kernel and its plain version.
+"""Attention: the hand-written Hopper kernels and their plain version.
 
-Counterpart of ``vidtome_tpu/ops/attention.py``.  ``flash_attention``
-replaces the Pallas ``flash_attention`` (``_flash_kernel``): on a CUDA
-tensor it launches ``csrc/flash_attention.cu`` (mma.sync bf16 tensor-core
-tiles, fp32 online softmax; see the source note there for what bounds it
-and how the design answers), on a CPU tensor it runs
-:func:`reference_attention`.  The TPU package routed short KV (<= 256) to
-XLA by a v5e measurement; here every attention of the UNet and the VAE,
-cross-attention over 77 text tokens included, goes through the kernel on
-the card.  Routing by H100 numbers is later work.
+Counterpart of ``vidtome_tpu/ops/attention.py``.  Two kernels, each on a
+CUDA tensor launching its ``csrc/`` source (see the source notes for what
+bounds them and how the designs answer) and on a CPU tensor running
+:func:`reference_attention`:
+
+* ``flash_attention`` replaces the Pallas ``flash_attention``
+  (``_flash_kernel``, ``csrc/flash_attention.cu``): tiled KV, fp32 online
+  softmax;
+* ``small_kv_attention`` replaces the Pallas ``small_kv_attention``
+  (``_small_kv_kernel``, ``csrc/small_kv_attention.cu``): the whole KV of
+  at most 256 keys in one tile, a single softmax pass.
+
+:func:`attention` dispatches as the JAX package's does (``_SMALL_KV_XLA``):
+KV of at most 256 tokens (cross-attention over the 77 text tokens, the
+unmerged self-attention at 16x16 and 8x8 latents) takes the single-pass
+kernel, longer KV the flash kernel.  On the TPU that short branch went to
+XLA by a v5e measurement; on the card it is the hand-written kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +33,13 @@ _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _LOG2E = math.log2(math.e)
 # head dims the library is built for: D is zero-padded to the next one
 _PADDED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 160, 512)
+# the single-pass kernel: head dims (D padded to a multiple of 16) and key
+# counts (padded up to the next entry) it is built for
+_SMALL_KV_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 160)
+_SMALL_KV_LENS = (64, 80, 128, 256)
+# KV lengths at or below this take the single-pass kernel (the JAX
+# package's short-KV branch, ``_SMALL_KV_XLA``)
+SMALL_KV = _SMALL_KV_LENS[-1]
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,7 +68,8 @@ def _library():
 
 def _check_operand(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash kernel takes bf16, got {name}.dtype={t.dtype}")
+        raise TypeError(f"attention kernels take bf16, got {name}.dtype="
+                        f"{t.dtype}")
     if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
         raise ValueError(f"{name}: innermost dim must be contiguous and all "
                          f"strides multiples of 8, got {t.stride()}")
@@ -61,10 +77,8 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
-def _launch(q, k, v, kv_len: int, sm_scale: float) -> torch.Tensor:
+def _check_qkv(q, k, v, kv_len: int) -> None:
     B, H, Sq, D = q.shape
-    if D % 8 or -(-D // 16) * 16 not in _PADDED_HEAD_DIMS:
-        raise ValueError(f"flash kernel: unsupported head dim {D}")
     if k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}"
                          f" v{tuple(v.shape)}")
@@ -74,12 +88,26 @@ def _launch(q, k, v, kv_len: int, sm_scale: float) -> torch.Tensor:
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         _check_operand(name, t)
-    # [B, Sq, H, D] storage seen as [B, H, Sq, D]: the caller's merge of the
-    # heads back into channels is then free.
+
+
+def _out_and_strides(q, k, v):
+    """[B, Sq, H, D] storage seen as [B, H, Sq, D] (the caller's merge of
+    the heads back into channels is then free) and the (b, h, s) strides of
+    q, k, v and the output."""
+    B, H, Sq, D = q.shape
     out = torch.empty(B, Sq, H, D, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
+    return out, strides
+
+
+def _launch(q, k, v, kv_len: int, sm_scale: float) -> torch.Tensor:
+    B, H, Sq, D = q.shape
+    if D % 8 or -(-D // 16) * 16 not in _PADDED_HEAD_DIMS:
+        raise ValueError(f"flash kernel: unsupported head dim {D}")
+    _check_qkv(q, k, v, kv_len)
+    out, strides = _out_and_strides(q, k, v)
     err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), B, H, Sq, kv_len, D, strides,
                      sm_scale * _LOG2E,
@@ -109,3 +137,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+@functools.cache
+def _small_kv_library():
+    lib = build_library("vidtome_small_kv", ("small_kv_attention.cu",))
+    fn = lib.vidtome_small_kv_attention
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def small_kv_takes(D: int, Skv: int) -> bool:
+    """Whether the single-pass kernel is built for head dim ``D`` and
+    ``Skv`` keys."""
+    return (D % 8 == 0 and -(-D // 16) * 16 in _SMALL_KV_HEAD_DIMS
+            and 0 < Skv <= SMALL_KV)
+
+
+def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_valid_len: int | None = None,
+                       sm_scale: float | None = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v with the whole KV (at most 256 keys) in one
+    tile.  q: [B, H, Sq, D]; k, v: [B, H, Skv, D] -> [B, H, Sq, D].
+
+    CUDA tensors launch the Hopper kernel (bf16 only; anything it cannot
+    take raises); CPU tensors run :func:`reference_attention`."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not q.is_cuda:
+        return reference_attention(q, k, v, kv_valid_len, sm_scale)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    if not small_kv_takes(D, Skv):
+        raise ValueError(f"small-KV kernel: unsupported head dim {D} or "
+                         f"{Skv} keys (at most {SMALL_KV})")
+    kv_len = Skv if kv_valid_len is None else kv_valid_len
+    _check_qkv(q, k, v, kv_len)
+    out, strides = _out_and_strides(q, k, v)
+    kvp = next(n for n in _SMALL_KV_LENS if n >= Skv)
+    err = _small_kv_library()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
+        kv_len, D, -(-D // 16) * 16, kvp, strides, sm_scale * _LOG2E,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"small-KV attention launch failed: error {err} "
+                           f"(q{tuple(q.shape)}, Skv={Skv})")
+    small_kv_attention.launches += 1
+    return out
+
+
+small_kv_attention.launches = 0
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_valid_len: int | None = None,
+              sm_scale: float | None = None) -> torch.Tensor:
+    """Dispatch (JAX ``ops/attention.py:304-323``): KV of at most
+    :data:`SMALL_KV` tokens to :func:`small_kv_attention`, longer KV (and
+    head dims it is not built for) to :func:`flash_attention`.
+    q, k, v: [B, H, S, D]."""
+    if small_kv_takes(q.shape[-1], k.shape[2]):
+        return small_kv_attention(q, k, v, kv_valid_len, sm_scale)
+    return flash_attention(q, k, v, kv_valid_len, sm_scale)

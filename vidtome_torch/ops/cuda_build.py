@@ -47,7 +47,7 @@ def build_library(name: str, sources: tuple[str, ...],
     shared memory, spills) and the build seconds are appended to it."""
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC.glob("*.cuh")):  # the shared headers too
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if not out.exists():

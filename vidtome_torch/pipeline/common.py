@@ -24,9 +24,11 @@ class TextEncoder:
                               device=self._device)
         return self._model(ids)
 
-    def embed_cfg(self, prompt: str, negative_prompt: str | None) -> torch.Tensor:
-        """[uncond; cond] contexts (reference generate.py:100-108)."""
-        return self([negative_prompt or "", prompt])
+    def embed_cfg(self, prompt: str, negative_prompt: str | None,
+                  pnp: bool = False) -> torch.Tensor:
+        """[uncond; cond] contexts, with an empty-prompt source lane first
+        for PnP (reference generate.py:100-108)."""
+        return self([""] * pnp + [negative_prompt or "", prompt])
 
 
 class VAECoder:
@@ -60,22 +62,25 @@ class VAECoder:
                              latents)
 
 
-# Options of the JAX package that the port does not run yet, with their
-# off value: a config that turns one on is refused rather than run without it.
+# Options of the JAX package that the port does not run yet, with the
+# values it does run: a config that turns one on is refused rather than run
+# without it.  Every ControlNet control is unported; "pnp" is not a
+# ControlNet and runs.
 _UNPORTED = {
-    "control": "none", "chunk_batch": False, "chunk_boundaries": "rotate",
-    "merge_crossattn": False, "merge_ff": False, "refiner": None,
-    "use_lora": False, "sublayer_mode": "off", "quant": "none",
+    "control": ("none", "pnp"), "chunk_batch": (False,),
+    "chunk_boundaries": ("rotate",), "merge_crossattn": (False,),
+    "merge_ff": (False,), "refiner": (None,), "use_lora": (False,),
+    "quant": ("none",),
 }
 
 
 def reject_unported(section: str, stage_cfg, config) -> None:
     """Raise NotImplementedError if ``stage_cfg`` (or the top level, for the
     keys the JAX package also reads there) turns on an unported option."""
-    for key, off in _UNPORTED.items():
+    for key, ported in _UNPORTED.items():
         for where, cfg in ((section, stage_cfg), ("", config)):
-            value = cfg.get(key, off)
-            if value in (off, None, False, 0, "off", "none"):
+            value = cfg.get(key, ported[0])
+            if value in ported or value in (None, False, 0, "off", "none"):
                 continue
             name = f"{where}.{key}" if where else key
             raise NotImplementedError(

@@ -22,6 +22,14 @@ interval or schedule is set, see :func:`refresh_mask`):
     extrapolated from the last refreshes with ``eps_extrapolate`` 1
     (linear) or 2 (quadratic) by :func:`extrap_weights`.
 
+PnP (``control: pnp``, JAX ``generator.py:152-161``, ``:504-519``): a third
+lane leads the batch, the source, fed at every step from the inversion's
+latents at that timestep (``src_table``) under an empty prompt; while
+``step < pnp_attn_steps`` the injected self-attentions take the source's q
+and k, while ``step < pnp_conv_steps`` up block 1's resnet 1 takes its conv
+features.  Merging aligns its matchings over the three lanes.  CFG-skip
+steps keep the source lane and drop only the uncond one.
+
 Randomness: the chunk schedule comes from ``np.random.default_rng(seed)`` as
 in the JAX package; the merge draws (dst frame per local round, global
 coin) come from a :class:`~vidtome_torch.models.tome.DrawSource`, by default
@@ -39,7 +47,7 @@ import torch
 
 from vidtome_torch.core import chunk as chunking
 from vidtome_torch.core.scheduler import DDIMScheduler, ddim_step
-from vidtome_torch.models.layers import RESNET_MODES
+from vidtome_torch.models.layers import RESNET_MODES, SUBLAYER_MODES
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
@@ -177,10 +185,27 @@ def parse_resnet_mode(stage_cfg, config) -> str:
     return mode
 
 
+def parse_sublayer_mode(stage_cfg, config) -> str:
+    mode = str(stage_cfg.get("sublayer_mode",
+                             config.get("sublayer_mode", "off")) or "off")
+    if mode not in SUBLAYER_MODES:
+        raise ValueError(f"sublayer_mode must be one of {SUBLAYER_MODES}, "
+                         f"got {mode!r}")
+    quant = str(stage_cfg.get("quant", config.get("quant", "none"))
+                or "none").lower()
+    if mode == "fused" and quant in ("int8", "w8a8"):
+        raise ValueError("sublayer_mode: fused requires bf16 attention "
+                         "projections (quant: none) -- the int8 policy "
+                         "strips their kernels")
+    return mode
+
+
 class Generator:
     def __init__(self, bundle: ModelBundle, config):
         gene = config["generation"]
-        use_pnp = gene.get("control", "none") == "pnp"
+        self.use_pnp = use_pnp = gene.get("control", "none") == "pnp"
+        # lane-major [source,] uncond, cond
+        self.num_lanes = 3 if use_pnp else 2
         self.cache_interval = int(gene.get("cache_interval", 0) or 0)
         self.cache_schedule = gene.get("cache_schedule") or None
         self.cfg_interval = int(gene.get("cfg_interval", 0) or 0)
@@ -202,6 +227,7 @@ class Generator:
                 "control: pnp -- cached (shallow) steps skip the up-block-1 "
                 "feature injections.  Use cfg_interval/cfg_schedule or "
                 "disable the deep-feature cache.")
+        self.sublayer_mode = parse_sublayer_mode(gene, config)
         reject_unported("generation", gene, config)
         self.resnet_mode = parse_resnet_mode(gene, config)
         self.bundle = bundle
@@ -224,11 +250,19 @@ class Generator:
             global_rand=float(gene.get("global_rand", 0.5)),
             max_downsample=int(gene.get("max_downsample", 2)),
             target_stride=int(gene.get("target_stride", 4)),
-            align_batch=bool(gene.get("align_batch", False)),
+            align_batch=use_pnp or bool(gene.get("align_batch", False)),
             share_match=bool(gene.get("share_match", True)),
             len_quantum=gene.get("len_quantum", 1024))
         resolve_precision(config, gene, bundle)
         self.scheduler = DDIMScheduler.create(self.n_timesteps)
+        # steps with source attention / conv injection (JAX
+        # generator.py:295-299); 0 without PnP
+        self.pnp_attn_steps = self.pnp_conv_steps = 0
+        if use_pnp:
+            self.pnp_attn_steps = int(
+                self.n_timesteps * float(gene.get("pnp_attn_t", 0.5)))
+            self.pnp_conv_steps = int(
+                self.n_timesteps * float(gene.get("pnp_f_t", 0.8)))
         self.text = TextEncoder(bundle)
         self.vae = VAECoder(bundle, batch_size=int(gene.get("batch_size", 8)))
         # UNet calls of the last ddim_sample by kind: "full" (the whole
@@ -296,13 +330,29 @@ class Generator:
                 cfgm = cfgm | deep
         return np.stack([deep, cfgm, epsm], axis=1)
 
+    def context(self, prompt: str) -> torch.Tensor:
+        """The lane contexts of one edit: [uncond; cond], with the empty
+        source prompt first under PnP."""
+        return self.text.embed_cfg(prompt, self.negative_prompt,
+                                   pnp=self.use_pnp)
+
     @torch.inference_mode()
     def ddim_sample(self, x: torch.Tensor, context: torch.Tensor,
                     fidx_table: np.ndarray | None = None,
-                    draws: DrawSource | None = None) -> torch.Tensor:
-        """Denoise padded latents x [n_padded, h, w, 4] under the
-        [uncond; cond] context [2, S, C]."""
+                    draws: DrawSource | None = None,
+                    src_table: torch.Tensor | None = None) -> torch.Tensor:
+        """Denoise padded latents x [n_padded, h, w, 4] under the lane
+        contexts (:meth:`context`).  PnP needs ``src_table``
+        [steps, n_padded, h, w, 4], the inversion's latents at each
+        generation timestep."""
         sch = self.scheduler
+        if self.use_pnp and (src_table is None
+                             or src_table.shape[0] != sch.num_steps):
+            raise ValueError(f"PnP needs src_table [{sch.num_steps}, "
+                             f"n_padded, h, w, 4]")
+        if context.shape[0] != self.num_lanes:
+            raise ValueError(f"expected {self.num_lanes} lane contexts, got "
+                             f"{context.shape[0]}")
         if fidx_table is None:
             fidx_table = self.fidx_table()
         n_chunks, F = fidx_table.shape[1], fidx_table.shape[2]
@@ -314,9 +364,10 @@ class Generator:
                                    device=x.device)
         modes = self.mode_masks()
         deep = ucond = None
+        L = self.num_lanes
         if self.cache_on:  # [lanes, Fpad, h, w, C1]
             ch = unet.config.block_out_channels[1]
-            deep = x.new_zeros((2,) + x.shape[:3] + (ch,))
+            deep = x.new_zeros((L,) + x.shape[:3] + (ch,))
         if self.cfg_on:  # the guidance delta, [Fpad, h, w, 4] fp32
             ucond = torch.zeros(x.shape[:3] + (4,), dtype=torch.float32,
                                 device=x.device)
@@ -334,9 +385,14 @@ class Generator:
             if self.cache_on:
                 cache_mode = "full" if modes[i, 0] else "shallow"
             cfg_skip = self.cfg_on and not modes[i, 1]
-            # lane-major [uncond*F; cond*F], or [cond*F] on a CFG skip
-            lanes = [1] if cfg_skip else [0, 1]
+            # lane-major [[source*F;] uncond*F; cond*F]; a CFG skip drops
+            # the uncond lane (row L - 2)
+            lanes = [r for r in range(L) if not (cfg_skip and r == L - 2)]
             ctx = context[lanes].repeat_interleave(F, dim=0)
+            pnp = {}
+            if self.use_pnp:
+                pnp = dict(attn_inject=i < self.pnp_attn_steps,
+                           conv_inject=i < self.pnp_conv_steps)
             eps = torch.zeros_like(x)
             banks: dict = {}
             for c in range(n_chunks):
@@ -351,10 +407,14 @@ class Generator:
                 if cache_mode == "shallow":
                     # frame gather first: the small result takes the lanes
                     deep_in = deep[:, gather][lanes].flatten(0, 1)
-                out = unet(x_chunk if cfg_skip else torch.cat([x_chunk,
-                                                               x_chunk]),
-                           t, ctx, tome_call=call, cache_mode=cache_mode,
-                           deep_cache=deep_in, resnet_mode=self.resnet_mode)
+                x_lanes = [x_chunk] * (len(lanes) - self.use_pnp)
+                if self.use_pnp:
+                    x_lanes.insert(0, src_table[i][gather].to(x.dtype))
+                out = unet(torch.cat(x_lanes), t, ctx, tome_call=call,
+                           cache_mode=cache_mode, deep_cache=deep_in,
+                           resnet_mode=self.resnet_mode,
+                           sublayer_mode=self.sublayer_mode,
+                           num_lanes=len(lanes), **pnp)
                 calls["shallow" if cache_mode == "shallow" else "full"] += 1
                 if cfg_skip:
                     calls["cfg_skip"] += 1
@@ -368,7 +428,7 @@ class Generator:
                     e = eps_c + (gs - 1.0) * ucond[gather]
                 else:
                     # CFG combine in fp32, cast before the difference
-                    eps_u = out[:F].float()
+                    eps_u = out[-2 * F:-F].float()
                     delta = eps_c - eps_u
                     if self.cfg_on:
                         ucond[scatter] = delta
@@ -379,16 +439,23 @@ class Generator:
             x = ddim_step(x, eps, *sch.sample_alpha_pair(i)).to(x.dtype)
         return x
 
-    def __call__(self, init_latents: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Edit every prompt from the inverted latents [n, h, w, 4]; returns
-        {edit name: frames [n, H, W, 3] in [0, 1]}."""
+    def __call__(self, init_latents: torch.Tensor,
+                 src_table: torch.Tensor | None = None
+                 ) -> dict[str, torch.Tensor]:
+        """Edit every prompt from the inverted latents [n, h, w, 4] (and,
+        for PnP, the inversion latents at every generation timestep,
+        [steps, n, h, w, 4]); returns {edit name: frames [n, H, W, 3] in
+        [0, 1]}."""
         self.configure_frames(init_latents.shape[0])
-        x0 = init_latents.to(self.bundle.device, self.bundle.dtype)[
-            torch.as_tensor(self.pad_src, device=self.bundle.device)]
+        dev = self.bundle.device
+        pad = torch.as_tensor(self.pad_src, device=dev)
+        x0 = init_latents.to(dev, self.bundle.dtype)[pad]
+        if src_table is not None:
+            src_table = src_table.to(dev, self.bundle.dtype)[:, pad]
         outputs = {}
         for name, prompt in self.prompt.items():
             print(f"[INFO] current prompt: {prompt}")
-            context = self.text.embed_cfg(prompt, self.negative_prompt)
-            clean = self.ddim_sample(x0, context)
+            clean = self.ddim_sample(x0, self.context(prompt),
+                                     src_table=src_table)
             outputs[name] = self.vae.decode(clean[:self.n_frames])
         return outputs

@@ -3,9 +3,10 @@
 Counterpart of ``vidtome_tpu/pipeline/inverter.py`` (``_run`` /
 ``ddim_inversion``): VAE-encode the clip, walk the DDIM schedule upward
 predicting noise with the UNet (no merging: merging applies during
-generation only), frames in fixed micro-batches.  No control.  File I/O
-(loading the video, saving latents) is the caller's: ``cli.py`` does it for
-the command line.
+generation only), frames in fixed micro-batches.  No ControlNet.  With
+``save_intermediate`` the latents of every save timestep are kept: in
+memory (``Inverter.saved``, the source table PnP generation reads) and
+through the caller's ``save_latent`` hook (``cli.py`` writes them to disk).
 
 Two of the generator's serving caches apply (inversion has one lane, so no
 CFG cache): the deep-feature cache (``cache_interval`` /
@@ -30,7 +31,9 @@ from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            reject_unported, resolve_precision)
 from vidtome_torch.pipeline.generator import (EpsHistory,
                                               parse_eps_extrapolate,
-                                              parse_resnet_mode, refresh_mask)
+                                              parse_resnet_mode,
+                                              parse_sublayer_mode,
+                                              refresh_mask)
 
 
 def _pad_frames(a: torch.Tensor, n_target: int) -> torch.Tensor:
@@ -41,6 +44,7 @@ def _pad_frames(a: torch.Tensor, n_target: int) -> torch.Tensor:
 class Inverter:
     def __init__(self, bundle: ModelBundle, config):
         inv = config["inversion"]
+        self.sublayer_mode = parse_sublayer_mode(inv, config)
         reject_unported("inversion", inv, config)
         self.cache_interval = int(inv.get("cache_interval", 0) or 0)
         self.cache_schedule = inv.get("cache_schedule") or None
@@ -68,6 +72,9 @@ class Inverter:
         # UNet calls of the last run by kind ("full", "shallow") and the
         # steps that ran none ("eps_skip")
         self.unet_calls: collections.Counter = collections.Counter()
+        # timestep -> latents [T, h, w, 4] of the last inversion, at the
+        # save timesteps (with save_intermediate)
+        self.saved: dict[int, torch.Tensor] = {}
 
     def step_masks(self, inversion: bool):
         """(deep-cache refresh mask or None, eps-run mask or None) over the
@@ -139,7 +146,8 @@ class Inverter:
                                cache_mode=mode,
                                deep_cache=(deep[b:b + bs]
                                            if mode == "shallow" else None),
-                               resnet_mode=self.resnet_mode)
+                               resnet_mode=self.resnet_mode,
+                               sublayer_mode=self.sublayer_mode)
                     calls["shallow" if mode == "shallow" else "full"] += 1
                     if mode == "full":
                         out, deep[b:b + bs] = out
@@ -155,17 +163,30 @@ class Inverter:
     def ddim_inversion(self, latents: torch.Tensor, conds: torch.Tensor,
                        save_latent: Callable | None = None) -> torch.Tensor:
         """Invert clean latents [T, h, w, 4] to the noisiest timestep.
-        ``save_latent(t, latents)``, if given, receives the intermediates at
-        the save timesteps (with ``save_intermediate``)."""
+        With ``save_intermediate``, the latents at the save timesteps are
+        kept in :attr:`saved` and handed to ``save_latent(t, latents)`` if
+        given (JAX ``inverter.py:384-392``)."""
         ts_up = self.scheduler.timesteps[::-1]
+        self.saved = {}
 
         def hook(i, x):
             t = int(ts_up[i])
-            if (save_latent is not None and self.save_intermediate
-                    and t in self.timesteps_to_save):
-                save_latent(t, x)
+            if self.save_intermediate and t in self.timesteps_to_save:
+                self.saved[t] = x.clone()
+                if save_latent is not None:
+                    save_latent(t, x)
 
         return self._run(latents, conds, inversion=True, on_step=hook)
+
+    def source_table(self, timesteps) -> torch.Tensor:
+        """PnP's source latents [len(timesteps), T, h, w, 4] from the last
+        inversion's saved intermediates (JAX ``generator.py:1010-1019``)."""
+        missing = [int(t) for t in timesteps if int(t) not in self.saved]
+        if missing:
+            raise ValueError(f"no inversion latents at timesteps {missing}: "
+                             "PnP needs inversion.save_intermediate with "
+                             "every generation timestep saved")
+        return torch.stack([self.saved[int(t)] for t in timesteps])
 
     def ddim_sample(self, latents: torch.Tensor,
                     conds: torch.Tensor) -> torch.Tensor:
