@@ -5,12 +5,15 @@
 Phases (any failure exits non-zero before the last line):
   1. device: the card's name and power limit;
   2. build: compile the CUDA libraries (flash attention, single-pass
-     small-KV attention, fused resnet, best match, fused cross-attention
-     sublayer: one nvcc each, all started together, sm_90a) and the Triton
-     GroupNorm kernels from this checkout's sources;
-  3. kernel vs plain: each of the six kernels in bf16 against its plain
-     PyTorch version in fp32 on the same bf16 inputs, at the main paths'
-     shapes, with both times (CUDA events);
+     small-KV attention, fused resnet in its bf16 and W8A8 variants, best
+     match, fused cross-attention sublayer, single-launch GroupNorm: one
+     nvcc each, all started together, sm_90a) and the Triton GroupNorm
+     kernels from this checkout's sources;
+  3. kernel vs plain: each of the eight kernels in bf16 against its plain
+     PyTorch version (fp32 on the same bf16 inputs; the W8A8 resnet's in
+     bf16, at the kernel's rounding points) at the main paths' shapes, with
+     both times (CUDA events), the time of the one PyTorch call that
+     computes the same function where there is one, and the card's bound;
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
@@ -28,7 +31,18 @@ Phases (any failure exits non-zero before the last line):
      [0, 1]; prints the stage seconds and the PSNR of the serving frames
      against the exact path's frames from the same inverted latents (with
      random weights the PSNR bounds nothing: printed only);
-  7. PnP path: the SD1.5 bundle freed, SD2.1 at full width with random
+  7. int8 serving path (W8A8): the same clip with default.yaml's inversion
+     keys plus bench.py's "int8_fused" profile (quant: int8, fused resnet
+     blocks: 50 full UNet calls of batch 8) and configs/serve.yaml's
+     generation keys with bench.py's "maxe3x" profile (quant: int8), at
+     50+50 steps, under VIDTOME_GN_MODE=full (set for the phase only): the
+     UNet calls per kind must match the mode tables, the W8A8 resnet kernel
+     must launch once per resnet block each UNet call runs, the
+     single-launch GroupNorm must launch and the three-pass one not;
+  8. int8 reference check: one int8 UNet call (fused resnet blocks) at a
+     32x32 latent under VIDTOME_GN_MODE=full, on the card (bf16 kernels)
+     and on the CPU (fp32 plain versions), with the same int8 table;
+  9. PnP path: the SD1.5 bundle freed, SD2.1 at full width with random
      weights (seeded), bf16, the same clip through configs/dog.yaml's
      inversion and generation keys (prompts aside; default.yaml beneath
      them, as dog.yaml's base_config) at 50+50 DDIM steps, with
@@ -38,12 +52,14 @@ Phases (any failure exits non-zero before the last line):
      once per inversion UNet call and transformer block routed to it, the
      sublayer kernel 16 times per generation UNet call (SD2.1's transformer
      blocks); flash, GroupNorm and best match must rise;
-  8. SD2.1 reference check: one UNet call at an 8x8 latent with 3 lanes,
+  10. SD2.1 reference check: one UNet call at an 8x8 latent with 3 lanes,
      both injections on and sublayer_mode="fused", card (bf16 kernels) vs
      CPU (fp32 plain); the same call with the injections off must differ
      from it by more than the tolerance.
 Then one JSON line with the kernels' numbers (launches: summed over the
-exact, serving and PnP paths, each counted from 0), and last:
+exact, serving, int8 and PnP paths, each counted from 0; ms, plain_ms,
+library_ms and bound_ms summed over each kernel's phase-3 shapes), and
+last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 
@@ -51,8 +67,10 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import functools
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -76,6 +94,20 @@ SMALL_KV_TOL = 2e-2  # absolute, as ATTN_TOL: bf16 probabilities and output
 SUBLAYER_TOL = 5e-2  # absolute on x3, y3: x3 up to |6| rounds by 2^-6, and
 #                      y2, q, p, a are rounded in the kernel, not the plain
 PNP_STEPS = 50
+INT8_STEPS = 50
+# the int8 UNet call on the card (bf16 activations quantized to int8) vs
+# the CPU (fp32 activations quantized to int8): bf16 rounding (2^-9) moves
+# activations near 127 steps by up to a quarter step, so a share of them
+# crosses a rounding boundary (a whole int8 step each) in every quantized
+# layer, on top of REF_TOL's bf16 noise.  That difference is as large as
+# the int8 table's own effect (printed beside it), so this check bounds the
+# error; that the int8 kernels ran, and agree with their plain versions,
+# the launch counters and phase 3 show
+INT8_REF_TOL = 1e-1
+# the card's peaks (H100 SXM data sheet: HBM3, dense bf16 / int8 tensor-core
+# and fp32 rates)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 # demo.yaml on top of default.yaml (generation / inversion keys of the
 # exact path), with STEPS DDIM steps instead of 50
@@ -94,7 +126,6 @@ CONFIG = {
         "align_batch": True, "target_stride": 4, "max_downsample": 2,
         "share_match": True, "len_quantum": 1024, "batch_size": 8},
 }
-
 
 
 def serve_config() -> dict:
@@ -142,8 +173,31 @@ def pnp_config() -> dict:
     return cfg
 
 
+def int8_config() -> dict:
+    """The int8 serving slice at INT8_STEPS DDIM steps: default.yaml's
+    inversion keys (prompt and save path aside) with bench.py's
+    INV_SERVE_PROFILES["int8_fused"] (quant: int8, resnet_mode: fused), and
+    configs/serve.yaml's generation keys with bench.py's
+    SERVE_PROFILES["maxe3x"] (serve.yaml's schedules, merge ratios and fused
+    resnet blocks, plus quant: int8)."""
+    import yaml
+
+    with open(ROOT / "configs" / "default.yaml") as f:
+        default = yaml.safe_load(f)
+    cfg = serve_config()
+    cfg["inversion"] = {
+        **CONFIG["inversion"],
+        **{k: v for k, v in default["inversion"].items()
+           if k not in ("prompt", "save_path")},
+        "quant": "int8", "resnet_mode": "fused", "steps": INT8_STEPS,
+        "save_steps": INT8_STEPS}
+    cfg["generation"].update(quant="int8", n_timesteps=INT8_STEPS)
+    return cfg
+
+
 KERNELS = ("flash_attention", "small_kv_attention", "group_norm",
-           "fused_resnet", "best_match", "fused_cross_sublayer")
+           "full_group_norm", "fused_resnet", "fused_resnet_w8a8",
+           "best_match", "fused_cross_sublayer")
 
 
 def counters() -> dict:
@@ -154,7 +208,9 @@ def counters() -> dict:
     return {"flash_attention": attention.flash_attention,
             "small_kv_attention": attention.small_kv_attention,
             "group_norm": groupnorm.group_norm,
+            "full_group_norm": groupnorm.full_group_norm,
             "fused_resnet": resnet.fused_resnet,
+            "fused_resnet_w8a8": resnet.fused_resnet_w8a8,
             "best_match": matching.best_match,
             "fused_cross_sublayer": sublayer.fused_cross_sublayer}
 
@@ -195,13 +251,13 @@ SUBLAYER_SHAPES = [  # (B, S, C, heads): SD2.1 PnP generation, 77 keys
     (12, 256, 1280, 20),
     (12, 64, 1280, 20),
 ]
-GN_SHAPES = [  # (B, rows, C, silu, eps)
+GN_SHAPES = [  # (B, rows, C, silu, eps): both GroupNorm kernels
     (8, 512 * 512, 128, True, 1e-5),   # VAE decoder at 512x512
     (8, 64 * 64, 320, True, 1e-5),     # UNet L0 resnet
     (8, 8 * 8, 2560, True, 1e-5),      # UNet skip-concat width
     (8, 64 * 64, 320, False, 1e-6),    # Transformer2D input norm
 ]
-RESNET_SHAPES = [  # (B, H, W, Cin, Cout)
+RESNET_SHAPES = [  # (B, H, W, Cin, Cout): both fused resnet variants
     (8, 64, 64, 320, 320),     # L0, identity shortcut
     (8, 32, 32, 640, 640),     # L1, identity shortcut
     (8, 64, 64, 640, 320),     # last up block, projection shortcut
@@ -228,6 +284,16 @@ def cuda_time(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(times: dict, name: str, fn):
+    """``fn()``, its wall seconds up to the card's last launch in
+    ``times[name]``."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    times[name] = time.perf_counter() - t0
+    return out
+
+
 def phase_device() -> tuple[str, str]:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -249,7 +315,8 @@ def phase_build(dev) -> None:
     libs = {"vidtome_flash": "flash_attention.cu",
             "vidtome_small_kv": "small_kv_attention.cu",
             "vidtome_resnet": "resnet.cu", "vidtome_matching": "matching.cu",
-            "vidtome_sublayer": "sublayer.cu"}
+            "vidtome_sublayer": "sublayer.cu",
+            "vidtome_group_norm_full": "group_norm_full.cu"}
     logs = {name: [] for name in libs}
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build_library, name, (src,), log=logs[name])
@@ -257,6 +324,7 @@ def phase_build(dev) -> None:
             fut.result()
     attention._library(), attention._small_kv_library()
     resnet._library(), matching._library(), sublayer._library()
+    groupnorm._full_library()
     t1 = time.perf_counter()
     x = torch.zeros(1, 64, 32, device=dev, dtype=torch.bfloat16)
     for silu in (False, True):
@@ -288,9 +356,39 @@ def global_match_shape() -> tuple:
     return (2, n, n, 320)
 
 
-def phase_kernels(dev) -> dict:
-    from vidtome_torch.ops import (attention, groupnorm, matching, resnet,
-                                   sublayer)
+def bound_ms(nbytes: float, **ops: float) -> tuple[float, float]:
+    """(ms to move ``nbytes`` through HBM, ms to do ``ops`` operations of
+    each type at its peak): the card's least time is the larger."""
+    return (nbytes / HBM_BYTES_S * 1e3,
+            sum(n / PEAK_OPS_S[kind] for kind, n in ops.items()) * 1e3)
+
+
+class KernelStats:
+    """Per kernel, over its phase-3 shapes: the largest error, and the
+    summed kernel, plain-version, library-call and bound times."""
+
+    def __init__(self):
+        self.rows = {k: dict(err=0.0, ms=0.0, plain=0.0, library=None,
+                             bytes_ms=0.0, ops_ms=0.0, bound=0.0)
+                     for k in KERNELS}
+
+    def add(self, name, err, ms, plain, library, bound):
+        r = self.rows[name]
+        r["err"] = max(r["err"], err)
+        r["ms"] += ms
+        r["plain"] += plain
+        if library is not None:
+            r["library"] = (r["library"] or 0.0) + library
+        r["bytes_ms"] += bound[0]
+        r["ops_ms"] += bound[1]
+        r["bound"] += max(bound)
+
+
+def phase_kernels(dev) -> KernelStats:
+    from torch.nn import functional as F
+
+    from vidtome_torch.ops import (attention, groupnorm, matching, quant,
+                                   resnet, sublayer)
 
     rng = np.random.default_rng(0)
 
@@ -298,70 +396,74 @@ def phase_kernels(dev) -> dict:
         a = (rng.standard_normal(shape, np.float32) * scale + shift)
         return torch.from_numpy(a).to(dev, torch.bfloat16)
 
-    # per kernel: max |err| over its shapes, summed kernel ms, summed plain ms
-    stats = {k: [0.0, 0.0, 0.0] for k in KERNELS}
-    for B, H, Sq, Skv, D in FLASH_SHAPES:
-        q, k, v = bf16((B, H, Sq, D)), bf16((B, H, Skv, D)), bf16((B, H, Skv, D))
-        qf, kf, vf = q.float(), k.float(), v.float()
-        got = attention.flash_attention(q, k, v)
-        want = attention.reference_attention(qf, kf, vf)
-        err = (got.float() - want).abs().max().item()
-        del want
-        ms = cuda_time(lambda: attention.flash_attention(q, k, v), 10)
-        plain = cuda_time(lambda: attention.reference_attention(qf, kf, vf), 3)
-        print(f"[kernel] flash [{B},{H},{Sq}x{Skv},{D}] max|err| {err:.2e} "
-              f"(tol {ATTN_TOL}) kernel {ms:.3f} ms, plain fp32 {plain:.3f} ms")
-        if not err < ATTN_TOL:
-            raise AssertionError(f"flash kernel disagrees at {(B, H, Sq, Skv, D)}")
-        s = stats["flash_attention"]
-        s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
-        del q, k, v, qf, kf, vf, got
-        torch.cuda.empty_cache()
+    def report(what, err, tol, ms, plain, library, bound):
+        lib = "none" if library is None else f"{library:.3f} ms"
+        print(f"[kernel] {what} max|err| {err:.2e} (tol {tol}); kernel "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, library call {lib}, "
+              f"bound {max(bound):.4f} ms "
+              f"({'bytes' if bound[0] >= bound[1] else 'operations'})")
 
-    for B, H, Sq, Skv, D in SMALL_KV_SHAPES:
-        q, k, v = bf16((B, H, Sq, D)), bf16((B, H, Skv, D)), bf16((B, H, Skv, D))
-        qf, kf, vf = q.float(), k.float(), v.float()
-        got = attention.small_kv_attention(q, k, v)
-        want = attention.reference_attention(qf, kf, vf)
-        err = (got.float() - want).abs().max().item()
-        del want
-        ms = cuda_time(lambda: attention.small_kv_attention(q, k, v), 10)
-        plain = cuda_time(lambda: attention.reference_attention(qf, kf, vf), 3)
-        print(f"[kernel] small_kv [{B},{H},{Sq}x{Skv},{D}] max|err| {err:.2e} "
-              f"(tol {SMALL_KV_TOL}) kernel {ms:.3f} ms, plain fp32 "
-              f"{plain:.3f} ms")
-        if not err < SMALL_KV_TOL:
-            raise AssertionError(f"small-KV kernel disagrees at "
-                                 f"{(B, H, Sq, Skv, D)}")
-        s = stats["small_kv_attention"]
-        s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
-        del q, k, v, qf, kf, vf, got
-        torch.cuda.empty_cache()
+    stats = KernelStats()
+    for name, shapes in (("flash_attention", FLASH_SHAPES),
+                         ("small_kv_attention", SMALL_KV_SHAPES)):
+        fn = getattr(attention, name)
+        for B, H, Sq, Skv, D in shapes:
+            q, k, v = (bf16((B, H, Sq, D)), bf16((B, H, Skv, D)),
+                       bf16((B, H, Skv, D)))
+            qf, kf, vf = q.float(), k.float(), v.float()
+            got = fn(q, k, v)
+            want = attention.reference_attention(qf, kf, vf)
+            err = (got.float() - want).abs().max().item()
+            del want
+            ms = cuda_time(lambda: fn(q, k, v), 10)
+            plain = cuda_time(
+                lambda: attention.reference_attention(qf, kf, vf), 3)
+            lib = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v),
+                            10)
+            bound = bound_ms(2 * 2 * B * H * (Sq + Skv) * D,
+                             bf16=4 * B * H * Sq * Skv * D)
+            tol = ATTN_TOL if name == "flash_attention" else SMALL_KV_TOL
+            report(f"{name} [{B},{H},{Sq}x{Skv},{D}]", err, tol, ms, plain,
+                   lib, bound)
+            if not err < tol:
+                raise AssertionError(f"{name} kernel disagrees at "
+                                     f"{(B, H, Sq, Skv, D)}")
+            stats.add(name, err, ms, plain, lib, bound)
+            del q, k, v, qf, kf, vf, got
+            torch.cuda.empty_cache()
 
-    for B, rows, C, silu, eps in GN_SHAPES:
-        x = bf16((B, rows, C), 2.0, 0.5)
-        w = torch.from_numpy(rng.standard_normal(C, np.float32) + 1).to(dev)
-        b = torch.from_numpy(rng.standard_normal(C, np.float32)).to(dev)
-        xf = x.float()
-        got = groupnorm.group_norm(x, w, b, 32, eps, silu)
-        want = groupnorm.reference_group_norm(xf, w, b, 32, eps, silu)
-        diff = (got.float() - want).abs()
-        err = (diff / want.abs().clamp_min(1.0)).max().item()
-        abs_err = diff.max().item()
-        del want, diff
-        ms = cuda_time(lambda: groupnorm.group_norm(x, w, b, 32, eps, silu), 10)
-        plain = cuda_time(lambda: groupnorm.reference_group_norm(
-            xf, w, b, 32, eps, silu), 3)
-        print(f"[kernel] group_norm [{B},{rows},{C}] silu={silu} eps={eps} "
-              f"max rel err {err:.2e} (tol {GN_TOL}), max|err| {abs_err:.2e}; "
-              f"kernel {ms:.3f} ms, "
-              f"plain fp32 {plain:.3f} ms")
-        if not err < GN_TOL:
-            raise AssertionError(f"GroupNorm kernel disagrees at {(B, rows, C)}")
-        s = stats["group_norm"]
-        s[0], s[1], s[2] = max(s[0], abs_err), s[1] + ms, s[2] + plain
-        del x, xf, got
-        torch.cuda.empty_cache()
+    for name, fn in (("group_norm", groupnorm.group_norm),
+                     ("full_group_norm", groupnorm.full_group_norm)):
+        for B, rows, C, silu, eps in GN_SHAPES:
+            x = bf16((B, rows, C), 2.0, 0.5)
+            w = torch.from_numpy(rng.standard_normal(C, np.float32) + 1).to(dev)
+            b = torch.from_numpy(rng.standard_normal(C, np.float32)).to(dev)
+            xf = x.float()
+            got = fn(x, w, b, 32, eps, silu)
+            want = groupnorm.reference_group_norm(xf, w, b, 32, eps, silu)
+            diff = (got.float() - want).abs()
+            err = (diff / want.abs().clamp_min(1.0)).max().item()
+            abs_err = diff.max().item()
+            del want, diff
+            ms = cuda_time(lambda: fn(x, w, b, 32, eps, silu), 10)
+            plain = cuda_time(lambda: groupnorm.reference_group_norm(
+                xf, w, b, 32, eps, silu), 3)
+            # one library call: F.group_norm on the NCHW (channels-last)
+            # view, without the SiLU
+            side = int(round(rows ** 0.5))
+            x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)
+            wb, bb = w.bfloat16(), b.bfloat16()
+            lib = cuda_time(lambda: F.group_norm(x4, 32, wb, bb, eps), 10)
+            bound = bound_ms(2 * 2 * B * rows * C + 8 * C,
+                             fp32=(5 + 4 * silu) * B * rows * C)
+            report(f"{name} [{B},{rows},{C}] silu={silu} eps={eps}: max rel "
+                   f"err {err:.2e}, ", abs_err, GN_TOL, ms, plain, lib, bound)
+            if not err < GN_TOL:
+                raise AssertionError(f"{name} kernel disagrees at "
+                                     f"{(B, rows, C)}")
+            stats.add(name, abs_err, ms, plain, lib, bound)
+            del x, xf, got, x4
+            torch.cuda.empty_cache()
 
     def f32(*shape, scale=1.0, shift=0.0):
         return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale
@@ -375,9 +477,14 @@ def phase_kernels(dev) -> dict:
                 f32(Co, scale=0.1),
                 f32(Co, Co, 3, 3, scale=(9 * Co) ** -0.5).bfloat16(),
                 f32(Co, scale=0.1)]
-        if Ci != Co:
+        proj = Ci != Co
+        if proj:
             args += [f32(Co, Ci, scale=Ci ** -0.5).bfloat16(),
                      f32(Co, scale=0.1)]
+        conv_ops = 2 * B * H * W * 9 * (Ci * Co + Co * Co)
+        sc_ops = 2 * B * H * W * Ci * Co * proj
+        act_bytes = 2 * B * H * W * (Ci + Co) + 4 * B * Co
+        # bf16 weights; the plain version in fp32 on the same bf16 inputs
         args_f = [a.float() for a in args]
         got = resnet.fused_resnet(*args)
         want = resnet.reference_fused_resnet(*args_f)
@@ -386,15 +493,41 @@ def phase_kernels(dev) -> dict:
         del want
         ms = cuda_time(lambda: resnet.fused_resnet(*args), 10)
         plain = cuda_time(lambda: resnet.reference_fused_resnet(*args_f), 3)
-        print(f"[kernel] fused_resnet [{B},{H},{W},{Ci}]->{Co} max rel err "
-              f"{err:.2e} (tol {RESNET_TOL}), max|err| {abs_err:.2e}; "
-              f"kernel {ms:.3f} ms, plain fp32 {plain:.3f} ms")
+        bound = bound_ms(act_bytes + 2 * (9 * Ci * Co + 9 * Co * Co
+                                          + Ci * Co * proj),
+                         bf16=conv_ops + sc_ops)
+        report(f"fused_resnet [{B},{H},{W},{Ci}]->{Co}: max rel err "
+               f"{err:.2e}, ", abs_err, RESNET_TOL, ms, plain, None, bound)
         if not err < RESNET_TOL:
             raise AssertionError(f"fused resnet kernel disagrees at "
                                  f"{(B, H, W, Ci, Co)}")
-        s = stats["fused_resnet"]
-        s[0], s[1], s[2] = max(s[0], abs_err), s[1] + ms, s[2] + plain
-        del args, args_f, got
+        stats.add("fused_resnet", abs_err, ms, plain, None, bound)
+        del args_f, got
+        # W8A8: int8 weights packed as the int8 tables hold them; the plain
+        # version in bf16 (the kernel's rounding points, the same int8
+        # activations up to fp32 sum order)
+        kw = {}
+        for i, key in ((4, "w1_scale"), (8, "w2_scale")):
+            w_q, kw[key] = quant.quantize_weight(args[i])
+            args[i] = quant.packed_conv_weight(w_q).permute(0, 3, 1, 2)
+        got = resnet.fused_resnet_w8a8(*args, **kw)
+        want = resnet.reference_fused_resnet(*args, quant=True, **kw).float()
+        abs_err = (got.float() - want).abs().max().item()
+        err = abs_err / want.abs().max().item()
+        del want, got
+        ms = cuda_time(lambda: resnet.fused_resnet_w8a8(*args, **kw), 10)
+        plain = cuda_time(lambda: resnet.reference_fused_resnet(
+            *args, quant=True, **kw), 3)
+        bound = bound_ms(act_bytes + 9 * Ci * Co + 9 * Co * Co
+                         + 2 * Ci * Co * proj + 8 * Co,
+                         int8=conv_ops, bf16=sc_ops)
+        report(f"fused_resnet_w8a8 [{B},{H},{W},{Ci}]->{Co}: max rel err "
+               f"{err:.2e}, ", abs_err, RESNET_TOL, ms, plain, None, bound)
+        if not err < RESNET_TOL:
+            raise AssertionError(f"W8A8 fused resnet kernel disagrees at "
+                                 f"{(B, H, W, Ci, Co)}")
+        stats.add("fused_resnet_w8a8", abs_err, ms, plain, None, bound)
+        del args
         torch.cuda.empty_cache()
 
     for shape in MATCH_SHAPES:
@@ -412,16 +545,16 @@ def phase_kernels(dev) -> dict:
         ms = cuda_time(lambda: matching.best_match(src, dst), 10)
         plain = cuda_time(lambda: matching.reference_best_match(srcf, dstf),
                           3)
-        print(f"[kernel] best_match [{B},{S}x{D},{C}] max|err| {err:.2e} "
-              f"(tol {MATCH_TOL}), argmax differs at {wrong} of "
-              f"{int(clear.sum())} rows with a top-2 gap > {MATCH_GAP} "
-              f"({B * S - int(clear.sum())} near-ties not compared); kernel "
-              f"{ms:.3f} ms, plain fp32 {plain:.3f} ms")
+        bound = bound_ms(2 * B * (S + D) * C + 12 * B * S,
+                         bf16=2 * B * S * D * C)
+        report(f"best_match [{B},{S}x{D},{C}]: argmax differs at {wrong} of "
+               f"{int(clear.sum())} rows with a top-2 gap > {MATCH_GAP} "
+               f"({B * S - int(clear.sum())} near-ties not compared),", err,
+               MATCH_TOL, ms, plain, None, bound)
         if not err < MATCH_TOL or wrong:
             raise AssertionError(f"best_match kernel disagrees at "
                                  f"{(B, S, D, C)}")
-        s = stats["best_match"]
-        s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
+        stats.add("best_match", err, ms, plain, None, bound)
         del src, dst, srcf, dstf
         torch.cuda.empty_cache()
 
@@ -441,14 +574,15 @@ def phase_kernels(dev) -> dict:
         ms = cuda_time(lambda: sublayer.fused_cross_sublayer(*args, **kw), 10)
         plain = cuda_time(lambda: sublayer.reference_cross_sublayer(
             *args_f, **kw), 3)
-        print(f"[kernel] fused_cross_sublayer [{B},{S},{C}] heads {heads}, 77 "
-              f"keys: max|err| x3, y3 {err:.2e} (tol {SUBLAYER_TOL}); kernel "
-              f"{ms:.3f} ms, plain fp32 {plain:.3f} ms")
+        bound = bound_ms(2 * (4 * B * S * C + 2 * B * 77 * C + 2 * C * C)
+                         + 4 * 5 * C,
+                         bf16=B * S * (4 * C * C + 4 * 77 * C))
+        report(f"fused_cross_sublayer [{B},{S},{C}] heads {heads}, 77 keys "
+               f"(x3, y3):", err, SUBLAYER_TOL, ms, plain, None, bound)
         if not err < SUBLAYER_TOL:
             raise AssertionError(f"fused sublayer kernel disagrees at "
                                  f"{(B, S, C, heads)}")
-        s = stats["fused_cross_sublayer"]
-        s[0], s[1], s[2] = max(s[0], err), s[1] + ms, s[2] + plain
+        stats.add("fused_cross_sublayer", err, ms, plain, None, bound)
         del args, args_f
         torch.cuda.empty_cache()
     return stats
@@ -475,13 +609,7 @@ def phase_main_path(dev, bundle) -> dict:
     inverter = Inverter(bundle, CONFIG)
     generator = Generator(bundle, CONFIG)
     times = {}
-
-    def stage(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        return out
+    stage = functools.partial(timed, times)
 
     reset_launches()
     latents, conds = stage("encode", lambda: inverter.encode(frames))
@@ -539,13 +667,7 @@ def phase_serving(dev, bundle) -> dict:
     inverter = Inverter(bundle, cfg)
     generator = Generator(bundle, cfg)
     times = {}
-
-    def stage(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        return out
+    stage = functools.partial(timed, times)
 
     reset_launches()
     latents, conds = stage("encode", lambda: inverter.encode(frames))
@@ -587,8 +709,9 @@ def phase_serving(dev, bundle) -> dict:
         raise AssertionError(f"frames shape {tuple(out.shape)}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError("serving frames not finite or outside [0, 1]")
-    for k in KERNELS:
-        if k != "fused_cross_sublayer" and launches[k] <= 0:
+    for k in ("flash_attention", "small_kv_attention", "group_norm",
+              "fused_resnet", "best_match"):
+        if launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched on the serving "
                                  f"path")
 
@@ -644,6 +767,155 @@ def phase_reference(dev, bundle) -> None:
           + f" (tol {REF_TOL})")
 
 
+class gn_mode:
+    """VIDTOME_GN_MODE set to ``mode`` inside the block, restored after."""
+
+    def __init__(self, mode: str):
+        self.mode, self.saved = mode, None
+
+    def __enter__(self):
+        self.saved = os.environ.get("VIDTOME_GN_MODE")
+        os.environ["VIDTOME_GN_MODE"] = self.mode
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("VIDTOME_GN_MODE", None)
+        else:
+            os.environ["VIDTOME_GN_MODE"] = self.saved
+
+
+def resnets_per_call(unet) -> dict:
+    """ResnetBlock2Ds a full UNet call runs, and a shallow one (the level-0
+    path around the deep cache)."""
+    return {"full": sum(len(b.resnets) for b in (*unet.down_blocks,
+                                                 unet.mid_block,
+                                                 *unet.up_blocks)),
+            "shallow": (len(unet.down_blocks[0].resnets)
+                        + len(unet.up_blocks[-1].resnets))}
+
+
+def phase_int8(dev, bundle) -> dict:
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = int8_config()
+    frames = make_frames()
+    times = {}
+    stage = functools.partial(timed, times)
+
+    with gn_mode("full"):
+        t0 = time.perf_counter()
+        inverter = Inverter(bundle, cfg)
+        generator = Generator(bundle, cfg)
+        torch.cuda.synchronize()
+        times["quantize"] = time.perf_counter() - t0
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        enc = read_launches()
+        inverted = stage("invert",
+                         lambda: inverter.ddim_inversion(latents, conds))
+        inv_launches = {k: v - enc[k] for k, v in read_launches().items()}
+        generator.configure_frames(N_FRAMES)
+        name, prompt = next(iter(generator.prompt.items()))
+        context = stage("text", lambda: generator.text.embed_cfg(
+            prompt, generator.negative_prompt))
+        table = generator.fidx_table()
+        x0 = inverted[torch.as_tensor(generator.pad_src, device=dev)]
+        gen_before = read_launches()
+        clean = stage("generate", lambda: generator.ddim_sample(
+            x0, context, fidx_table=table))
+        gen_launches = {k: v - gen_before[k]
+                        for k, v in read_launches().items()}
+        out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
+        launches = read_launches()
+
+    n = INT8_STEPS
+    want_gen = expected_calls(generator.mode_masks(), table.shape[1],
+                              cfg=True)
+    got_gen = {k: v for k, v in generator.unet_calls.items() if v}
+    got_inv = {k: v for k, v in inverter.unet_calls.items() if v}
+    want_inv = {"full": n * -(-N_FRAMES // inverter.batch_size)}
+    per_call = resnets_per_call(bundle.unet)
+    want_w8a8 = (sum(per_call[k] * got_inv.get(k, 0) for k in per_call),
+                 sum(per_call[k] * got_gen.get(k, 0) for k in per_call))
+    got_w8a8 = (inv_launches["fused_resnet_w8a8"],
+                gen_launches["fused_resnet_w8a8"])
+    print(f"[int8] SD1.5, {N_FRAMES} frames {SIZE}x{SIZE}, {n}+{n} DDIM "
+          f"steps, {table.shape[1]} chunks; inversion quant "
+          f"{inverter.quant} resnet {inverter.resnet_mode}, generation quant "
+          f"{generator.quant} resnet {generator.resnet_mode}; "
+          f"VIDTOME_GN_MODE=full; {len(generator.qt)} int8 tensors a stage")
+    print(f"[int8] UNet calls: generation {got_gen} (mode table {want_gen}); "
+          f"inversion {got_inv} (want {want_inv}); W8A8 resnet launches "
+          f"inversion, generation {got_w8a8} (want {want_w8a8}: "
+          f"{per_call} resnet blocks a call)")
+    if got_gen != want_gen or got_inv != want_inv:
+        raise AssertionError("UNet calls per kind differ from the mode "
+                             "tables")
+    if got_w8a8 != want_w8a8:
+        raise AssertionError("W8A8 resnet launches differ from the resnet "
+                             "blocks the UNet calls ran")
+    if launches["group_norm"] or launches["fused_resnet"]:
+        raise AssertionError("the three-pass GroupNorm or the bf16 resnet "
+                             "launched on the int8 path under full mode")
+    for k in ("full_group_norm", "flash_attention", "small_kv_attention",
+              "best_match"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} kernel never launched on the int8 "
+                                 f"path")
+    if tuple(out.shape) != (N_FRAMES, SIZE, SIZE, 3):
+        raise AssertionError(f"frames shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("int8 frames not finite or outside [0, 1]")
+    if not torch.isfinite(inverted).all():
+        raise AssertionError("int8 inverted latents not finite")
+    print(f"[int8] frames mean {out.mean().item():.4f} std "
+          f"{out.std().item():.4f}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"[int8] kernel launches in this run: {launches}")
+    return launches
+
+
+def phase_int8_reference(dev, bundle) -> None:
+    """One int8 UNet call (fused resnet blocks) at a 32x32 latent, the
+    smallest at which every int8 product has more than 16 rows: bf16
+    kernels on the card under VIDTOME_GN_MODE=full vs fp32 plain versions on
+    the CPU, with the same int8 table."""
+    from vidtome_torch.ops.quant import QuantTable, QWeight, quantize_unet
+
+    rng = np.random.default_rng(3)
+    width = bundle.unet.config.cross_attention_dim
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 4), np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 77, width), np.float32))
+    table = quantize_unet(bundle.unet)
+    cpu = copy.deepcopy(bundle.unet).to("cpu", torch.float32)
+    cpu_table = QuantTable(cpu, {
+        name: QWeight(e.weight.cpu(), e.scale.cpu(),
+                      None if e.act_scale is None else e.act_scale.cpu())
+        for name, e in table.entries.items()})
+    with torch.inference_mode(), gn_mode("full"):
+        before = read_launches()
+        got = bundle.unet(x.to(dev), 501, ctx.to(dev), resnet_mode="fused",
+                          qt=table).float().cpu()
+        ran = {k: v - before[k] for k, v in read_launches().items()}
+        want = cpu(x, 501, ctx, resnet_mode="fused", qt=cpu_table).float()
+        plain = cpu(x, 501, ctx, resnet_mode="fused").float()
+    scale = want.abs().max()
+    err = ((got - want).abs().max() / scale).item()
+    effect = ((plain - want).abs().max() / scale).item()
+    print(f"[reference] SD1.5 weights, int8 UNet call at a 32x32 latent, "
+          f"fused resnet blocks, full GroupNorm: card bf16 kernels vs CPU "
+          f"fp32 plain max rel err {err:.2e} (tol {INT8_REF_TOL}); the int8 "
+          f"table's own effect on the CPU output {effect:.2e}; kernels "
+          f"launched on the card {ran}")
+    if not err < INT8_REF_TOL:
+        raise AssertionError(f"int8 card vs CPU reference rel err {err}")
+    if not (ran["fused_resnet_w8a8"] and ran["full_group_norm"]):
+        raise AssertionError("the int8 reference call ran no W8A8 resnet "
+                             "or single-launch GroupNorm kernel")
+    del cpu, cpu_table
+
+
 def small_kv_blocks(unet, latent: int) -> int:
     """Attentions of one unmerged UNet call at a latent x latent input that
     the dispatch sends to the small-KV kernel: every cross-attention (77
@@ -666,13 +938,7 @@ def phase_pnp(dev, bundle) -> dict:
     inverter = Inverter(bundle, cfg)
     generator = Generator(bundle, cfg)
     times = {}
-
-    def stage(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-        return out
+    stage = functools.partial(timed, times)
 
     reset_launches()
     latents, conds = stage("encode", lambda: inverter.encode(frames))
@@ -799,6 +1065,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = phase_serving(dev, bundle)
     torch.cuda.synchronize()
+    int8 = phase_int8(dev, bundle)
+    torch.cuda.synchronize()
+    phase_int8_reference(dev, bundle)
+    torch.cuda.synchronize()
 
     del bundle
     gc.collect()
@@ -812,7 +1082,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_reference_sd21(dev, bundle)
     torch.cuda.synchronize()
-    for path in (exact, pnp):
+    for path in (exact, int8, pnp):
         launches = {k: launches[k] + path[k] for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
@@ -828,15 +1098,23 @@ def main() -> int:
                                  "vidtome_tpu/ops/sublayer.py:165"),
         "group_norm": ("triton", "vidtome_torch/ops/groupnorm.py",
                        "vidtome_tpu/ops/groupnorm.py:108"),
+        "full_group_norm": ("cuda", "vidtome_torch/csrc/group_norm_full.cu",
+                            "vidtome_tpu/ops/groupnorm.py:212"),
         "fused_resnet": ("cuda", "vidtome_torch/csrc/resnet.cu",
                          "vidtome_tpu/ops/resnet.py:232"),
+        "fused_resnet_w8a8": ("cuda", "vidtome_torch/csrc/resnet.cu",
+                              "vidtome_tpu/ops/resnet.py:232"),
         "best_match": ("cuda", "vidtome_torch/csrc/matching.cu",
                        "vidtome_tpu/ops/matching.py:72")}
+    rows = stats.rows
     print(json.dumps({"kernels": [
         {"name": k, "route": sources[k][0], "source": sources[k][1],
          "replaces": sources[k][2], "launches": launches[k],
-         "max_abs_err": stats[k][0], "ms": stats[k][1],
-         "plain_ms": stats[k][2]} for k in KERNELS]}))
+         "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
+         "plain_ms": rows[k]["plain"], "bound_ms": rows[k]["bound"],
+         "bound_by": ("bytes" if rows[k]["bytes_ms"] >= rows[k]["ops_ms"]
+                      else "operations"),
+         "library_ms": rows[k]["library"]} for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

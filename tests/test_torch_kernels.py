@@ -19,7 +19,12 @@ order may flip), exact duplicate dst rows going to the lowest index;
 single-pass attention, 2e-2 absolute as flash; fused sublayer, 5e-2
 absolute on x3 and y3 (x3 up to |6| rounds to bf16 by up to 2^-6, and the
 kernel rounds y2, q, p and a to bf16 where the fp32 plain version does
-not, about 1e-2 more).
+not, about 1e-2 more).  The W8A8 fused resnet is held against its plain
+version run in bf16 on the card (the same rounding points, so the same
+int8 activations but where fp32 sums in another order move a value across
+a rounding boundary), 2e-2 of max |ref| as the bf16 kernel; the
+single-launch GroupNorm as the three-pass one, and in fp32 to 1e-4
+relative to max(1, |y|).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from vidtome_torch.ops import attention as t_attn
 from vidtome_torch.ops import groupnorm as t_gn
 from vidtome_torch.ops import matching as t_match
+from vidtome_torch.ops import quant as t_quant
 from vidtome_torch.ops import resnet as t_res
 from vidtome_torch.ops import sublayer as t_sub
 
@@ -298,3 +304,98 @@ def test_fused_sublayer_kernel_rejects_what_it_cannot_take(cuda):
                                    kv_len=77)
     with pytest.raises(ValueError):  # D = 320 / 3 is not an integer
         t_sub.fused_cross_sublayer(*args, heads=3, kv_len=77)
+
+
+def _w8a8_args(rng, cuda, B, H, W, Ci, Co):
+    """bf16 block inputs with int8 conv weights (packed as the int8 tables
+    hold them) and their scales."""
+    args = _resnet_args(rng, cuda, B, H, W, Ci, Co)
+    q = []
+    for i in (4, 8):
+        w_q, scale = t_quant.quantize_weight(args[i])
+        q.append(scale)
+        args[i] = t_quant.packed_conv_weight(w_q).permute(0, 3, 1, 2)
+    return args, dict(w1_scale=q[0], w2_scale=q[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Ci,Co", [
+    (8, 64, 64, 320, 320),    # SD1.5 level 0, identity shortcut
+    (4, 64, 64, 960, 320),    # ragged 64-channel chunk, cfg-skip batch
+    (8, 16, 16, 2560, 1280),  # up block 1, skip-concat width
+    (2, 8, 8, 64, 32),        # tiny widths, projection, 8x8 image
+    (1, 13, 21, 64, 64),      # ragged tiles on both image axes
+])
+def test_fused_resnet_w8a8_kernel_matches_plain(cuda, B, H, W, Ci, Co):
+    args, kw = _w8a8_args(np.random.default_rng(12), cuda, B, H, W, Ci, Co)
+    before = t_res.fused_resnet_w8a8.launches
+    got = t_res.fused_resnet_w8a8(*args, **kw)
+    torch.cuda.synchronize()
+    assert t_res.fused_resnet_w8a8.launches == before + 1
+    want = t_res.reference_fused_resnet(*args, quant=True, **kw).float()
+    assert got.shape == (B, H, W, Co) and got.dtype == torch.bfloat16
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() < RESNET_TOL
+
+
+@pytest.mark.cuda
+def test_fused_resnet_w8a8_kernel_rejects_what_it_cannot_take(cuda):
+    args, kw = _w8a8_args(np.random.default_rng(13), cuda, 1, 8, 8, 48, 48)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        t_res.fused_resnet_w8a8(*args, **kw)
+    args, kw = _w8a8_args(np.random.default_rng(13), cuda, 1, 8, 8, 32, 32)
+    with pytest.raises(TypeError):
+        t_res.fused_resnet_w8a8(args[0].float(), *args[1:], **kw)
+    args[4] = args[4].float()
+    with pytest.raises(TypeError, match="int8"):
+        t_res.fused_resnet_w8a8(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,rows,C,silu,eps,dtype", [
+    (8, 4096, 320, True, 1e-5, torch.bfloat16),
+    (8, 64, 2560, True, 1e-5, torch.bfloat16),
+    (4, 4096, 960, True, 1e-5, torch.bfloat16),   # the CFG-skip batch
+    (2, 1000, 96, False, 1e-6, torch.bfloat16),
+    (8, 16384, 128, True, 1e-5, torch.bfloat16),
+    (1, 300, 64, True, 1e-5, torch.float32),
+])
+def test_full_group_norm_kernel_matches_plain(cuda, B, rows, C, silu, eps,
+                                              dtype):
+    rng = np.random.default_rng(14)
+    x = _bf16(rng, (B, rows, C), cuda, scale=2.0, shift=0.5).to(dtype)
+    w = torch.from_numpy(rng.normal(size=C).astype(np.float32) + 1).to(cuda)
+    b = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(cuda)
+    before = t_gn.full_group_norm.launches
+    got = t_gn.full_group_norm(x, w, b, 32, eps, silu)
+    again = t_gn.full_group_norm(x, w, b, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert t_gn.full_group_norm.launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    want = t_gn.reference_group_norm(x.float(), w, b, 32, eps, silu)
+    assert got.dtype == dtype
+    err = ((got.float() - want).abs() / want.abs().clamp_min(1.0)).max()
+    assert err.item() < (GN_TOL if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_gn_mode_routes_cuda_tensors(cuda, monkeypatch):
+    rng = np.random.default_rng(15)
+    x = _bf16(rng, (2, 256, 64), cuda)
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    for key in ("VIDTOME_GN_MODE", "VIDTOME_DISABLE_PALLAS_GN"):
+        monkeypatch.delenv(key, raising=False)
+    counts = lambda: (t_gn.group_norm.launches,  # noqa: E731
+                      t_gn.full_group_norm.launches)
+    for mode, step in (("auto", (1, 0)), ("stats", (1, 0)), ("full", (0, 1))):
+        monkeypatch.setenv("VIDTOME_GN_MODE", mode)
+        before = counts()
+        t_gn.group_norm(x, w, b, 32, 1e-5, True)
+        assert counts() == (before[0] + step[0], before[1] + step[1]), mode
+    monkeypatch.setenv("VIDTOME_GN_MODE", "xla")
+    with pytest.raises(ValueError, match="xla"):
+        t_gn.group_norm(x, w, b, 32)
+    monkeypatch.setenv("VIDTOME_GN_MODE", "full")
+    monkeypatch.setenv("VIDTOME_DISABLE_PALLAS_GN", "1")
+    with pytest.raises(ValueError, match="xla"):
+        t_gn.group_norm(x, w, b, 32)

@@ -14,9 +14,10 @@
   the CPU) where the JAX package, on the CPU in fp32, takes its unfused one.
 * Every interval 1 and ``resnet_mode: off``: the port's serving path is
   bit-equal to its exact path.
-* ``configs/serve.yaml`` builds both stages; the options still unported
-  are refused, and the JAX package's refusals of PnP with the step caches
-  are kept.
+* ``configs/serve.yaml`` builds both stages (with ``quant: int8`` too, as
+  ``bench.py``'s int8 profiles run it); the options still unported are
+  refused, and the JAX package's refusals of PnP with the step caches are
+  kept.
 """
 
 from __future__ import annotations
@@ -188,15 +189,18 @@ def test_serve_yaml_builds_both_stages():
     deep, cfgm, run = gen.mode_masks().T
     assert len(run) == 50 and run[:6].all() and not (deep & ~run).any()
     assert not (deep & ~cfgm).any() and not (cfgm & ~run).any()
+    assert inv.qt is gen.qt is None
+    cfg["generation"]["quant"] = cfg["inversion"]["quant"] = "int8"
+    assert len(TGen(bundle, cfg).qt) == len(TInv(bundle, cfg).qt) > 0
 
 
 @pytest.mark.parametrize("stage,key,value", [
     ("generation", "use_lora", True),
-    ("generation", "quant", "int8"),
+    ("generation", "merge_ff", True),
     ("generation", "chunk_batch", True),
     ("generation", "chunk_boundaries", "ragged"),
     ("inversion", "control", "canny"),
-    ("top", "quant", "int8"),
+    ("top", "use_lora", True),
 ])
 def test_serve_yaml_still_refuses_unported(stage, key, value):
     bundle = init_model("tiny", weight_dtype="fp32", device="cpu")

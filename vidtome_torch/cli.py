@@ -2,10 +2,9 @@
 
     python -m vidtome_torch.cli --config configs/demo.yaml
 
-Takes the same YAML as ``python -m vidtome_tpu.cli``.  The config loader and
-the video / latent-cache I/O are the JAX package's JAX-free modules
-(``vidtome_tpu.config``, ``vidtome_tpu.io``), imported here only: the rest
-of the port imports nothing from ``vidtome_tpu``.
+Takes the same YAML as ``python -m vidtome_tpu.cli``, read by the port's
+own config loader (``vidtome_torch.config``), with the port's own video and
+latent-cache I/O (``vidtome_torch.io``).
 """
 
 from __future__ import annotations
@@ -16,17 +15,16 @@ import time
 import numpy as np
 import torch
 
+from vidtome_torch.config import load_config, save_config
+from vidtome_torch.io import artifacts
+from vidtome_torch.io.video import load_video, save_frames, save_video
 from vidtome_torch.models.registry import init_model
 from vidtome_torch.pipeline.common import get_frame_ids
+from vidtome_torch.pipeline.generator import Generator
+from vidtome_torch.pipeline.inverter import Inverter
 
 
 def run_inversion(config, bundle):
-    from vidtome_tpu.config import save_config
-    from vidtome_tpu.io import artifacts
-    from vidtome_tpu.io.video import load_video, save_frames
-
-    from vidtome_torch.pipeline.inverter import Inverter
-
     inv_cfg = config["inversion"]
     inverter = Inverter(bundle, config)
     save_dir = artifacts.get_latents_dir(inv_cfg["save_path"], bundle.model_key)
@@ -57,12 +55,6 @@ def run_inversion(config, bundle):
 
 
 def run_generation(config, bundle):
-    from vidtome_tpu.config import save_config
-    from vidtome_tpu.io import artifacts
-    from vidtome_tpu.io.video import save_video
-
-    from vidtome_torch.pipeline.generator import Generator
-
     gene = config["generation"]
     generator = Generator(bundle, config)
     frame_ids = get_frame_ids(gene.get("frame_range", None),
@@ -93,8 +85,6 @@ def run_generation(config, bundle):
 
 
 def main(argv=None):
-    from vidtome_tpu.config import load_config
-
     config = load_config(argv)
     if not torch.cuda.is_available():
         raise SystemExit("vidtome_torch.cli runs on a CUDA device; none found")

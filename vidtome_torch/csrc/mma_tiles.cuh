@@ -1,9 +1,9 @@
-// Warp-level bf16 tensor-core helpers shared by the CUDA sources of this
+// Warp-level tensor-core helpers shared by the CUDA sources of this
 // directory (each is built into its own library; the build hashes this
-// header with them).  mma.sync m16n8k16: A row-major 16x16, B column-major
-// 16x8, fp32 accumulators; fragment layout per the PTX ISA (thread g = lane
-// / 4 owns rows g and g + 8, thread t = lane % 4 owns columns 2t, 2t + 1
-// and 2t + 8, 2t + 9).
+// header with them).  mma.sync m16n8k16 (bf16): A row-major 16x16, B
+// column-major 16x8, fp32 accumulators; fragment layout per the PTX ISA
+// (thread g = lane / 4 owns rows g and g + 8, thread t = lane % 4 owns
+// columns 2t, 2t + 1 and 2t + 8, 2t + 9).
 
 #pragma once
 
@@ -21,6 +21,19 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma.sync m16n8k32 on int8 (s8 x s8 -> s32).  Its fragments hold the
+// same bytes as m16n8k16's bf16 ones: register r of A is 4 bytes at byte
+// 4t (+16 for r >= 2) of rows g / g + 8 of the 32-byte k slice; B likewise
+// down column g.
+__device__ __forceinline__ void mma_16832_s8(int* c, const uint32_t* a,
+                                             const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

@@ -9,7 +9,8 @@ the legacy VAE attention names (``query/key/value/proj_attn``, stored as
 a flax parameter tree (numpy leaves) back into that state dict — HWIO conv
 kernels to OIHW, [in, out] dense kernels to [out, in], norm ``scale`` to
 ``weight``, ``embedding`` to ``weight``, and the flat flax module names back
-into diffusers paths.
+into diffusers paths; :func:`from_jax_qparams` carries the JAX package's
+int8 ``qparams`` tree into the port's int8 table the same way.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from vidtome_torch.ops.quant import QuantTable, QWeight, packed_conv_weight
 
 _UNET_RULES = [
     (r"^down_(\d+)_resnets_(\d+)/", r"down_blocks.\1.resnets.\2/"),
@@ -99,6 +102,36 @@ def from_jax_params(tree: Mapping[str, Any],
         state[path.replace("/", ".")] = torch.from_numpy(
             np.ascontiguousarray(value))
     return state
+
+
+def from_jax_qparams(qtree: Mapping[str, Any], unet: torch.nn.Module):
+    """A JAX ``quantize_params`` qparams tree of the UNet (numpy leaves
+    ``kernel_q`` / ``scale`` / ``act_scale`` under each module) -> the
+    port's :class:`~vidtome_torch.ops.quant.QuantTable` of ``unet``.  Module
+    paths take the :func:`from_jax_params` names; an HWIO ``kernel_q``
+    becomes OIHW (packed, as ``quantize_unet`` stores it), a dense [K, N]
+    one [N, K]; the scales carry over unchanged."""
+    modules: dict[str, dict] = {}
+    for path, value in _flatten(qtree).items():
+        for pattern, repl in _UNET_RULES:
+            path = re.sub(pattern, repl, path)
+        module, _, leaf = path.rpartition("/")
+        modules.setdefault(module.replace("/", "."), {})[leaf] = np.asarray(
+            value)
+    entries = {}
+    dev = next(unet.parameters()).device
+    for name, leaves in modules.items():
+        k = leaves["kernel_q"]
+        w = torch.from_numpy(np.ascontiguousarray(
+            k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)).to(dev)
+        if w.ndim == 4:
+            w = packed_conv_weight(w).permute(0, 3, 1, 2)
+        f32 = lambda a: torch.from_numpy(  # noqa: E731
+            np.array(a, np.float32)).to(dev)
+        act = leaves.get("act_scale")
+        entries[name] = QWeight(w, f32(leaves["scale"]),
+                                None if act is None else f32(act))
+    return QuantTable(unet, entries)
 
 
 def from_diffusers(state: Mapping[str, Any],

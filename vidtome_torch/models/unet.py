@@ -1,7 +1,8 @@
 """Conditional UNet of Stable Diffusion 1.x / 2.x, NHWC.
 
 Counterpart of ``vidtome_tpu/models/unet.py``: the exact path, the
-deep-feature cache split (``cache_mode``) and the PnP injection flags; no
+deep-feature cache split (``cache_mode``), the PnP injection flags and the
+int8 (W8A8) layers of a per-call table; no
 ControlNet residuals, no SDXL embeddings.  Module names follow diffusers'
 ``UNet2DConditionModel`` (``down_blocks.0.resnets.1`` ...), so its state
 dict is the diffusers one.  Token merging enters through ``tome_call``
@@ -130,7 +131,8 @@ class UNet2DConditionModel(nn.Module):
                 deep_cache: torch.Tensor | None = None,
                 resnet_mode: str = "off", sublayer_mode: str = "off",
                 attn_inject: bool | None = None,
-                conv_inject: bool | None = None, num_lanes: int = 1):
+                conv_inject: bool | None = None, num_lanes: int = 1,
+                qt=None):
         """x [B, H, W, Cin], t scalar timestep, context [B, S, Dctx]
         -> eps [B, H, W, Cout] in the weights' dtype.
 
@@ -142,7 +144,9 @@ class UNet2DConditionModel(nn.Module):
         the ``deep`` of a full call at the same t reproduces its eps.
         ``resnet_mode`` ("off" / "fused") is passed to every
         ResnetBlock2D of this call, ``sublayer_mode`` ("off" / "fused") to
-        every TransformerBlock.
+        every TransformerBlock.  ``qt`` is the call's int8 table
+        (``ops/quant.QuantTable``, built per stage; None runs the weights'
+        dtype), passed to every layer, as ``resnet_mode`` is.
 
         PnP (JAX ``unet.py:283-298``): the batch holds ``num_lanes``
         lane-major blocks, lane 0 the source.  ``conv_inject`` goes to up
@@ -160,28 +164,29 @@ class UNet2DConditionModel(nn.Module):
         dtype = self.conv_in.weight.dtype
         B = x.shape[0]
         temb = timestep_embedding(t, self.config.block_out_channels[0])
-        temb = self.time_embedding(temb.to(device=x.device, dtype=dtype))
+        temb = self.time_embedding(temb.to(device=x.device, dtype=dtype), qt)
         temb = temb.expand(B, -1)
         context = context.to(dtype)
 
-        h = self.conv_in(x.to(dtype))
+        h = self.conv_in(x.to(dtype), qt)
         skips = [h]
-        blk_kw = dict(num_lanes=num_lanes, sublayer_mode=sublayer_mode)
+        blk_kw = dict(num_lanes=num_lanes, sublayer_mode=sublayer_mode,
+                      qt=qt)
         for blk in self.down_blocks if run_deep else self.down_blocks[:1]:
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb, resnet_mode)
+                h = res(h, temb, resnet_mode, qt=qt)
                 if len(blk.attentions):
                     h = blk.attentions[j](h, context, tome_call, **blk_kw)
                 skips.append(h)
             for down in blk.downsamplers if run_deep else ():
-                h = down(h)
+                h = down(h, qt)
                 skips.append(h)
 
         if run_deep:
             mid = self.mid_block
-            h = mid.resnets[0](h, temb, resnet_mode)
+            h = mid.resnets[0](h, temb, resnet_mode, qt=qt)
             h = mid.attentions[0](h, context, tome_call, **blk_kw)
-            h = mid.resnets[1](h, temb, resnet_mode)
+            h = mid.resnets[1](h, temb, resnet_mode, qt=qt)
         else:
             h = deep_cache.to(dtype)
 
@@ -192,16 +197,16 @@ class UNet2DConditionModel(nn.Module):
             for j, res in enumerate(blk.resnets):
                 inj = conv_inject if (i == 1 and j == 1) else None
                 h = res(torch.cat([h, skips.pop()], dim=-1), temb, resnet_mode,
-                        inject=inj, num_lanes=num_lanes)
+                        inject=inj, num_lanes=num_lanes, qt=qt)
                 if len(blk.attentions):
                     pnp_here = i >= 2 or (i == 1 and j >= 1)
                     h = blk.attentions[j](
                         h, context, tome_call,
                         attn_inject=bool(attn_inject) and pnp_here, **blk_kw)
             for up in blk.upsamplers:
-                h = up(h)
+                h = up(h, qt)
                 if i == n_up - 2:
                     deep = h  # input of the last up block: the cache cut
 
-        out = self.conv_out(self.conv_norm_out(h))
+        out = self.conv_out(self.conv_norm_out(h), qt)
         return (out, deep) if cache_mode == "full" else out

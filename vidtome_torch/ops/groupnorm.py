@@ -28,15 +28,29 @@ activation; the largest slab on the main path is [8, 512*512, 128] bf16
 The TPU kernel's [C, G] / [G, C] collapse matmuls are a layout trick for
 its lanes and are not used.  Triton is imported, and the kernels compiled,
 on the first CUDA call; importing this module needs no Triton.
+
+:func:`full_group_norm` replaces the Pallas ``full_group_norm``, the
+single-call two-phase GroupNorm: one cooperative launch of
+``csrc/group_norm_full.cu`` (its source note says what bounds it and how
+the design answers).  ``VIDTOME_GN_MODE`` picks the route of every CUDA
+GroupNorm, as it does in the JAX package (``groupnorm.py:293-301``):
+``auto`` and ``stats`` (the default) take the three Triton passes,
+``full`` the single-launch kernel.  ``xla`` (and
+``VIDTOME_DISABLE_PALLAS_GN``) would run the plain version on the card,
+which hides the kernels, so a CUDA tensor raises under it; the TPU's
+row and element thresholds are not carried over.  CPU tensors always take
+:func:`reference_group_norm`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
 
-from vidtome_torch.ops.cuda_build import BUILD_DIR
+from vidtome_torch.ops.cuda_build import BUILD_DIR, build_library
 
 # Triton resolves ``tl`` in this module's globals when it compiles the
 # kernels below; _kernels() binds it on the first CUDA call.
@@ -44,6 +58,10 @@ tl = None
 _JIT = None
 _MAX_SPANS = 64          # spans per batch element in pass 1 (pass 2 tile)
 _TILE_ELEMS = 8192       # elements of one [BLOCK_R, BLOCK_C] tile
+# least elements a block of the single-launch kernel streams: smaller slabs
+# take fewer blocks, so the partials every block re-reduces stay few
+_SPAN_ELEMS = 32768
+GN_MODES = ("auto", "stats", "full")
 
 
 def reference_group_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -215,17 +233,103 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def _gn_mode() -> str:
+    """The GroupNorm route of CUDA tensors, from the environment as the
+    JAX package reads it."""
+    if os.environ.get("VIDTOME_DISABLE_PALLAS_GN"):
+        return "xla"
+    return os.environ.get("VIDTOME_GN_MODE", "auto").lower()
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float = 1e-5,
                silu: bool = False) -> torch.Tensor:
     """GroupNorm(+SiLU) over x [B, ..., C] (channels last) with fp32
-    statistics; returns x's dtype.  CUDA tensors launch the Triton kernels,
+    statistics; returns x's dtype.  CUDA tensors launch the Triton kernels
+    (``VIDTOME_GN_MODE`` auto / stats) or :func:`full_group_norm` (full);
     CPU tensors run :func:`reference_group_norm`."""
     if not x.is_cuda:
         return reference_group_norm(x, weight, bias, num_groups, eps, silu)
+    mode = _gn_mode()
+    if mode == "full":
+        return full_group_norm(x, weight, bias, num_groups, eps, silu)
+    if mode not in GN_MODES:
+        raise ValueError(f"GroupNorm mode {mode!r} (VIDTOME_GN_MODE / "
+                         f"VIDTOME_DISABLE_PALLAS_GN) would run the plain "
+                         f"version on the card; the port takes {GN_MODES}")
     y = _launch(x, weight, bias, num_groups, eps, silu)
     group_norm.launches += 1
     return y
 
 
+@functools.cache
+def _full_library():
+    lib = build_library("vidtome_group_norm_full", ("group_norm_full.cu",))
+    cap = lib.vidtome_group_norm_full_capacity
+    cap.argtypes = [ctypes.c_int] * 3
+    cap.restype = ctypes.c_int
+    fn = lib.vidtome_group_norm_full
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return cap, fn
+
+
+@functools.cache
+def _full_capacity(device: int, C: int, G: int, dtype: int) -> int:
+    """Blocks the cooperative grid may have on ``device`` (all resident)."""
+    with torch.cuda.device(device):
+        return _full_library()[0](C, G, dtype)
+
+
+def _launch_full(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"single-launch GroupNorm takes bf16 or fp32, got "
+                        f"{x.dtype}")
+    B, C = x.shape[0], x.shape[-1]
+    rows = x.numel() // (B * C)
+    if C % num_groups:
+        raise ValueError(f"{C} channels do not split into {num_groups} groups")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.shape != (C,) or t.device != x.device:
+            raise ValueError(f"{name}: expected [{C}] on {x.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    x = x.contiguous()
+    dtype = 0 if x.dtype == torch.bfloat16 else 1
+    cap = _full_capacity(x.device.index, C, num_groups, dtype)
+    if cap < B or x.data_ptr() % 16:
+        raise ValueError(f"single-launch GroupNorm cannot take x "
+                         f"{tuple(x.shape)} {x.dtype} in {num_groups} groups "
+                         f"(resident blocks {cap}, address {x.data_ptr()})")
+    spans = max(1, min(cap // B, rows, -(-rows * C // _SPAN_ELEMS)))
+    psum = torch.empty(B, spans, C, dtype=torch.float32, device=x.device)
+    psq = torch.empty_like(psum)
+    w, b = weight.float().contiguous(), bias.float().contiguous()
+    y = torch.empty_like(x)
+    err = _full_library()[1](
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(),
+        psum.data_ptr(), psq.data_ptr(), B, rows, C, num_groups, spans, eps,
+        int(silu), dtype, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"single-launch GroupNorm failed: error {err} "
+                           f"(x{tuple(x.shape)}, {spans} spans a batch "
+                           f"element)")
+    return y
+
+
+def full_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, eps: float = 1e-5,
+                    silu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU) over x [B, ..., C] in one launch of the CUDA kernel
+    (two reads and one write of x); replaces Pallas ``full_group_norm``.
+    CPU tensors run :func:`reference_group_norm`."""
+    if not x.is_cuda:
+        return reference_group_norm(x, weight, bias, num_groups, eps, silu)
+    y = _launch_full(x, weight, bias, num_groups, eps, silu)
+    full_group_norm.launches += 1
+    return y
+
+
 group_norm.launches = 0
+full_group_norm.launches = 0

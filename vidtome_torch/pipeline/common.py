@@ -1,5 +1,6 @@
 """Shared pipeline pieces: text embedding, batched VAE coding, frame ids,
-stage precision.  Counterpart of ``vidtome_tpu/pipeline/common.py``."""
+stage precision and int8 serving.  Counterpart of
+``vidtome_tpu/pipeline/common.py``."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import numpy as np
 import torch
 
 from vidtome_torch.models.registry import ModelBundle
+from vidtome_torch.ops import quant as quant_ops
 
 
 class TextEncoder:
@@ -70,7 +72,6 @@ _UNPORTED = {
     "control": ("none", "pnp"), "chunk_batch": (False,),
     "chunk_boundaries": ("rotate",), "merge_crossattn": (False,),
     "merge_ff": (False,), "refiner": (None,), "use_lora": (False,),
-    "quant": ("none",),
 }
 
 
@@ -110,3 +111,28 @@ def resolve_precision(config, stage_cfg, bundle: ModelBundle) -> torch.dtype:
         bundle.vae.to(want)
         bundle.dtype = want
     return want
+
+
+def parse_quant(stage_cfg, config) -> str:
+    """A stage's ``quant`` (falling back to the top level): "none" or
+    "int8" ("w8a8" is int8; "false" / "off" are none); any other value
+    raises, as the JAX generator does (``generator.py:375-377``)."""
+    mode = str(stage_cfg.get("quant", config.get("quant", "none"))
+               or "none").lower()
+    if mode in ("none", "false", "off"):
+        return "none"
+    if mode in ("int8", "w8a8"):
+        return "int8"
+    raise ValueError(f"unknown quant mode {mode!r} (choices: none, int8)")
+
+
+def stage_quant_table(quant: str, bundle: ModelBundle, stage: str):
+    """The stage's int8 UNet table (None for ``quant: none``), built once
+    from the bundle's weights, which stay as they are: the two stages share
+    the bundle and may run different modes."""
+    if quant == "none":
+        return None
+    table = quant_ops.quantize_unet(bundle.unet)
+    print(f"[INFO] int8 serving ({stage}): quantized "
+          f"{quant_ops.count_quantized(table)} UNet weight tensors")
+    return table

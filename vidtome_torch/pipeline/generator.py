@@ -51,7 +51,9 @@ from vidtome_torch.models.layers import RESNET_MODES, SUBLAYER_MODES
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
-                                           reject_unported, resolve_precision)
+                                           parse_quant, reject_unported,
+                                           resolve_precision,
+                                           stage_quant_table)
 
 
 def refresh_mask(spec: str | None, interval: int, num_steps: int,
@@ -191,9 +193,7 @@ def parse_sublayer_mode(stage_cfg, config) -> str:
     if mode not in SUBLAYER_MODES:
         raise ValueError(f"sublayer_mode must be one of {SUBLAYER_MODES}, "
                          f"got {mode!r}")
-    quant = str(stage_cfg.get("quant", config.get("quant", "none"))
-                or "none").lower()
-    if mode == "fused" and quant in ("int8", "w8a8"):
+    if mode == "fused" and parse_quant(stage_cfg, config) == "int8":
         raise ValueError("sublayer_mode: fused requires bf16 attention "
                          "projections (quant: none) -- the int8 policy "
                          "strips their kernels")
@@ -230,6 +230,7 @@ class Generator:
         self.sublayer_mode = parse_sublayer_mode(gene, config)
         reject_unported("generation", gene, config)
         self.resnet_mode = parse_resnet_mode(gene, config)
+        self.quant = parse_quant(gene, config)
         self.bundle = bundle
         self.seed = int(config.get("seed", 123))
         self.n_timesteps = int(gene["n_timesteps"])
@@ -254,6 +255,8 @@ class Generator:
             share_match=bool(gene.get("share_match", True)),
             len_quantum=gene.get("len_quantum", 1024))
         resolve_precision(config, gene, bundle)
+        # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
+        self.qt = stage_quant_table(self.quant, bundle, "generation")
         self.scheduler = DDIMScheduler.create(self.n_timesteps)
         # steps with source attention / conv injection (JAX
         # generator.py:295-299); 0 without PnP
@@ -414,7 +417,7 @@ class Generator:
                            cache_mode=cache_mode, deep_cache=deep_in,
                            resnet_mode=self.resnet_mode,
                            sublayer_mode=self.sublayer_mode,
-                           num_lanes=len(lanes), **pnp)
+                           num_lanes=len(lanes), qt=self.qt, **pnp)
                 calls["shallow" if cache_mode == "shallow" else "full"] += 1
                 if cfg_skip:
                     calls["cfg_skip"] += 1

@@ -28,7 +28,9 @@ from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
                                           ddim_step)
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
-                                           reject_unported, resolve_precision)
+                                           parse_quant, reject_unported,
+                                           resolve_precision,
+                                           stage_quant_table)
 from vidtome_torch.pipeline.generator import (EpsHistory,
                                               parse_eps_extrapolate,
                                               parse_resnet_mode,
@@ -55,6 +57,7 @@ class Inverter:
         self.eps_on = bool(self.eps_interval or self.eps_schedule)
         self.eps_extrapolate = parse_eps_extrapolate(inv)
         self.resnet_mode = parse_resnet_mode(inv, config)
+        self.quant = parse_quant(inv, config)
         self.bundle = bundle
         self.steps = int(inv["steps"])
         self.save_steps = int(inv.get("save_steps", self.steps))
@@ -64,6 +67,8 @@ class Inverter:
         self.recon = bool(inv.get("recon", False))
         self.prompt = inv["prompt"]
         resolve_precision(config, inv, bundle)
+        # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
+        self.qt = stage_quant_table(self.quant, bundle, "inversion")
         self.scheduler = DDIMScheduler.create(self.steps)
         self.timesteps_to_save = set(
             int(t) for t in DDIMScheduler.create(self.save_steps).timesteps)
@@ -147,7 +152,7 @@ class Inverter:
                                deep_cache=(deep[b:b + bs]
                                            if mode == "shallow" else None),
                                resnet_mode=self.resnet_mode,
-                               sublayer_mode=self.sublayer_mode)
+                               sublayer_mode=self.sublayer_mode, qt=self.qt)
                     calls["shallow" if mode == "shallow" else "full"] += 1
                     if mode == "full":
                         out, deep[b:b + bs] = out
