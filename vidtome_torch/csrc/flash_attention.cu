@@ -4,250 +4,617 @@
 // out[b,h] = softmax(q[b,h] k[b,h]^T * scale) v[b,h] over the first
 // kv_len keys, with fp32 running max / sum and deferred normalisation.
 //
-// Shape of the work on the main path (SD1.5 at 512x512): head dims 40, 80
-// and 160 in the UNet, 512 (one head) in the VAE mid block; merged
-// self-attention over 1280..6144 tokens, per-frame attention over 4096,
-// and cross-attention over 77 text tokens.  At these sizes the kernel is
-// bound by tensor-core issue and by the softmax's exp2 and rescale work on
-// the [64 x 64] score tile, not by memory: q, k and v are read once per
-// query tile and the [S, S] scores never leave the SM.
+// Shape of the work on the main paths: head dims 40 and 80 in the SD1.5
+// UNet, 64 in SD2.1's, 512 (one head) in the VAE mid block; merged
+// self-attention over 1536..6144 tokens and per-frame attention over 4096.
+// q, k and v are read once per query tile and the [S, S] scores never
+// leave the SM, so bytes bound nothing.  What does:
+//  * at D = 40 the exponentials: one exp2 per score on the special-function
+//    units takes longer than the two products of that score on the tensor
+//    cores, even with D padded to 64;
+//  * at D >= 64 and at D = 512 the tensor cores.
 //
-// Design (a first, simple version; no TMA, wgmma or pipelining yet):
-//  * one block = 4 warps = 64 query rows of one (batch, head); each warp
-//    owns 16 rows and loops over 64-row K/V tiles staged in shared memory;
-//  * Q K^T and P V run on the tensor cores with mma.sync m16n8k16
-//    (bf16 x bf16 -> fp32).  The head dim is zero-padded to a multiple of
-//    16 in shared memory (D = 40 runs as 48), so no D is special;
-//  * the probabilities stay in registers: the fp32 score fragment of two
-//    adjacent 8-column tiles is exactly the A fragment of the P V product;
-//  * keys at or past kv_len (the ragged tail and any caller padding) are
-//    zero-filled in shared memory and masked to -1e30 before the softmax;
-//  * the TPU kernel's ones-column row-sum trick is not used: row sums are
-//    kept in registers and reduced with two warp shuffles;
-//  * D = 512 (the VAE) splits the output columns over gridDim.z blocks of
-//    128: each recomputes the scores, but the fp32 output accumulator
-//    stays at 64 registers a thread.  Shared memory above 48 KB is dynamic
-//    (cudaFuncSetAttribute before the launch).
+// Design:
+//  * one block = two or three consumer warpgroups, no producer warp.  For
+//    D <= 192 each warpgroup owns 64 query rows and every output column:
+//    three (192 rows) at D = 40 and 80, whose rows are not whole 128-byte
+//    lines, so each K/V tile serves more queries; two (128 rows) at D = 64
+//    and 160 (the dispatch at the end of this file says what was measured);
+//  * thread 0 issues the first copies with TMA: the Q tile once, and the
+//    first K and V tiles into a 2-stage ring of shared-memory buffers, each
+//    with a "full" mbarrier (expect_tx: the copy's bytes) for K and one for
+//    V.  When a warp is done with a stage it adds one to the stage's count
+//    in shared memory, and the last warp of the block to do so refills the
+//    stage with tile i + 2, so no warp waits for another: a thread that
+//    waited for all warps before each refill would hold the warpgroups in
+//    lock step, with their softmaxes at the same time (measured slower).
+//    The copy overlaps the products of tile i + 1;
+//  * tiles sit in shared memory in 128-byte swizzle atoms of 64 bf16
+//    columns, D padded up to a multiple of 64 (40 -> 64, 80 -> 128,
+//    160 -> 192): TMA zero-fills the columns past D and the keys past
+//    kv_len, so no host pass pads anything;
+//  * S = Q K^T is wgmma.mma_async m64nBKk16 with both operands in
+//    shared memory, K-major: 128 keys a tile at D <= 64, 64 at D >= 80, so
+//    the score accumulator stays at 64 registers a thread or fewer;
+//  * the online softmax runs in fp32 registers (scale folded into the
+//    exponent, keys at or past kv_len masked to -1e30, row max and sum
+//    across the 4 threads of a row by shuffles, exp2 as one ex2.approx.ftz
+//    on the special-function unit).  The fp32 accumulator layout of
+//    m64nNk16 is, packed to bf16, the register A fragment of the next k16
+//    step, so P = exp(S) never leaves registers;
+//  * O += P V is wgmma with A = P from registers and B = V from shared
+//    memory, MN-major (the transpose flag), 64 output columns an
+//    instruction; O is rescaled by the running max in registers between
+//    the two products (wgmma.wait_group, then wgmma.fence before the next
+//    product reads it).  A warpgroup waits for each of its products;
+//    while it runs its softmax, the other warpgroups' products keep the
+//    tensor cores busy;
+//  * D = 512 (the VAE): 64 query rows a block, the two warpgroups split the
+//    output columns (256 each, 128 fp32 accumulators a thread) and the
+//    depth of Q K^T: each computes the 64 x 32 scores over its half of D,
+//    and the two halves are added through shared memory (one named barrier
+//    a tile), so every score is computed once.  Q (64 KB), a 2-stage ring
+//    of 32-key K and V tiles (2 x 64 KB) and the partial scores (32 KB) fit
+//    in shared memory;
+//  * cudaFuncSetAttribute runs once per kernel instance, not per launch.
 //
 // Inputs may be strided views ([B, S, H, D] projections seen as
-// [B, H, S, D]); the innermost dimension must be contiguous, and every
-// stride a multiple of 8 elements (16-byte loads).  The C entry point
-// returns the CUDA error of the launch (0 on success); the Python wrapper
-// raises on anything else.
+// [B, H, S, D]): the innermost dimension must be contiguous, every stride
+// a multiple of 16 bytes and the base 16-byte aligned (TMA's rules; the
+// Python wrapper checks them).  The C entry point returns 0, a cudaError_t
+// code, or a negative code of its own (see vidtome_flash_attention); the
+// Python wrapper raises on anything but 0.
 
-#include "mma_tiles.cuh"
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // key/value rows per tile
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kPad = 8;        // shared-memory row padding (elements)
+constexpr int kAtom = 64;      // bf16 columns of one 128-byte swizzle atom
+constexpr int kStages = 2;     // K/V ring depth
+constexpr float kNegBig = -1e30f;
 
-using vt::kNegBig;
-using vt::load_tile;
-using vt::mma_16816;
-using vt::pack_bf16;
-using vt::pack_raw;
+// Per instance: D padded to DP, BK keys a tile, WGS consumer warpgroups of
+// 64 query rows each, except at D = 512 (SPLIT), where two warpgroups share
+// 64 rows.
+template <int DP, int BK, int WGS>
+struct Tiles {
+  static constexpr bool SPLIT = DP == 512;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int BQ = SPLIT ? 64 : 64 * WGS;  // query rows a block
+  static constexpr int NA = DP / kAtom;           // swizzle atoms across D
+  static constexpr int DV = SPLIT ? DP / 2 : DP;  // output columns a warpgroup
+  static constexpr uint32_t Q_ATOM = BQ * 128;    // bytes of one atom column
+  static constexpr uint32_t KV_ATOM = BK * 128;
+  static constexpr uint32_t Q_BYTES = NA * Q_ATOM;
+  static constexpr uint32_t KV_BYTES = NA * KV_ATOM;  // one K or V tile
+  // SPLIT: each warpgroup's partial scores (fp32, 64 x BK), two tiles deep
+  static constexpr uint32_t XCH_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
+  static constexpr uint32_t XCH_BYTES = SPLIT ? 2 * 2 * BK * 64 * 4 : 0;
+  static constexpr uint32_t BAR_OFF = XCH_OFF + XCH_BYTES;
+  // + 5 mbarriers and a count of the warps done with each stage, + slack
+  // to align the base to the 1024-byte swizzle span
+  static constexpr size_t SMEM = BAR_OFF + 64 + 1024;
+};
 
-template <int DP, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
+// ---- mbarriers and TMA ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.  A
+// phase that never completes is a fault: trap rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins == (1u << 24)) __trap();
+  }
+}
+
+// The same, by a whole warp, which leaves the wait converged (the wgmma
+// instructions that follow are .aligned).
+__device__ __forceinline__ void mbar_wait_warp(uint32_t bar, uint32_t parity) {
+  mbar_wait(bar, parity);
+  __syncwarp();
+}
+
+// One box of (64 columns, box rows) at (column c0, row c1, head c2, batch
+// c3) into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma ----
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units).  Every start address used here
+// has bits 7-9 clear, so the base offset field stays 0.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses to wgmma operands across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// d[N / 2] (+)= A B for a 64 x N tile, A and B from shared memory, both
+// K-major (wgmma_ss), or A from registers and B MN-major (wgmma_rs).
+// Accumulator layout (per warp w of the warpgroup, g = lane / 4,
+// t = lane % 4): d[4j + e] is row 16w + g + 8 (e >> 1), column
+// 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit; subnormal results flush to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int DP, int BK, int WGS>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, uint32_t sK,
+                                        uint32_t sV, uint32_t bar, int tile,
+                                        int h, int b) {
+  using T = Tiles<DP, BK, WGS>;
+  const int s = tile % kStages;
+  const uint32_t k_full = bar + 8u * (1 + s);
+  const uint32_t v_full = bar + 8u * (3 + s);
+  mbar_expect_tx(k_full, T::KV_BYTES);
+#pragma unroll
+  for (int a = 0; a < T::NA; ++a) {
+    tma_load(sK + s * T::KV_BYTES + a * T::KV_ATOM, tm_k, k_full, a * kAtom,
+             tile * BK, h, b);
+  }
+  mbar_expect_tx(v_full, T::KV_BYTES);
+#pragma unroll
+  for (int a = 0; a < T::NA; ++a) {
+    tma_load(sV + s * T::KV_BYTES + a * T::KV_ATOM, tm_v, v_full, a * kAtom,
+             tile * BK, h, b);
+  }
+}
+
+// Barriers at `bar`: [0] Q full, [1 + s] K full, [3 + s] V full; after them
+// (bar + 40) done[s], the warps done with ring stage s.
+template <int DP, int BK, int WGS>
+__global__ void __launch_bounds__(Tiles<DP, BK, WGS>::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
                  __nv_bfloat16* __restrict__ o, int H, int Sq, int kv_len,
-                 int D, long long q_sb, long long q_sh, long long q_ss,
-                 long long k_sb, long long k_sh, long long k_ss,
-                 long long v_sb, long long v_sh, long long v_ss,
-                 long long o_sb, long long o_sh, long long o_ss,
+                 int D, long long o_sb, long long o_sh, long long o_ss,
                  float scale_log2) {
-  constexpr int LQ = DP + kPad;   // row stride of the Q and K tiles
-  constexpr int LV = DV + kPad;   // row stride of the V tile
-  constexpr int NT_S = kBK / 8;   // 8-column score tiles per warp
-  constexpr int NT_O = DV / 8;    // 8-column output tiles per warp
+  using T = Tiles<DP, BK, WGS>;
+  constexpr bool SPLIT = T::SPLIT;
+  constexpr int NS = BK / 2;        // score accumulators a thread
+  constexpr int NO = T::DV / kAtom;  // 64-column output chunks a warpgroup
+  constexpr int KS = SPLIT ? DP / 32 : DP / 16;  // k16 steps of Q K^T
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + kBQ * LQ;
-  __nv_bfloat16* sV = sK + kBK * LQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + T::Q_BYTES;             // kStages K tiles
+  const uint32_t sV = sK + kStages * T::KV_BYTES;  // kStages V tiles
+  const uint32_t bar = sQ + T::BAR_OFF;
+  unsigned char* base = smem_raw + (sQ - smem_u32(smem_raw));
+  float* xch = reinterpret_cast<float*>(base + T::XCH_OFF);
+  uint32_t* done = reinterpret_cast<uint32_t*>(base + T::BAR_OFF + 40);
 
-  const int q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = blockIdx.x * T::BQ;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int dv0 = blockIdx.z * DV;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // fragment row group
-  const int t = lane & 3;    // thread within the group
+  const int n_tiles = (kv_len + BK - 1) / BK;
+  const int row0 = SPLIT ? 0 : 64 * wg;     // warpgroup's first query row
+  const int col0 = SPLIT ? T::DV * wg : 0;  // and first output column
+  const int a0 = SPLIT ? wg * T::NA / 2 : 0;  // first atom of D in Q K^T
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh + dv0;
-
-  load_tile(sQ, LQ, qb + q0 * q_ss, q_ss, kBQ, DP, Sq - q0, D);
-
-  float acc_o[NT_O][4];
+  if (tid == 0) {
+    mbar_init(bar, 1);
 #pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    acc_o[j][0] = acc_o[j][1] = acc_o[j][2] = acc_o[j][3] = 0.f;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar + 8u * (1 + s), 1);
+      mbar_init(bar + 8u * (3 + s), 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float m_run[2] = {kNegBig, kNegBig};
-  float l_run[2] = {0.f, 0.f};
-
-  const int r0 = warp * 16 + g;  // this thread's two rows in the tile
-  const int r1 = r0 + 8;
-
-  for (int kv0 = 0; kv0 < kv_len; kv0 += kBK) {
-    __syncthreads();  // previous tile fully consumed
-    load_tile(sK, LQ, kb + kv0 * k_ss, k_ss, kBK, DP, kv_len - kv0, D);
-    load_tile(sV, LV, vb + kv0 * v_ss, v_ss, kBK, DV, kv_len - kv0, D - dv0);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[NT_S][4];
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, T::Q_BYTES);
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int a = 0; a < T::NA; ++a) {
+      tma_load(sQ + a * T::Q_ATOM, &tm_q, bar, a * kAtom, q0, h, b);
+    }
+    for (int i = 0; i < kStages && i < n_tiles; ++i) {
+      load_kv<DP, BK, WGS>(&tm_k, &tm_v, sK, sV, bar, i, h, b);
+    }
+  }
+  __syncwarp();
+
+  float acc[NO][32];
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t a[4];
-      const int c = kk + t * 2;
-      a[0] = *reinterpret_cast<const uint32_t*>(sQ + r0 * LQ + c);
-      a[1] = *reinterpret_cast<const uint32_t*>(sQ + r1 * LQ + c);
-      a[2] = *reinterpret_cast<const uint32_t*>(sQ + r0 * LQ + c + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(sQ + r1 * LQ + c + 8);
+  for (int c = 0; c < NO; ++c) {
 #pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-        uint32_t bf[2];
-        const __nv_bfloat16* kr = sK + (j * 8 + g) * LQ + c;
-        bf[0] = *reinterpret_cast<const uint32_t*>(kr);
-        bf[1] = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma_16816(s[j], a, bf);
-      }
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  }
+  float sc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+  uint32_t pa[BK / 16][4];
+  float m_run[2] = {kNegBig, kNegBig};  // running row max, log2 units
+  float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
+  const uint32_t q_rows = sQ + row0 * 128;
+
+  mbar_wait_warp(bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t phase = (i / kStages) & 1;
+    const uint32_t k_tile = sK + s * T::KV_BYTES;
+    const uint32_t v_tile = sV + s * T::KV_BYTES;
+
+    // S = Q K^T: [64 x BK] a warpgroup, KS steps of k16 (SPLIT: over this
+    // warpgroup's half of D).  Inside an atom a k16 step moves the start
+    // address by 32 bytes.
+    mbar_wait_warp(bar + 8u * (1 + s), phase);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks % 4) * 32;
+      const int a = a0 + ks / 4;
+      wgmma_ss(sc, smem_desc(q_rows + a * T::Q_ATOM + off, 16, 1024),
+               smem_desc(k_tile + a * T::KV_ATOM + off, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    if (SPLIT) {
+      // The two half-depth sums meet in shared memory: thread j of each
+      // warpgroup holds the same scores.  Both add in the same pair, so both
+      // get the same bits; slots alternate by tile, so a slot is rewritten
+      // only after the next tile's barrier, when it has been read.
+      float* mine = xch + ((i & 1) * 2 + wg) * NS * 128 + tid % 128;
+      const float* theirs = xch + ((i & 1) * 2 + 1 - wg) * NS * 128 + tid % 128;
+#pragma unroll
+      for (int e = 0; e < NS; ++e) mine[e * 128] = sc[e];
+      asm volatile("bar.sync 1, %0;\n" ::"n"(T::THREADS) : "memory");
+#pragma unroll
+      for (int e = 0; e < NS; ++e) sc[e] += theirs[e * 128];
     }
 
-    // Scale into log2 units, mask the tail, online softmax.
-    float m_tile[2] = {kNegBig, kNegBig};
+    // Online softmax over the tile, rows g and g + 8 of this warp's 16.
+    const int kv0 = i * BK;
+    if (kv0 + BK > kv_len) {
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + j * 8 + t * 2 + (e & 1);
-        s[j][e] = col < kv_len ? s[j][e] * scale_log2 : kNegBig;
-        m_tile[e >> 1] = fmaxf(m_tile[e >> 1], s[j][e]);
+      for (int e = 0; e < NS; ++e) {
+        const int col = kv0 + (e / 4) * 8 + 2 * t + (e & 1);
+        if (col >= kv_len) sc[e] = kNegBig;
       }
+    }
+    float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+    for (int e = 0; e < NS; ++e) {
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
     }
     float alpha[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 1));
-      m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 2));
-      const float m_new = fmaxf(m_run[i], m_tile[i]);
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_run[i] *= alpha[i];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+      alpha[r] = exp2_ftz(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m_run[e >> 1]);
-        l_run[e >> 1] += s[j][e];
-      }
+    for (int e = 0; e < NS; ++e) {
+      const int r = (e >> 1) & 1;
+      sc[e] = exp2_ftz(fmaf(sc[e], scale_log2, -m_run[r]));
+      l_run[r] += sc[e];
     }
 #pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      acc_o[j][0] *= alpha[0];
-      acc_o[j][1] *= alpha[0];
-      acc_o[j][2] *= alpha[1];
-      acc_o[j][3] *= alpha[1];
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      pa[ks][0] = pack_bf16(sc[8 * ks + 0], sc[8 * ks + 1]);
+      pa[ks][1] = pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]);
+      pa[ks][2] = pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]);
+      pa[ks][3] = pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7]);
+    }
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] *= alpha[(e >> 1) & 1];
     }
 
-    // O += P V: two adjacent score tiles form one 16x16 A fragment.
+    // O += P V: k16 steps of 16 keys (2048 bytes of a V atom column), one
+    // instruction per 64 output columns (one atom: LBO never applies).
+    mbar_wait_warp(bar + 8u * (3 + s), phase);
 #pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      a[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      a[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      a[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-      const __nv_bfloat16* vr = sV + (ks * 16 + t * 2) * LV;
+    for (int c = 0; c < NO; ++c) fence_regs(acc[c]);
+    fence_regs(pa);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        const int col = j * 8 + g;
-        uint32_t bf[2];
-        bf[0] = pack_raw(vr[col], vr[LV + col]);
-        bf[1] = pack_raw(vr[8 * LV + col], vr[9 * LV + col]);
-        mma_16816(acc_o[j], a, bf);
+    for (int ks = 0; ks < BK / 16; ++ks) {
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        const uint32_t atom = v_tile + (col0 / kAtom + c) * T::KV_ATOM;
+        wgmma_rs(acc[c], pa[ks], smem_desc(atom + ks * 2048, 1024, 1024));
       }
     }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NO; ++c) fence_regs(acc[c]);
+    fence_regs(pa);
+
+    // Release the stage: the last warp of the block to be done with it
+    // refills it with tile i + kStages.  No warp waits for another here.
+    __syncwarp();
+    if (lane == 0 && i + kStages < n_tiles) {
+      __threadfence_block();
+      if (atomicAdd(&done[s], 1u) == T::THREADS / 32 - 1) {
+        atomicExch(&done[s], 0u);
+        __threadfence_block();
+        load_kv<DP, BK, WGS>(&tm_k, &tm_v, sK, sV, bar, i + kStages, h, b);
+      }
+    }
+    __syncwarp();
   }
 
-  // Full row sums live across the 4 threads of a group.
+  // Full row sums live across the 4 threads of a row.
   float inv[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
-    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
-    inv[i] = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    inv[r] = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
   }
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh + dv0;
-  const int row0 = q0 + r0;
-  const int row1 = q0 + r1;
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+  const int rows[2] = {q0 + row0 + 16 * warp + g, q0 + row0 + 16 * warp + g + 8};
 #pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    const int col = j * 8 + t * 2;
-    if (dv0 + col >= D) continue;
-    if (row0 < Sq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * o_ss + col) =
-          __floats2bfloat162_rn(acc_o[j][0] * inv[0], acc_o[j][1] * inv[0]);
-    }
-    if (row1 < Sq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * o_ss + col) =
-          __floats2bfloat162_rn(acc_o[j][2] * inv[1], acc_o[j][3] * inv[1]);
+  for (int c = 0; c < NO; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + c * kAtom + j * 8 + 2 * t;
+      if (col >= D) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < Sq) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + rows[r] * o_ss + col) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * inv[r],
+                                    acc[c][4 * j + 2 * r + 1] * inv[r]);
+        }
+      }
     }
   }
 }
 
-template <int DP, int DV>
+// ---- host ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The TMA map of one bf16 operand seen as [B, H, rows, D]: dims (D, rows,
+// H, B), innermost first; byte strides of rows, heads and batches from
+// `st` = (b, h, s) strides in elements; box (64, box_rows, 1, 1); 128-byte
+// swizzle.  Elements outside the dims read as zero.
+int encode(CUtensorMap* map, const void* ptr, int D, int rows, int H, int B,
+           const long long* st, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return -2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {kAtom, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+template <int DP, int BK, int WGS>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Sq, int kv_len, int D, const long long* st, float scale_log2,
            cudaStream_t stream) {
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (size_t)((kBQ + kBK) * (DP + kPad) + kBK * (DV + kPad));
-  auto kern = flash_fwd_kernel<DP, DV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kBQ - 1) / kBQ, B * H, (D + DV - 1) / DV);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
-      Sq, kv_len, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale_log2);
+  using T = Tiles<DP, BK, WGS>;
+  auto kern = flash_fwd_kernel<DP, BK, WGS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, D, Sq, H, B, st, T::BQ);
+  if (err == 0) err = encode(&tk, k, D, kv_len, H, B, st + 3, BK);
+  if (err == 0) err = encode(&tv, v, D, kv_len, H, B, st + 6, BK);
+  if (err != 0) return err;
+  const dim3 grid((Sq + T::BQ - 1) / T::BQ, B * H);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Sq, kv_len, D, st[9],
+      st[10], st[11], scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: q (b, h, s), k (b, h, s), v (b, h, s), o (b, h, s) in elements.
-// Returns 0 on success, a cudaError_t code, or -1 for an unsupported D.
+// k and v are read up to row kv_len only.  Returns 0 on success, a
+// cudaError_t code, -1 for an unsupported D, -2 when the driver has no
+// cuTensorMapEncodeTiled, -3 when it refuses a tensor map.
 extern "C" int vidtome_flash_attention(const void* q, const void* k,
                                        const void* v, void* o, int B, int H,
                                        int Sq, int kv_len, int D,
                                        const long long* strides,
                                        float scale_log2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dp = (D + 15) / 16 * 16;
-  switch (dp) {
-    case 16: return launch<16, 16>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 32: return launch<32, 32>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 48: return launch<48, 48>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 64: return launch<64, 64>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 80: return launch<80, 80>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 96: return launch<96, 96>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 128: return launch<128, 128>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 160: return launch<160, 160>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
-    case 512: return launch<512, 128>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
+  // Three warpgroups (192 query rows a block, each K/V tile read for more
+  // queries) where a row of D is not whole 128-byte lines (D = 40, 80):
+  // there the copies cost more, and this was measured faster; two at D = 64
+  // and D > 128, where it was measured slower.
+  switch ((D + kAtom - 1) / kAtom * kAtom) {
+    case 64:
+      return D == 64 ? launch<64, 128, 2>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s)
+                     : launch<64, 128, 3>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
+    case 128: return launch<128, 64, 3>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
+    case 192: return launch<192, 64, 2>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
+    case 512: return launch<512, 32, 2>(q, k, v, o, B, H, Sq, kv_len, D, strides, scale_log2, s);
     default: return -1;
   }
 }

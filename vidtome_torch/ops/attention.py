@@ -6,8 +6,9 @@ bounds them and how the designs answer) and on a CPU tensor running
 :func:`reference_attention`:
 
 * ``flash_attention`` replaces the Pallas ``flash_attention``
-  (``_flash_kernel``, ``csrc/flash_attention.cu``): tiled KV, fp32 online
-  softmax;
+  (``_flash_kernel``, ``csrc/flash_attention.cu``): K/V tiles streamed by
+  TMA through a 2-stage ring, both products on ``wgmma``, fp32 online
+  softmax; :func:`tma_geometry` is the view TMA reads each operand through;
 * ``small_kv_attention`` replaces the Pallas ``small_kv_attention``
   (``_small_kv_kernel``, ``csrc/small_kv_attention.cu``): the whole KV of
   at most 256 keys in one tile, a single softmax pass.
@@ -24,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,8 +33,11 @@ from vidtome_torch.ops.cuda_build import build_library
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _LOG2E = math.log2(math.e)
-# head dims the library is built for: D is zero-padded to the next one
-_PADDED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 160, 512)
+# bf16 columns of one 128-byte swizzle atom: the flash kernel holds D padded
+# up to a multiple of it in shared memory (TMA zero-fills the padding)
+_TMA_ATOM = 64
+# the flash kernel's padded head dims (csrc/flash_attention.cu's dispatch)
+_FLASH_PADDED_HEAD_DIMS = (64, 128, 192, 512)
 # the single-pass kernel: head dims (D padded to a multiple of 16) and key
 # counts (padded up to the next entry) it is built for
 _SMALL_KV_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 160)
@@ -70,9 +75,10 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
         raise TypeError(f"attention kernels take bf16, got {name}.dtype="
                         f"{t.dtype}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
-        raise ValueError(f"{name}: innermost dim must be contiguous and all "
-                         f"strides multiples of 8, got {t.stride()}")
+    if t.stride(-1) != 1 or any(s <= 0 or s % 8 for s in t.stride()[:3]):
+        raise ValueError(f"{name}: innermost dim must be contiguous and the "
+                         f"other strides positive multiples of 8 elements "
+                         f"(16 bytes), got {t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
@@ -102,10 +108,42 @@ def _out_and_strides(q, k, v):
     return out, strides
 
 
+class TmaGeometry(NamedTuple):
+    """How TMA reads one [B, H, S, D] operand of the flash kernel."""
+    dims: tuple[int, int, int, int]     # (D, rows, H, B), innermost first
+    strides: tuple[int, int, int]       # bytes between rows, heads, batches
+    padded_d: int                       # D in shared memory
+
+
+def flash_padded_head_dim(D: int) -> int:
+    """D padded up to a whole number of swizzle atoms, for the head dims
+    the flash kernel is built for (a multiple of 8 up to 192, or 512 after
+    padding); raises for any other."""
+    dp = -(-D // _TMA_ATOM) * _TMA_ATOM
+    if D <= 0 or D % 8 or dp not in _FLASH_PADDED_HEAD_DIMS:
+        raise ValueError(f"flash kernel: unsupported head dim {D}")
+    return dp
+
+
+def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
+    """The TMA view of a bf16 [B, H, S, D] operand, as the kernel's
+    ``encode`` builds it (a strided view is read in place): dims
+    (D, rows, H, B) with ``rows`` of S (the keys past ``kv_valid_len`` read
+    as zero), the byte strides of rows, heads and batches, and D padded in
+    shared memory.  Raises what the wrapper raises before a launch: on a
+    head dim the kernel is not built for, an inner dim that is not
+    contiguous, a stride that is not a positive multiple of 16 bytes, a
+    base that is not 16-byte aligned."""
+    B, H, S, D = t.shape
+    dp = flash_padded_head_dim(D)
+    _check_operand("TMA operand", t)
+    strides = tuple(t.stride(i) * t.element_size() for i in (2, 1, 0))
+    return TmaGeometry((D, rows, H, B), strides, dp)
+
+
 def _launch(q, k, v, kv_len: int, sm_scale: float) -> torch.Tensor:
     B, H, Sq, D = q.shape
-    if D % 8 or -(-D // 16) * 16 not in _PADDED_HEAD_DIMS:
-        raise ValueError(f"flash kernel: unsupported head dim {D}")
+    flash_padded_head_dim(D)
     _check_qkv(q, k, v, kv_len)
     out, strides = _out_and_strides(q, k, v)
     err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -98,12 +98,14 @@ def get_frame_ids(frame_range, frame_ids=None) -> list[int]:
 
 
 def resolve_precision(config, stage_cfg, bundle: ModelBundle) -> torch.dtype:
-    """The stage's ``float_precision`` (falling back to the global one;
-    'fp16' means bf16).  When it differs from the weights', the bundle's
-    UNet and VAE are cast in place; the text encoder stays fp32."""
+    """The stage's ``float_precision`` (falling back to the global one),
+    read as the JAX package and the registry read it: "bf16" and "fp16"
+    mean bf16, every other value fp32.  When it differs from the weights',
+    the bundle's UNet and VAE are cast in place; the text encoder stays
+    fp32."""
     prec = stage_cfg.get("float_precision",
                          config.get("float_precision", "bf16"))
-    want = torch.float32 if prec == "fp32" else torch.bfloat16
+    want = torch.bfloat16 if prec in ("bf16", "fp16") else torch.float32
     if want != bundle.dtype:
         print(f"[INFO] stage float_precision={prec}: re-casting weights "
               f"{bundle.dtype} -> {want} for this stage")
