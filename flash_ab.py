@@ -1,33 +1,51 @@
-"""Time builds of the port's flash-attention C entry against each other on
-one CUDA card, in turns, at chip_smoke.py's FLASH_SHAPES, and the host's
-cost of one call of the Python wrapper.
+"""Time builds of one of the port's attention C entries against each other
+on one CUDA card, in turns, at chip_smoke.py's shapes for that kernel, and
+the host's cost of one call of the Python wrapper.
 
-    python3 flash_ab.py [--root=DIR] [NAME=DIR ...]
+    python3 flash_ab.py [--kernel=flash|small_kv] [--root=DIR ...]
+                        [--json=PATH] [NAME=DIR ...]
 
-Each build DIR holds a ``flash_attention.cu`` (and the ``*.cuh`` it
-includes) that exports ``vidtome_flash_attention`` with the C signature of
-``vidtome_torch/csrc/flash_attention.cu``; ``new=vidtome_torch/csrc`` is
-this checkout's kernel.  All are compiled at once (one nvcc each, the flags
-of ``vidtome_torch.ops.cuda_build``) into ``build/flash_ab/``, and their
-registers and spill lines printed.  At each shape every build runs in the
-order given and then in reverse (A, B, B, A), ``chip_smoke.cuda_time`` over
-10 launches each, on the same seeded inputs, its output held against
-``reference_attention`` in fp32 (max |err|, and max |err| / max |ref|).
-Beside them: the time of ``scaled_dot_product_attention`` on the same
-inputs, chip_smoke.py's bound and the exp floor (one exp2 a score).
+``--kernel`` picks the source, its C entry and the shapes (default
+``flash``):
+  flash     ``flash_attention.cu``, ``vidtome_flash_attention``,
+            ``chip_smoke.FLASH_SHAPES``; the output contiguous;
+  small_kv  ``small_kv_attention.cu``, ``vidtome_small_kv_attention``,
+            ``chip_smoke.SMALL_KV_SHAPES``; the output in the [B, S, H, D]
+            storage the wrapper writes.
+Each build DIR holds that source (and the ``*.cuh`` it includes) with the
+C signature of ``vidtome_torch/csrc``'s; ``new=vidtome_torch/csrc`` is this
+checkout's kernel.  All are compiled at once (one nvcc each, the flags of
+``vidtome_torch.ops.cuda_build``) into ``build/flash_ab/``, and their
+registers and spills printed per kernel instance.  At each shape every
+build runs in the order given and then in reverse (A, B, B, A),
+``chip_smoke.cuda_time`` over 10 launches of the C entry alone each, on the
+same seeded inputs, its output held against ``reference_attention`` in fp32
+(max |err|, and max |err| / max |ref|), and device-only
+(``chip_smoke.graph_time``: 10 launches in a replayed CUDA graph, no host
+time between them).  Beside them, on the same inputs:
+the wrapper of the package under the first ``--root`` through its call
+(``cuda_time``) and device-only (``chip_smoke.graph_time``: 10 calls in a
+replayed CUDA graph), ``scaled_dot_product_attention`` both ways,
+chip_smoke.py's bound and the exp floor (one exp2 a score).
 
-Last, the wall microseconds of one call at [1, 1, 128x128, 64], where the
-host's cost shows: of each build's C entry, and of the ``flash_attention``
-wrapper of the package under ``--root`` (default this checkout; a
-``git archive`` of another commit compares two wrappers from two runs).
-With no build only that wrapper is timed.
+Last, the wall microseconds of one call, where the host's cost shows (at
+[1, 1, 128x128, 64] for flash, [1, 1, 128x77, 64] for small-KV), in three
+rounds of turns: of each build's C entry, of the wrapper of the package
+under each ``--root`` (default this checkout; give it twice, with a ``git
+archive`` of another commit, to compare two wrappers in one process, each
+with the kernels of its own package) and of SDPA.  With no build only
+those are timed.  ``--json=PATH`` also writes every reading there.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import functools
+import importlib
+import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -36,46 +54,81 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import EXP2_S, FLASH_SHAPES, bound_ms, cuda_time
+from chip_smoke import (EXP2_S, FLASH_SHAPES, SMALL_KV_SHAPES, bound_ms,
+                        cuda_time, graph_time)
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "flash_ab"
+KERNELS = {
+    "flash": dict(source="flash_attention.cu",
+                  entry="vidtome_flash_attention", ints=5,
+                  shapes=FLASH_SHAPES, wrapper="flash_attention",
+                  host=(1, 1, 128, 128, 64)),
+    "small_kv": dict(source="small_kv_attention.cu",
+                     entry="vidtome_small_kv_attention", ints=7,
+                     shapes=SMALL_KV_SHAPES, wrapper="small_kv_attention",
+                     host=(1, 1, 128, 77, 64)),
+}
 
 
-def build(name: str, src: Path):
+def build(kernel: dict, name: str, src: Path):
     from vidtome_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
 
     out = OUT / f"lib{name}.so"
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-         str(src / "flash_attention.cu")], capture_output=True, text=True)
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src / kernel["source"])],
+        capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    regs = [ln.split("Used")[1].split(",")[0].strip()
-            for ln in proc.stderr.splitlines() if "Used" in ln]
-    spills = sorted({ln.strip() for ln in proc.stderr.splitlines()
-                     if "spill" in ln})
-    fn = ctypes.CDLL(str(out)).vidtome_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    # per kernel instance (its template arguments): registers, spill bytes
+    report, inst = {}, None
+    for ln in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            inst = ",".join(args) or m.group(1)
+        elif "Used" in ln and inst is not None:
+            report[inst] = (ln.split("Used")[1].split(",")[0].strip()
+                            + report.get(inst, ""))
+        elif "spill" in ln and inst is not None:
+            if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln)):
+                report[inst] = report.get(inst, "") + f"; {ln.strip()}"
+    fn = getattr(ctypes.CDLL(str(out)), kernel["entry"])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * kernel["ints"] + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, regs, spills
+    return fn, report
 
 
-def launcher(fn, q, k, v, o):
+def launcher(kernel: dict, fn, q, k, v, o):
     """One call of a build's C entry on [B, H, S, D] tensors."""
+    from vidtome_torch.ops import attention
+
     B, H, Sq, D = q.shape
     st = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                   *v.stride()[:3], *o.stride()[:3])
     scale = math.log2(math.e) / math.sqrt(D)
-    stream = torch.cuda.current_stream().cuda_stream
+    device = q.get_device()
+    ints = [B, H, Sq, k.shape[2], D]
+    if kernel["ints"] == 7:  # small-KV: D padded to 16, the padded keys
+        ints += [-(-D // 16) * 16, next(n for n in attention._SMALL_KV_LENS
+                                        if n >= k.shape[2])]
 
     def run():
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-                 H, Sq, k.shape[2], D, st, scale, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 *ints, st, scale,
+                 torch._C._cuda_getCurrentRawStream(device))
         if err:
             raise RuntimeError(f"launch failed: error {err}")
     return run
+
+
+def output(kernel: dict, q):
+    if kernel is KERNELS["flash"]:
+        return torch.empty_like(q)
+    B, H, Sq, D = q.shape
+    return torch.empty(B, Sq, H, D, dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
 
 
 def wall_us(run, iters: int = 500) -> float:
@@ -91,76 +144,126 @@ def wall_us(run, iters: int = 500) -> float:
     return (time.perf_counter() - t0) / iters * 1e6
 
 
-def compare(fns: dict) -> None:
+def wrappers(kernel: dict, roots: list[Path]) -> dict:
+    """The wrapper of the package under each root, imported on its own, so
+    that each builds and launches the kernels of its own package."""
+    found = {}
+    for root in roots:
+        for mod in [m for m in sys.modules if m.split(".")[0] == "vidtome_torch"]:
+            del sys.modules[mod]
+        sys.path.insert(0, str(root))
+        try:
+            attention = importlib.import_module("vidtome_torch.ops.attention")
+        finally:
+            sys.path.remove(str(root))
+        found[str(root)] = getattr(attention, kernel["wrapper"])
+    return found
+
+
+def compare(kernel: dict, fns: dict, wrapper) -> list:
     order = list(fns) + list(reversed(fns))
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     from vidtome_torch.ops.attention import reference_attention
 
-    for B, H, Sq, Skv, D in FLASH_SHAPES:
+    rows = []
+    for B, H, Sq, Skv, D in kernel["shapes"]:
         q, k, v = (torch.from_numpy(rng.standard_normal(
             (B, H, s, D), np.float32)).to(dev, torch.bfloat16)
             for s in (Sq, Skv, Skv))
         want = reference_attention(q.float(), k.float(), v.float())
         ref_max = want.abs().max().item()
-        ms, err = {}, {}
+        ms, device_ms, err = {}, {}, {}
         for name in order:
-            o = torch.empty_like(q)
-            ms.setdefault(name, []).append(
-                cuda_time(launcher(fns[name], q, k, v, o), 10))
+            o = output(kernel, q)
+            run = launcher(kernel, fns[name], q, k, v, o)
+            ms.setdefault(name, []).append(cuda_time(run, 10))
+            try:
+                device_ms.setdefault(name, []).append(graph_time(run, 10))
+            except RuntimeError as exc:  # a C entry a graph cannot capture
+                print(f"[{name}] device-only time not measured: {exc}")
             err[name] = (o.float() - want).abs().max().item()
         del want
-        sdpa = cuda_time(
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
-            10)
-        bound = max(bound_ms(2 * 2 * B * H * (Sq + Skv) * D,
-                             bf16=4 * B * H * Sq * Skv * D))
+        row = dict(shape=[B, H, Sq, Skv, D], ref_max=ref_max, ms=ms,
+                   device_ms=device_ms,
+                   rel_err={n: err[n] / ref_max for n in fns},
+                   abs_err=err,
+                   wrapper_ms=cuda_time(lambda: wrapper(q, k, v), 10),
+                   wrapper_device_ms=graph_time(lambda: wrapper(q, k, v), 10),
+                   sdpa_ms=cuda_time(lambda: sdpa(q, k, v), 10),
+                   sdpa_device_ms=graph_time(lambda: sdpa(q, k, v), 10),
+                   bound_ms=max(bound_ms(2 * 2 * B * H * (Sq + Skv) * D,
+                                         bf16=4 * B * H * Sq * Skv * D)),
+                   exp_floor_ms=B * H * Sq * Skv / EXP2_S * 1e3)
+        rows.append(row)
         print(f"[{B},{H},{Sq}x{Skv},{D}] max|ref| {ref_max:.4f}; "
-              + "; ".join(f"{n} {ms[n]} ms, max|err| {err[n]:.2e} "
+              + "; ".join(f"{n} {ms[n]} ms (device only {device_ms.get(n)}), "
+                          f"max|err| {err[n]:.2e} "
                           f"({err[n] / ref_max:.2e} of max|ref|)"
                           for n in fns)
-              + f"; sdpa {sdpa:.4f} ms; bound {bound:.4f}; exp floor "
-              f"{B * H * Sq * Skv / EXP2_S * 1e3:.4f}")
+              + f"; wrapper {row['wrapper_ms']:.4f} ms (device only "
+              f"{row['wrapper_device_ms']:.4f}); sdpa {row['sdpa_ms']:.4f} ms "
+              f"(device only {row['sdpa_device_ms']:.4f}); bound "
+              f"{row['bound_ms']:.4f}; exp floor {row['exp_floor_ms']:.4f}")
         del q, k, v
         torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
         return 1
-    builds = {}
+    builds, kernel, json_path, roots = {}, KERNELS["flash"], None, []
     for arg in argv:
         if arg.startswith("--root="):
-            sys.path.insert(0, str((ROOT / arg.split("=", 1)[1]).resolve()))
+            roots.append((ROOT / arg.split("=", 1)[1]).resolve())
+        elif arg.startswith("--kernel="):
+            kernel = KERNELS[arg.split("=", 1)[1]]
+        elif arg.startswith("--json="):
+            json_path = ROOT / arg.split("=", 1)[1]
         else:
             name, path = arg.split("=", 1)
             builds[name] = (ROOT / path).resolve()
-    from vidtome_torch.ops import attention
+    wrapped = wrappers(kernel, roots or [ROOT])
+    wrapper = next(iter(wrapped.values()))
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    result = dict(card=card, kernel=kernel["entry"], builds={}, rows=[])
     fns = {}
     if builds:
         OUT.mkdir(parents=True, exist_ok=True)
         with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-            built = dict(zip(builds, pool.map(build, builds,
-                                              builds.values())))
-        for name, (fn, regs, spills) in built.items():
+            built = dict(zip(builds, pool.map(
+                lambda n: build(kernel, n, builds[n]), builds)))
+        for name, (fn, report) in built.items():
             fns[name] = fn
-            print(f"[build] {name}: registers {regs}; {spills}")
-        compare(fns)
-    q = torch.zeros(1, 1, 128, 64, device="cuda", dtype=torch.bfloat16)
+            result["builds"][name] = report
+            print(f"[build] {name}: registers per instance {report}")
+        result["rows"] = compare(kernel, fns, wrapper)
+    B, H, Sq, Skv, D = kernel["host"]
+    q = torch.zeros(B, H, Sq, D, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(B, H, Skv, D, device="cuda", dtype=torch.bfloat16)
+    runs = {name: launcher(kernel, fn, q, kv, kv, output(kernel, q))
+            for name, fn in fns.items()}
+    runs.update({f"wrapper {root}": functools.partial(w, q, kv, kv)
+                 for root, w in wrapped.items()})
+    runs["sdpa"] = functools.partial(
+        torch.nn.functional.scaled_dot_product_attention, q, kv, kv)
     host = {}
-    for name in list(fns) + list(reversed(fns)):
-        run = launcher(fns[name], q, q, q, torch.empty_like(q))
-        host.setdefault(name, []).append(wall_us(run))
-    host["wrapper"] = [wall_us(lambda: attention.flash_attention(q, q, q))
-                       for _ in range(2)]
-    print(f"[host] wall us a call at [1,1,128x128,64]; wrapper of "
-          f"{Path(attention.__file__).resolve().parents[2]}: "
+    for _ in range(3):
+        for name in list(runs) + list(reversed(runs)):
+            host.setdefault(name, []).append(round(wall_us(runs[name]), 2))
+    result["host_us"] = host
+    print(f"[host] wall us a call at [{B},{H},{Sq}x{Skv},{D}]: "
           + "; ".join(f"{n} {v}" for n, v in host.items()))
+    if json_path is not None:
+        json_path.parent.mkdir(parents=True, exist_ok=True)
+        json_path.write_text(json.dumps(result, indent=1))
     return 0
 
 

@@ -12,7 +12,8 @@ Inputs come from numpy with a seed and go to both packages.  Tolerances:
   kernel to its oracle at the same bar).
 
 Shapes cover kv_len below the key count, C not a multiple of 128 and head
-dims 40 and 64.
+dims 40, 64, 80 and 160 (every head dim the main paths send to the
+single-pass kernel, at reduced Sq).
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ BF16_ATOL = 5e-2
     (2, 3, 100, 77, 40, None),     # SD1.5 cross-attention head dim
     (2, 2, 64, 80, 64, 77),        # SD2.1 head dim, 77 of 80 keys valid
     (1, 2, 256, 256, 64, 200),     # 16x16 self-attention, masked tail
+    (2, 2, 128, 77, 80, None),     # SD1.5 L1 cross-attention head dim
+    (2, 2, 64, 77, 160, None),     # SD1.5 L2 / mid cross-attention
+    (1, 2, 64, 256, 160, None),    # SD1.5 16x16 self-attention (Sq cut)
+    (1, 2, 64, 64, 160, 50),       # SD1.5 mid self-attention, masked tail
 ])
 def test_small_kv_plain_matches_jax(B, H, Sq, Skv, D, kv_valid):
     rng = np.random.default_rng(0)

@@ -11,7 +11,14 @@ bounds them and how the designs answer) and on a CPU tensor running
   softmax; :func:`tma_geometry` is the view TMA reads each operand through;
 * ``small_kv_attention`` replaces the Pallas ``small_kv_attention``
   (``_small_kv_kernel``, ``csrc/small_kv_attention.cu``): the whole KV of
-  at most 256 keys in one tile, a single softmax pass.
+  at most 256 keys in one tile, staged by TMA once per head, Q tiles
+  through a 2-stage TMA ring, both products on ``wgmma``, a single softmax
+  pass, O out by TMA store.
+
+Both wrappers run the checks that depend only on the signature of q, k, v
+(shapes, strides, dtypes, devices, ``kv_valid_len``) once per signature
+(:func:`launch_plan`); per call they check the data pointers' alignment,
+allocate the output and make one ctypes call.
 
 :func:`attention` dispatches as the JAX package's does (``_SMALL_KV_XLA``):
 KV of at most 256 tokens (cross-attention over the 77 text tokens, the
@@ -71,7 +78,7 @@ def _library():
     return fn
 
 
-def _check_operand(name: str, t: torch.Tensor) -> None:
+def _check_layout(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
         raise TypeError(f"attention kernels take bf16, got {name}.dtype="
                         f"{t.dtype}")
@@ -79,11 +86,20 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name}: innermost dim must be contiguous and the "
                          f"other strides positive multiples of 8 elements "
                          f"(16 bytes), got {t.stride()}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def _aligned_pointers(*ts: torch.Tensor) -> list[int]:
+    """The tensors' data pointers; raises unless each is 16-byte aligned
+    (TMA's rule for a base address)."""
+    ptrs = [t.data_ptr() for t in ts]
+    if any(p % 16 for p in ptrs):
+        raise ValueError(f"data pointer not 16-byte aligned: {ptrs}")
+    return ptrs
 
 
 def _check_qkv(q, k, v, kv_len: int) -> None:
+    """What a launch needs of q, k, v beyond their data pointers: shapes,
+    ``kv_len``, devices, dtype and strides."""
     B, H, Sq, D = q.shape
     if k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}"
@@ -93,19 +109,69 @@ def _check_qkv(q, k, v, kv_len: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        _check_operand(name, t)
+        _check_layout(name, t)
 
 
-def _out_and_strides(q, k, v):
-    """[B, Sq, H, D] storage seen as [B, H, Sq, D] (the caller's merge of
-    the heads back into channels is then free) and the (b, h, s) strides of
-    q, k, v and the output."""
-    B, H, Sq, D = q.shape
-    out = torch.empty(B, Sq, H, D, dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *out.stride()[:3])
-    return out, strides
+class LaunchPlan(NamedTuple):
+    """What every launch with one signature of q, k, v and ``kv_len``
+    shares: the output's shape and strides ([B, H, Sq, D] over [B, Sq, H, D]
+    storage, so the caller's merge of the heads back into channels is
+    free), the C entry's integer arguments (B, H, Sq, kv_len, D, then what
+    the kernel's check adds) and the (b, h, s) strides of q, k, v and the
+    output, as the C entries take them."""
+    out_shape: tuple[int, int, int, int]
+    out_strides: tuple[int, int, int, int]
+    ints: tuple[int, ...]
+    strides: ctypes.Array
+
+
+# signature -> LaunchPlan: the checks that depend only on shapes, strides,
+# dtypes, devices and kv_len run once per signature
+_PLANS: dict[tuple, LaunchPlan] = {}
+
+
+def launch_plan(q, k, v, kv_len: int, check) -> LaunchPlan:
+    """The :class:`LaunchPlan` of q, k, v at ``kv_len``, made (after
+    ``check(q, k, v)``, which returns the kernel's own integer arguments,
+    and the shape, dtype and stride checks, which raise what a launch cannot
+    take) at the first call with its signature and looked up after.  The
+    data pointers' alignment is not part of it: the wrappers check it every
+    call."""
+    key = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+           q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, kv_len,
+           check)
+    plan = _PLANS.get(key)
+    if plan is None:
+        extra = check(q, k, v)
+        _check_qkv(q, k, v, kv_len)
+        B, H, Sq, D = q.shape
+        out_strides = (Sq * H * D, D, H * D, 1)
+        strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                           *v.stride()[:3], *out_strides[:3])
+        plan = _PLANS[key] = LaunchPlan((B, H, Sq, D), out_strides,
+                                        (B, H, Sq, kv_len, D, *extra),
+                                        strides)
+    return plan
+
+
+def _launch(fn, what: str, q, k, v, kv_len: int, sm_scale: float,
+            check) -> torch.Tensor:
+    """One launch of the C entry ``fn``: the plan, the per-call pointer
+    check, the output, one ctypes call on the current stream; raises on a
+    nonzero return."""
+    plan = launch_plan(q, k, v, kv_len, check)
+    ptrs = _aligned_pointers(q, k, v)
+    out = q.new_empty_strided(plan.out_shape, plan.out_strides)
+    # the current stream's raw handle, as torch.cuda.current_stream(
+    # q.device).cuda_stream gives it without making a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    err = fn(*ptrs, out.data_ptr(), *plan.ints, plan.strides,
+             sm_scale * _LOG2E, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: error {err} "
+                           f"(q{tuple(q.shape)}, k{tuple(k.shape)}, "
+                           f"kv_len={kv_len})")
+    return out
 
 
 class TmaGeometry(NamedTuple):
@@ -136,24 +202,15 @@ def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
     base that is not 16-byte aligned."""
     B, H, S, D = t.shape
     dp = flash_padded_head_dim(D)
-    _check_operand("TMA operand", t)
+    _check_layout("TMA operand", t)
+    _aligned_pointers(t)
     strides = tuple(t.stride(i) * t.element_size() for i in (2, 1, 0))
     return TmaGeometry((D, rows, H, B), strides, dp)
 
 
-def _launch(q, k, v, kv_len: int, sm_scale: float) -> torch.Tensor:
-    B, H, Sq, D = q.shape
-    flash_padded_head_dim(D)
-    _check_qkv(q, k, v, kv_len)
-    out, strides = _out_and_strides(q, k, v)
-    err = _library()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), B, H, Sq, kv_len, D, strides,
-                     sm_scale * _LOG2E,
-                     torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention launch failed: error {err} "
-                           f"(q{tuple(q.shape)}, kv_len={kv_len})")
-    return out
+def _check_flash_head_dim(q, k, v) -> tuple:
+    flash_padded_head_dim(q.shape[-1])
+    return ()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,7 +226,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return reference_attention(q, k, v, kv_valid_len, sm_scale)
     kv_len = k.shape[2] if kv_valid_len is None else kv_valid_len
-    out = _launch(q, k, v, kv_len, sm_scale)
+    out = _launch(_library(), "flash attention", q, k, v, kv_len, sm_scale,
+                  _check_flash_head_dim)
     flash_attention.launches += 1
     return out
 
@@ -194,6 +252,22 @@ def small_kv_takes(D: int, Skv: int) -> bool:
             and 0 < Skv <= SMALL_KV)
 
 
+def _small_kv_keys(Skv: int) -> int:
+    """The padded key count of the kernel instance that takes Skv keys."""
+    return next(n for n in _SMALL_KV_LENS if n >= Skv)
+
+
+def _check_small_kv_dims(q, k, v) -> tuple[int, int]:
+    """Raises unless the kernel is built for q's head dim and k's key
+    count; returns the C entry's dp (D padded to 16) and kvp (the padded
+    key count)."""
+    D, Skv = q.shape[-1], k.shape[2]
+    if not small_kv_takes(D, Skv):
+        raise ValueError(f"small-KV kernel: unsupported head dim {D} or "
+                         f"{Skv} keys (at most {SMALL_KV})")
+    return -(-D // 16) * 16, _small_kv_keys(Skv)
+
+
 def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_valid_len: int | None = None,
                        sm_scale: float | None = None) -> torch.Tensor:
@@ -206,22 +280,9 @@ def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return reference_attention(q, k, v, kv_valid_len, sm_scale)
-    B, H, Sq, D = q.shape
-    Skv = k.shape[2]
-    if not small_kv_takes(D, Skv):
-        raise ValueError(f"small-KV kernel: unsupported head dim {D} or "
-                         f"{Skv} keys (at most {SMALL_KV})")
-    kv_len = Skv if kv_valid_len is None else kv_valid_len
-    _check_qkv(q, k, v, kv_len)
-    out, strides = _out_and_strides(q, k, v)
-    kvp = next(n for n in _SMALL_KV_LENS if n >= Skv)
-    err = _small_kv_library()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
-        kv_len, D, -(-D // 16) * 16, kvp, strides, sm_scale * _LOG2E,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"small-KV attention launch failed: error {err} "
-                           f"(q{tuple(q.shape)}, Skv={Skv})")
+    kv_len = k.shape[2] if kv_valid_len is None else kv_valid_len
+    out = _launch(_small_kv_library(), "small-KV attention", q, k, v, kv_len,
+                  sm_scale, _check_small_kv_dims)
     small_kv_attention.launches += 1
     return out
 
