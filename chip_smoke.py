@@ -5,9 +5,9 @@
 Phases (any failure exits non-zero before the last line):
   1. device: the card's name and power limit;
   2. build: compile the CUDA libraries (flash attention, single-pass
-     small-KV attention, fused resnet in its bf16 and W8A8 variants, best
-     match, fused cross-attention sublayer, single-launch GroupNorm: one
-     nvcc each, all started together, sm_90a) and the Triton GroupNorm
+     small-KV attention, the bf16 fused resnet, the W8A8 fused resnet,
+     best match, fused cross-attention sublayer, single-launch GroupNorm:
+     one nvcc each, all started together, sm_90a) and the Triton GroupNorm
      kernels from this checkout's sources;
   3. kernel vs plain: each of the eight kernels in bf16 against its plain
      PyTorch version (fp32 on the same bf16 inputs; the W8A8 resnet's in
@@ -16,7 +16,10 @@ Phases (any failure exits non-zero before the last line):
      computes the same function where there is one, and the card's bound
      (for attention also the exp floor: one exp2 a score, the device-only
      times of the kernel and of SDPA from a replayed CUDA graph, and for
-     small-KV the sums per UNet call of each path, SMALL_KV_LAUNCHES);
+     small-KV the sums per UNet call of each path, SMALL_KV_LAUNCHES; for
+     the bf16 resnet the block's device-only time and, as its library
+     call, cuDNN's two convolutions of the row, timed only: the
+     convolutions alone, not the block);
      flash is held to FLASH_TOL of max |ref| besides ATTN_TOL, small-KV to
      SMALL_KV_REL_TOL besides SMALL_KV_TOL;
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
@@ -65,8 +68,8 @@ Then one JSON line with the kernels' numbers (launches: summed over the
 exact, serving, int8 and PnP paths, each counted from 0; ms, plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes; for the
 two attention kernels also device_ms and library_device_ms, the kernel's
-and SDPA's time in a replayed CUDA graph, without the host's), and
-last:
+and SDPA's time in a replayed CUDA graph, without the host's, and for the
+bf16 resnet device_ms), and last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 
@@ -307,7 +310,8 @@ RESNET_SHAPES = [  # (B, H, W, Cin, Cout): both fused resnet variants
     (8, 32, 32, 640, 640),     # L1, identity shortcut
     (8, 64, 64, 640, 320),     # last up block, projection shortcut
     (8, 16, 16, 2560, 1280),   # up block 1, skip-concat width
-    (4, 64, 64, 960, 320),     # ragged width (not a multiple of 64), cfg-skip batch
+    (4, 64, 64, 960, 320),     # 15 channel chunks, cfg-skip batch
+    (8, 8, 8, 1280, 1280),     # 8x8 level (mid, down 3, up 0): 4 a full call
 ]
 MATCH_SHAPES = [  # (B, S, D, C)
     (2, 12288, 4096, 320),     # L0 local round
@@ -384,6 +388,7 @@ def phase_build(dev) -> None:
     t0 = time.perf_counter()
     libs = {"vidtome_flash": "flash_attention.cu",
             "vidtome_small_kv": "small_kv_attention.cu",
+            "vidtome_resnet_bf16": "resnet_bf16.cu",
             "vidtome_resnet": "resnet.cu", "vidtome_matching": "matching.cu",
             "vidtome_sublayer": "sublayer.cu",
             "vidtome_group_norm_full": "group_norm_full.cu"}
@@ -569,12 +574,16 @@ def phase_kernels(dev) -> KernelStats:
                                 + shift).to(dev)
 
     for B, H, W, Ci, Co in RESNET_SHAPES:
+        # the conv weights as ResnetBlock2D holds them: OIHW views of
+        # packed [O, 3, 3, I] storage (channels_last)
         args = [bf16((B, H, W, Ci)), f32(B, Co, scale=0.3),
                 f32(Ci, scale=0.2, shift=1.0), f32(Ci, scale=0.1),
-                f32(Co, Ci, 3, 3, scale=(9 * Ci) ** -0.5).bfloat16(),
+                f32(Co, Ci, 3, 3, scale=(9 * Ci) ** -0.5).bfloat16()
+                .contiguous(memory_format=torch.channels_last),
                 f32(Co, scale=0.1), f32(Co, scale=0.2, shift=1.0),
                 f32(Co, scale=0.1),
-                f32(Co, Co, 3, 3, scale=(9 * Co) ** -0.5).bfloat16(),
+                f32(Co, Co, 3, 3, scale=(9 * Co) ** -0.5).bfloat16()
+                .contiguous(memory_format=torch.channels_last),
                 f32(Co, scale=0.1)]
         proj = Ci != Co
         if proj:
@@ -591,17 +600,33 @@ def phase_kernels(dev) -> KernelStats:
         err = abs_err / want.abs().max().item()
         del want
         ms = cuda_time(lambda: resnet.fused_resnet(*args), 10)
+        device = graph_time(lambda: resnet.fused_resnet(*args), 10)
         plain = cuda_time(lambda: resnet.reference_fused_resnet(*args_f), 3)
+        # the library yardstick: cuDNN's two convolutions of the block
+        # (bf16, channels_last), without its norms, bias and shortcut
+        xc = args[0].permute(0, 3, 1, 2)
+        hc = got.permute(0, 3, 1, 2)
+
+        def cudnn():
+            F.conv2d(xc, args[4], padding=1)
+            F.conv2d(hc, args[8], padding=1)
+        lib = cuda_time(cudnn, 10)
         bound = bound_ms(act_bytes + 2 * (9 * Ci * Co + 9 * Co * Co
                                           + Ci * Co * proj),
                          bf16=conv_ops + sc_ops)
-        report(f"fused_resnet [{B},{H},{W},{Ci}]->{Co}: max rel err "
-               f"{err:.2e}, ", abs_err, RESNET_TOL, ms, plain, None, bound)
+        plan1 = resnet.conv_plan(B, H, W, Ci, Co, resnet._sm_count(0))
+        plan2 = resnet.conv_plan(B, H, W, Co, Co, resnet._sm_count(0))
+        report(f"fused_resnet [{B},{H},{W},{Ci}]->{Co} (tiles "
+               f"{plan1.tile_h}x{plan1.tile_w}/{plan1.block_n}, "
+               f"{plan2.tile_h}x{plan2.tile_w}/{plan2.block_n}): max rel err "
+               f"{err:.2e}, ", abs_err, RESNET_TOL, ms, plain, lib, bound,
+               f"; device only (CUDA graph of 10 calls) {device:.4f} ms; the "
+               f"library call is cuDNN's two convolutions alone")
         if not err < RESNET_TOL:
             raise AssertionError(f"fused resnet kernel disagrees at "
                                  f"{(B, H, W, Ci, Co)}")
-        stats.add("fused_resnet", abs_err, ms, plain, None, bound)
-        del args_f, got
+        stats.add("fused_resnet", abs_err, ms, plain, lib, bound, device)
+        del args_f, got, xc, hc
         # W8A8: int8 weights packed as the int8 tables hold them; the plain
         # version in bf16 (the kernel's rounding points, the same int8
         # activations up to fp32 sum order)
@@ -1199,7 +1224,7 @@ def main() -> int:
                        "vidtome_tpu/ops/groupnorm.py:108"),
         "full_group_norm": ("cuda", "vidtome_torch/csrc/group_norm_full.cu",
                             "vidtome_tpu/ops/groupnorm.py:212"),
-        "fused_resnet": ("cuda", "vidtome_torch/csrc/resnet.cu",
+        "fused_resnet": ("cuda", "vidtome_torch/csrc/resnet_bf16.cu",
                          "vidtome_tpu/ops/resnet.py:232"),
         "fused_resnet_w8a8": ("cuda", "vidtome_torch/csrc/resnet.cu",
                               "vidtome_tpu/ops/resnet.py:232"),

@@ -176,6 +176,8 @@ def _resnet_args(rng, cuda, B, H, W, Ci, Co):
     (4, 64, 64, 960, 320),    # ragged width, projection, cfg-skip batch
     (2, 8, 8, 96, 32),        # tiny widths, projection, 8x8 image
     (1, 13, 21, 64, 64),      # ragged tiles on both image axes
+    (8, 8, 8, 1280, 1280),    # SD1.5 8x8 level: one 8x8 tile an image
+    (8, 16, 16, 2560, 1280),  # up block 1, skip-concat width
 ])
 def test_fused_resnet_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     rng = np.random.default_rng(5)
@@ -188,6 +190,61 @@ def test_fused_resnet_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     assert got.shape == (B, H, W, Co) and got.dtype == torch.bfloat16
     err = (got.float() - want).abs().max() / want.abs().max()
     assert err.item() < RESNET_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(16, 8, 2), (8, 8, 1)])
+@pytest.mark.parametrize("block_n", [160, 64])
+@pytest.mark.parametrize("B,H,W,Ci,Co,groups1,spike", [
+    # a ragged last chunk (40 of 64 channels) at 8 groups, ragged tiles on
+    # both image axes, Co past the N tile
+    (2, 13, 21, 40, 96, 8, False),
+    # a ragged last chunk (96 = 64 + 32) with large values in the channels
+    # a 2-D weight map (the next tap's) or an unmasked halo (the next
+    # pixel's) would read, Co = 224 past both N tiles
+    (3, 16, 24, 96, 224, 32, True),
+])
+def test_fused_resnet_kernel_instances_match_plain(
+        cuda, monkeypatch, tile, block_n, B, H, W, Ci, Co, groups1, spike):
+    # one kernel instance, whatever conv_plan would pick
+    monkeypatch.setattr(t_res, "_TILES", (tile,))
+    monkeypatch.setattr(t_res, "_BLOCK_N", (block_n,))
+    rng = np.random.default_rng(14)
+    args = _resnet_args(rng, cuda, B, H, W, Ci, Co)
+    if spike:
+        args[0][..., :32] *= 8
+        args[4][:, :32] *= 8
+        args[8][:, :32] *= 8
+    kw = dict(num_groups1=groups1)
+    got = t_res.fused_resnet(*args, **kw)
+    want = t_res.reference_fused_resnet(*[a.float() for a in args], **kw)
+    assert got.shape == (B, H, W, Co) and got.dtype == torch.bfloat16
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() < RESNET_TOL
+
+
+@pytest.mark.cuda
+def test_fused_resnet_kernel_takes_packed_module_weights(cuda):
+    # SD1.5's 8x8 level at batch 8, the weights as ResnetBlock2D holds them
+    # (OIHW views of packed [O, 3, 3, I] storage)
+    rng = np.random.default_rng(15)
+    args = _resnet_args(rng, cuda, 8, 8, 8, 1280, 1280)
+    for i in (4, 8):
+        args[i] = args[i].contiguous(memory_format=torch.channels_last)
+    got = t_res.fused_resnet(*args)
+    want = t_res.reference_fused_resnet(*[a.float() for a in args])
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() < RESNET_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(8, 64, 64, 320, 320),
+                                         (8, 16, 16, 2560, 1280)])
+def test_fused_resnet_kernel_gives_the_same_bits_twice(cuda, B, H, W, Ci,
+                                                       Co):
+    # the GN2 partials are reduced in a fixed order, without atomics
+    args = _resnet_args(np.random.default_rng(16), cuda, B, H, W, Ci, Co)
+    assert torch.equal(t_res.fused_resnet(*args), t_res.fused_resnet(*args))
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 // The two 3x3 convolutions of a fused ResnetBlock2D for Hopper (sm_90a),
-// bf16 activations in and out, in two variants: bf16 weights with fp32
-// accumulation, and W8A8 (int8 weights and activations, int32
-// accumulation).
+// bf16 activations in and out, W8A8: int8 weights and activations, int32
+// accumulation.  The template below also has a bf16-weight instance, which
+// the port no longer builds: the bf16 block runs csrc/resnet_bf16.cu
+// (TMA and wgmma).
 //
 // Replaces the convolution work of vidtome_tpu/ops/resnet.py:fused_resnet
 // (_kernel_a: GN1 normalize+SiLU -> conv1 -> +b1+temb -> GN2 statistics;
@@ -366,26 +367,13 @@ int dispatch(const ConvArgs& a, int B, int tile_w, void* stream) {
 }  // namespace
 
 // One 3x3 convolution (stride 1, zero padding 1) of silu(groupnorm(x)),
-// bf16 weights, see the file note.  tile_w (8, 16 or 32) is the pixel
-// tile's width; the GN2 partials, when asked for, are [B, ceil(H/(128/
-// tile_w)) * ceil(W/tile_w), Cout].  Returns 0 on success, a cudaError_t
-// code, or -1 for arguments the kernel does not take.
-extern "C" int vidtome_resnet_conv3x3(
-    const void* x, const float* mean, const float* rstd, const float* gamma,
-    const float* beta, const void* w, const float* bias, const float* tvec,
-    const void* resid, void* out, float* psum, float* psq, int B, int H,
-    int W, int Cin, int Cout, int G, int tile_w, void* stream) {
-  ConvArgs a{static_cast<const __nv_bfloat16*>(x), mean, rstd, gamma, beta,
-             w, nullptr, nullptr, bias, tvec,
-             static_cast<const __nv_bfloat16*>(resid),
-             static_cast<__nv_bfloat16*>(out), psum, psq, H, W, Cin, Cout, G};
-  return dispatch<false>(a, B, tile_w, stream);
-}
-
-// The W8A8 variant: int8 weights w [Cout, 3, 3, Cin] with fp32 per-channel
-// scales w_scale [Cout], the activation quantized in the prologue with the
-// static scale act_scale [1]; Cin and Cout multiples of 32.  Otherwise as
-// vidtome_resnet_conv3x3.
+// W8A8, see the file note: int8 weights w [Cout, 3, 3, Cin] with fp32
+// per-channel scales w_scale [Cout], the activation quantized in the
+// prologue with the static scale act_scale [1]; Cin and Cout multiples of
+// 32.  tile_w (8, 16 or 32) is the pixel tile's width; the GN2 partials,
+// when asked for, are [B, ceil(H/(128/tile_w)) * ceil(W/tile_w), Cout].
+// Returns 0 on success, a cudaError_t code, or -1 for arguments the kernel
+// does not take.
 extern "C" int vidtome_resnet_conv3x3_w8a8(
     const void* x, const float* mean, const float* rstd, const float* gamma,
     const float* beta, const float* act_scale, const void* w,

@@ -166,6 +166,17 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
+    def _apply(self, fn, *args, **kwargs):
+        # wherever the block takes a device or dtype, conv1 and conv2 keep
+        # their OIHW weights as views of packed [O, 3, 3, I] storage
+        # (channels_last), which the fused kernels read without a copy
+        super()._apply(fn, *args, **kwargs)
+        for conv in (self.conv1, self.conv2):
+            w = conv.weight
+            if not w.is_contiguous(memory_format=torch.channels_last):
+                w.data = w.data.contiguous(memory_format=torch.channels_last)
+        return self
+
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
                 resnet_mode: str = "off", inject: bool | None = None,
                 num_lanes: int = 1, qt=None) -> torch.Tensor:

@@ -116,8 +116,9 @@ def int8_dense(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 
 def packed_conv_weight(w_q: torch.Tensor) -> torch.Tensor:
-    """An OIHW int8 conv weight as [O, kh, kw, I], contiguous (a free view
-    when ``w_q`` is a view of packed storage, as the tables hold it)."""
+    """An OIHW conv weight as [O, kh, kw, I], contiguous (a free view when
+    ``w_q`` is a view of packed storage, as the int8 tables and
+    ``ResnetBlock2D`` hold it)."""
     return w_q.permute(0, 2, 3, 1).contiguous()
 
 

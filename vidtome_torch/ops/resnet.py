@@ -7,25 +7,31 @@ and activations).  On a CUDA tensor either runs the block as
 
   1. GN1 statistics of x (the Triton statistics passes of
      ``ops/groupnorm.py``);
-  2. conv1 (``csrc/resnet.cu``): GN1 normalize+SiLU as the input tile is
-     loaded (W8A8: then quantized with the static post-norm scale),
-     +b1+tvec, h stored bf16, per-tile fp32 channel sums of h for GN2;
+  2. conv1 (bf16: ``csrc/resnet_bf16.cu``, W8A8: ``csrc/resnet.cu``): GN1
+     normalize+SiLU as the input tile is staged (W8A8: then quantized with
+     the static post-norm scale), +b1+tvec, h stored bf16, per-tile fp32
+     channel sums of h for GN2;
   3. GN2 statistics from those partials (the Triton reduction pass, fixed
      order, no atomics);
-  4. conv2 (``csrc/resnet.cu``): GN2 normalize+SiLU (+quantize) prologue,
+  4. conv2 (the same kernel): GN2 normalize+SiLU (+quantize) prologue,
      +b2 +shortcut epilogue, the block output bf16;
 
 and on a CPU tensor it runs :func:`reference_fused_resnet`.  As in the JAX
 package, the time-embedding projection (``tvec``) and the 1x1 projection
 shortcut are computed outside the kernel, the latter as a plain matmul in
-bf16 also under W8A8.  The source note in ``csrc/resnet.cu`` says what
-bounds the kernel and how its design answers.
+bf16 also under W8A8.  The conv weights are read as [Co, 3, 3, Ci]
+storage: ``ResnetBlock2D`` keeps its OIHW weights as views of such storage
+(``models/layers.py``), as the int8 tables do, so no call repacks them.
+The bf16 kernel's tile and output channels a block come from
+:func:`conv_plan`.  The source notes say what bounds each kernel and how
+its design answers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -101,11 +107,12 @@ def reference_fused_resnet(x, tvec, n1_weight, n1_bias, w1, b1, n2_weight,
 
 @functools.cache
 def _library():
-    lib = build_library("vidtome_resnet", ("resnet.cu",))
-    bf16 = lib.vidtome_resnet_conv3x3
+    bf16 = build_library("vidtome_resnet_bf16",
+                         ("resnet_bf16.cu",)).vidtome_resnet_conv3x3
     bf16.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
-    w8a8 = lib.vidtome_resnet_conv3x3_w8a8
+    w8a8 = build_library("vidtome_resnet",
+                         ("resnet.cu",)).vidtome_resnet_conv3x3_w8a8
     w8a8.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     for fn in (bf16, w8a8):
@@ -114,8 +121,91 @@ def _library():
 
 
 def _tile_width(W: int) -> int:
-    """Width of the kernel's 128-pixel tile for an image W pixels wide."""
+    """Width of the W8A8 kernel's 128-pixel tile for an image W wide."""
     return 32 if W >= 32 else 16 if W >= 16 else 8
+
+
+H100_SMS = 132
+# the bf16 kernel's pixel tiles, (height, width, consumer warpgroups of
+# 8 x 8 pixels), and output channels a block, as csrc/resnet_bf16.cu
+# instantiates them
+_TILES = ((16, 8, 2), (8, 8, 1))
+_BLOCK_N = (160, 64)
+# the cost of activating one halo pixel of a 64-channel chunk, counted in
+# output channels of one pixel's products (the prologue's tanh per element
+# against the tensor cores' rate)
+_HALO_COST = 64
+
+
+class ConvPlan(NamedTuple):
+    """One bf16 conv launch: the pixel tile (``tile_h`` x ``tile_w``, 8 rows
+    of 8 pixels a consumer warpgroup), ``block_n`` output channels a block,
+    the pixel tiles of one image (the GN2 partials' middle dimension), the
+    grid (tiles, output-channel blocks, batch) and the dynamic shared memory
+    a block takes (the weight ring, three halo buffers of 8 planes of
+    16-byte pixel rows, the barriers, 1024 bytes of alignment slack)."""
+    tile_h: int
+    tile_w: int
+    warpgroups: int
+    block_n: int
+    tiles: int
+    grid: tuple[int, int, int]
+    smem: int
+
+    @property
+    def arg(self) -> int:
+        """The C entry's ``tile`` argument."""
+        return self.warpgroups | self.block_n << 8
+
+
+def conv_plan(B: int, H: int, W: int, Cin: int, Cout: int,
+              sms: int = H100_SMS) -> ConvPlan:
+    """The pixel tile and output channels a block of the bf16 conv at
+    [B, H, W, Cin] -> Cout on a card of ``sms`` SMs.  The 16 x 8 tile (two
+    warpgroups) only where the image is more than 8 high: no tile's first
+    row of tiles is half empty or more.  Among the choices whose grid
+    fills a wave (at least ``sms`` blocks), the one of least cost: the
+    busiest SM's blocks, ceil(blocks / sms), times a block's products and
+    halo activation; where none fills a wave, the one with the most blocks
+    (then the least cost)."""
+    plans = []
+    for th, tw, wgs in _TILES:
+        if th > 8 and th >= 2 * H:
+            continue
+        tiles = -(-H // th) * -(-W // tw)
+        halo = (th + 2) * (tw + 2)
+        for bn in _BLOCK_N:
+            blocks = tiles * -(-Cout // bn) * B
+            cost = -(-blocks // sms) * (th * tw * bn + _HALO_COST * halo)
+            # the weight ring: 3 stages where two blocks share an SM
+            stages = 3 if wgs == 1 and bn > 64 else 4
+            smem = (stages * bn * 128 + 3 * 8 * (halo | 1) * 16
+                    + 16 * stages + 1024)
+            plans.append((blocks < sms, cost if blocks >= sms else -blocks,
+                           cost, ConvPlan(th, tw, wgs, bn, tiles,
+                                          (tiles, -(-Cout // bn), B), smem)))
+    return min(plans, key=lambda p: p[:3])[3]
+
+
+def weight_map(Cin: int, Cout: int, block_n: int):
+    """The TMA view of the packed bf16 weight [Cout, 3, 3, Cin] that the
+    bf16 kernel reads its B tiles through: dims (Cin, 9 taps, Cout, 1),
+    innermost first, byte strides of the outer three, and the box (64
+    channels, 1 tap, ``block_n`` rows, 1).  Past Cin (a ragged last chunk)
+    and past Cout TMA reads zeros; a 2-D [Cout, 9 * Cin] view would read the
+    next tap's channels instead."""
+    return ((Cin, 9, Cout, 1), (2 * Cin, 18 * Cin, 18 * Cin * Cout),
+            (64, 1, block_n, 1))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The current stream's raw handle on x's card (no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -124,12 +214,16 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 def _conv(x, mean, rstd, gamma, beta, w_packed, bias, tvec, resid, groups,
           partials: bool, quant=None):
-    """One launch of the conv kernel (``quant``: (act_scale, w_scale) for
+    """One launch of a conv kernel (``quant``: (act_scale, w_scale) for
     the W8A8 variant); returns (out, psum, psq)."""
     B, H, W, Cin = x.shape
     Cout = w_packed.shape[0]
-    tw = _tile_width(W)
-    n_tiles = -(-H // (128 // tw)) * -(-W // tw)
+    if quant is None:
+        plan = conv_plan(B, H, W, Cin, Cout, _sm_count(x.get_device()))
+        tile, n_tiles = plan.arg, plan.tiles
+    else:
+        tile = _tile_width(W)
+        n_tiles = -(-H // (128 // tile)) * -(-W // tile)
     out = torch.empty(B, H, W, Cout, dtype=torch.bfloat16, device=x.device)
     psum = psq = None
     if partials:
@@ -139,8 +233,8 @@ def _conv(x, mean, rstd, gamma, beta, w_packed, bias, tvec, resid, groups,
     norm = (x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
             beta.data_ptr())
     tail = (bias.data_ptr(), _ptr(tvec), _ptr(resid), out.data_ptr(),
-            _ptr(psum), _ptr(psq), B, H, W, Cin, Cout, groups, tw,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            _ptr(psum), _ptr(psq), B, H, W, Cin, Cout, groups, tile,
+            _stream(x))
     bf16_fn, w8a8_fn = _library()
     if quant is None:
         err = bf16_fn(*norm, w_packed.data_ptr(), *tail)
@@ -212,15 +306,14 @@ def _launch(x, tvec, n1_weight, n1_bias, w1, b1, n2_weight, n2_bias, w2, b2,
     _check(x, tvec, w1, w2, vectors, ws, 8 if quant is None else 32,
            num_groups1, num_groups2)
     x = x.contiguous()
+    # the weights as [Co, 3, 3, Ci], one tap's channels contiguous: a free
+    # view of the OIHW views of packed storage that ResnetBlock2D and the
+    # int8 tables hold (any other layout is copied)
     if quant is None:
-        # weights [Co, Ci, 3, 3] -> [Co, 3, 3, Ci]: one tap's channels
-        # contiguous (repacked per call)
-        w1p = _bf16(w1.permute(0, 2, 3, 1))
-        w2p = _bf16(w2.permute(0, 2, 3, 1))
+        w1p = packed_conv_weight(w1.to(torch.bfloat16))
+        w2p = packed_conv_weight(w2.to(torch.bfloat16))
         q1 = q2 = None
     else:
-        # int8 weights arrive as OIHW views of packed [Co, 3, 3, Ci]
-        # storage (ops/quant.py): no copy here
         w1p, w2p = packed_conv_weight(w1), packed_conv_weight(w2)
         s1, s2, sx1, sx2 = (_f32(t) for t in quant)
         q1, q2 = (sx1, s1), (sx2, s2)
