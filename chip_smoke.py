@@ -17,9 +17,11 @@ Phases (any failure exits non-zero before the last line):
      (for attention also the exp floor: one exp2 a score, the device-only
      times of the kernel and of SDPA from a replayed CUDA graph, and for
      small-KV the sums per UNet call of each path, SMALL_KV_LAUNCHES; for
-     the bf16 resnet the block's device-only time and, as its library
-     call, cuDNN's two convolutions of the row, timed only: the
-     convolutions alone, not the block);
+     both resnet variants the block's device-only time and each conv's
+     tile and N (ops/resnet.conv_plan, conv_plan_w8a8); for the bf16 one,
+     as its library call, cuDNN's two convolutions of the row, timed only:
+     the convolutions alone, not the block; the W8A8 row also shows the
+     bf16 block's time at the same row);
      flash is held to FLASH_TOL of max |ref| besides ATTN_TOL, small-KV to
      SMALL_KV_REL_TOL besides SMALL_KV_TOL;
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
@@ -69,7 +71,7 @@ exact, serving, int8 and PnP paths, each counted from 0; ms, plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes; for the
 two attention kernels also device_ms and library_device_ms, the kernel's
 and SDPA's time in a replayed CUDA graph, without the host's, and for the
-bf16 resnet device_ms), and last:
+two resnet variants device_ms), and last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 
@@ -389,7 +391,8 @@ def phase_build(dev) -> None:
     libs = {"vidtome_flash": "flash_attention.cu",
             "vidtome_small_kv": "small_kv_attention.cu",
             "vidtome_resnet_bf16": "resnet_bf16.cu",
-            "vidtome_resnet": "resnet.cu", "vidtome_matching": "matching.cu",
+            "vidtome_resnet_w8a8": "resnet_w8a8.cu",
+            "vidtome_matching": "matching.cu",
             "vidtome_sublayer": "sublayer.cu",
             "vidtome_group_norm_full": "group_norm_full.cu"}
     logs = {name: [] for name in libs}
@@ -627,10 +630,13 @@ def phase_kernels(dev) -> KernelStats:
                                  f"{(B, H, W, Ci, Co)}")
         stats.add("fused_resnet", abs_err, ms, plain, lib, bound, device)
         del args_f, got, xc, hc
-        # W8A8: int8 weights packed as the int8 tables hold them; the plain
-        # version in bf16 (the kernel's rounding points, the same int8
-        # activations up to fp32 sum order)
-        kw = {}
+        # W8A8: int8 weights packed, and each conv's static activation
+        # scale taken once, as the int8 tables hold them (the resnet block
+        # passes both, models/layers.py); the plain version in bf16 (the
+        # kernel's rounding points, the same int8 activations up to fp32
+        # sum order)
+        kw = {"act_scales": (quant.static_act_scale(args[2], args[3]),
+                             quant.static_act_scale(args[6], args[7]))}
         for i, key in ((4, "w1_scale"), (8, "w2_scale")):
             w_q, kw[key] = quant.quantize_weight(args[i])
             args[i] = quant.packed_conv_weight(w_q).permute(0, 3, 1, 2)
@@ -639,18 +645,29 @@ def phase_kernels(dev) -> KernelStats:
         abs_err = (got.float() - want).abs().max().item()
         err = abs_err / want.abs().max().item()
         del want, got
+        bf16_ms, bf16_device = ms, device
         ms = cuda_time(lambda: resnet.fused_resnet_w8a8(*args, **kw), 10)
+        device = graph_time(lambda: resnet.fused_resnet_w8a8(*args, **kw), 10)
         plain = cuda_time(lambda: resnet.reference_fused_resnet(
             *args, quant=True, **kw), 3)
         bound = bound_ms(act_bytes + 9 * Ci * Co + 9 * Co * Co
                          + 2 * Ci * Co * proj + 8 * Co,
                          int8=conv_ops, bf16=sc_ops)
-        report(f"fused_resnet_w8a8 [{B},{H},{W},{Ci}]->{Co}: max rel err "
-               f"{err:.2e}, ", abs_err, RESNET_TOL, ms, plain, None, bound)
+        plan1, plan2 = (resnet.conv_plan_w8a8(B, H, W, c, Co,
+                                              resnet._sm_count(0))
+                        for c in (Ci, Co))
+        report(f"fused_resnet_w8a8 [{B},{H},{W},{Ci}]->{Co} (tiles "
+               f"{plan1.tile_h}x{plan1.tile_w}/{plan1.block_n}, "
+               f"{plan2.tile_h}x{plan2.tile_w}/{plan2.block_n}): max rel err "
+               f"{err:.2e}, ", abs_err, RESNET_TOL, ms, plain, None, bound,
+               f"; device only (CUDA graph of 10 calls) {device:.4f} ms; the "
+               f"bf16 block at this row {bf16_ms:.4f} ms (device only "
+               f"{bf16_device:.4f})")
         if not err < RESNET_TOL:
             raise AssertionError(f"W8A8 fused resnet kernel disagrees at "
                                  f"{(B, H, W, Ci, Co)}")
-        stats.add("fused_resnet_w8a8", abs_err, ms, plain, None, bound)
+        stats.add("fused_resnet_w8a8", abs_err, ms, plain, None, bound,
+                  device)
         del args
         torch.cuda.empty_cache()
 
@@ -1226,7 +1243,7 @@ def main() -> int:
                             "vidtome_tpu/ops/groupnorm.py:212"),
         "fused_resnet": ("cuda", "vidtome_torch/csrc/resnet_bf16.cu",
                          "vidtome_tpu/ops/resnet.py:232"),
-        "fused_resnet_w8a8": ("cuda", "vidtome_torch/csrc/resnet.cu",
+        "fused_resnet_w8a8": ("cuda", "vidtome_torch/csrc/resnet_w8a8.cu",
                               "vidtome_tpu/ops/resnet.py:232"),
         "best_match": ("cuda", "vidtome_torch/csrc/matching.cu",
                        "vidtome_tpu/ops/matching.py:72")}

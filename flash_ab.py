@@ -2,8 +2,8 @@
 CUDA card, in turns, at chip_smoke.py's shapes for that kernel, beside the
 wrapper and the library call.
 
-    python3 flash_ab.py [--kernel=flash|small_kv|resnet] [--root=DIR ...]
-                        [--json=PATH] [NAME=DIR ...]
+    python3 flash_ab.py [--kernel=flash|small_kv|resnet|resnet_w8a8]
+                        [--root=DIR ...] [--json=PATH] [NAME=DIR ...]
 
 ``--kernel`` picks the source, its C entry and the shapes (default
 ``flash``):
@@ -19,12 +19,22 @@ wrapper and the library call.
             (GN2 prologue, +b2 +shortcut) are timed apart, each build with
             the tile argument of its own source (``resnet_bf16.cu``: this
             checkout's ``ops/resnet.conv_plan``, or that of a ``resnet.py``
-            beside the source in DIR; ``resnet.cu``: the 128-pixel tile of
-            ``_tile_width``) and held against the plain conv in
-            fp32; beside them the block through the wrapper and cuDNN's two
-            ``F.conv2d`` calls (bf16, channels_last; the convolutions alone,
-            not the block), each through the call and device-only, and the
-            bound of each conv.
+            beside the source in DIR; ``resnet.cu``, an older tree's: the
+            128-pixel tile of ``_tile_width``) and held against the plain
+            conv in fp32; beside them the block through the wrapper and
+            cuDNN's two ``F.conv2d`` calls (bf16, channels_last; the
+            convolutions alone, not the block), each through the call and
+            device-only, and the bound of each conv;
+  resnet_w8a8  the same for the W8A8 conv: ``resnet_w8a8.cu`` (or an older
+            tree's ``resnet.cu``), ``vidtome_resnet_conv3x3_w8a8``, the
+            weights quantized per output channel as the int8 tables do, the
+            activation scale of each norm (``static_act_scale``), held
+            against the plain W8A8 conv in fp32 (``_conv3x3`` with the
+            scales: the same int8 activations up to where a bf16 rounding
+            of the activation moves); ``resnet_w8a8.cu`` with the launch
+            of ``conv_plan_w8a8`` (or that of a ``resnet.py`` beside the
+            source in DIR); beside them the W8A8 block and the bf16 block
+            through their wrappers.
 Each build DIR holds that source (and the ``*.cuh`` it includes) with the
 C signature of ``vidtome_torch/csrc``'s; ``new=vidtome_torch/csrc`` is this
 checkout's kernel.  All are compiled at once (one nvcc each, the flags of
@@ -83,13 +93,25 @@ KERNELS = {
                      entry="vidtome_small_kv_attention", ints=7,
                      shapes=SMALL_KV_SHAPES, wrapper="small_kv_attention",
                      host=(1, 1, 128, 77, 64)),
-    # the last row has a ragged last chunk (96 = 64 + 32 channels) and Co
-    # past both N tiles, as the card tests
+    # the last row has a ragged last chunk (96 = 64 + 32 channels, or three
+    # of an int8 chunk's four k32 steps) and Co past both N tiles, as the
+    # card tests
     "resnet": dict(source=("resnet_bf16.cu", "resnet.cu"),
                    entry="vidtome_resnet_conv3x3",
                    shapes=RESNET_SHAPES + [(3, 16, 24, 96, 224)],
-                   wrapper="fused_resnet", module="resnet"),
+                   wrapper="fused_resnet", module="resnet", w8a8=False),
+    "resnet_w8a8": dict(source=("resnet_w8a8.cu", "resnet.cu"),
+                        entry="vidtome_resnet_conv3x3_w8a8",
+                        shapes=RESNET_SHAPES + [(3, 16, 24, 96, 224)],
+                        wrapper="fused_resnet_w8a8", module="resnet",
+                        w8a8=True),
 }
+
+
+def _tile_width(W: int) -> int:
+    """Width of the 128-pixel tile of an older tree's ``resnet.cu`` (its
+    ``ops/resnet._tile_width``) for an image W wide."""
+    return 32 if W >= 32 else 16 if W >= 16 else 8
 
 
 def build(kernel: dict, name: str, src: Path):
@@ -118,9 +140,9 @@ def build(kernel: dict, name: str, src: Path):
             if any(int(x) for x in re.findall(r"(\d+) bytes spill", ln)):
                 report[inst] = report.get(inst, "") + f"; {ln.strip()}"
     fn = getattr(ctypes.CDLL(str(out)), kernel["entry"])
-    if kernel is KERNELS["resnet"]:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+    if kernel.get("module") == "resnet":
+        fn.argtypes = [ctypes.c_void_p] * (14 if kernel["w8a8"] else 12) + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.source = source
         # a build DIR may bring the conv_plan of its own tile argument in a
         # resnet.py beside its source (an earlier design of resnet_bf16.cu)
@@ -130,7 +152,8 @@ def build(kernel: dict, name: str, src: Path):
                 f"plan_{name}", src / "resnet.py")
             module = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(module)
-            fn.plan = module.conv_plan
+            fn.plan = getattr(module, "conv_plan_w8a8" if kernel["w8a8"]
+                              else "conv_plan")
     else:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * kernel[
             "ints"] + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
@@ -258,16 +281,22 @@ def resnet_tile(fn, B: int, H: int, W: int, Cin: int, Cout: int):
         plan = (fn.plan or resnet.conv_plan)(B, H, W, Cin, Cout,
                                              resnet._sm_count(0))
         return plan.arg, plan.tiles
-    tw = resnet._tile_width(W)
+    if fn.source == "resnet_w8a8.cu":
+        plan = (fn.plan or resnet.conv_plan_w8a8)(B, H, W, Cin, Cout,
+                                                  resnet._sm_count(0))
+        return plan.arg, plan.tiles
+    tw = _tile_width(W)
     return tw, -(-H // (128 // tw)) * -(-W // tw)
 
 
-def compare_resnet(fns: dict, wrapper) -> list:
+def compare_resnet(kernel: dict, fns: dict, wrapper) -> list:
     """conv1 and conv2 of each row: every build in turns, the wrapper's
-    block and cuDNN's two convolutions, against the plain conv."""
-    from vidtome_torch.ops import resnet
+    block and cuDNN's two convolutions (W8A8: the bf16 block), against the
+    plain conv."""
+    from vidtome_torch.ops import quant, resnet
 
     F = torch.nn.functional
+    w8a8 = kernel["w8a8"]
     order = list(fns) + list(reversed(fns))
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -283,7 +312,7 @@ def compare_resnet(fns: dict, wrapper) -> list:
                                 * scale + shift).to(dev)
 
     rows = []
-    for B, H, W, Ci, Co in KERNELS["resnet"]["shapes"]:
+    for B, H, W, Ci, Co in kernel["shapes"]:
         x = f32(B, H, W, Ci).bfloat16()
         tvec, b1, b2 = f32(B, Co, scale=0.3), f32(Co, scale=0.1), f32(
             Co, scale=0.1)
@@ -296,27 +325,45 @@ def compare_resnet(fns: dict, wrapper) -> list:
         if Ci != Co:
             args += [f32(Co, Ci, scale=Ci ** -0.5).bfloat16(),
                      f32(Co, scale=0.1)]
+        bf16_args, kw = list(args), {}
+        # W8A8: the weights as the int8 tables hold them (OIHW views of
+        # packed int8 storage) with their scales, each conv's activation
+        # scale from its norm; q1, q2 the plain conv's quantization
+        q1 = q2 = ()
+        if w8a8:
+            for i, key in ((4, "w1_scale"), (8, "w2_scale")):
+                w_q, kw[key] = quant.quantize_weight(args[i])
+                args[i] = quant.packed_conv_weight(w_q).permute(0, 3, 1, 2)
+            w1, w2 = args[4], args[8]
+            sx1, sx2 = (quant.static_act_scale(*n) for n in (n1, n2))
+            q1, q2 = (kw["w1_scale"], sx1), (kw["w2_scale"], sx2)
+            kw["act_scales"] = (sx1, sx2)
         # conv1 and conv2 as the block runs them: conv2's input and
         # shortcut from the plain conv1
         mean1, rstd1 = stats(x)
-        ref1 = (resnet._conv3x3(resnet._gn_silu(x, x, *n1, 32, 1e-5), w1)
+        ref1 = (resnet._conv3x3(resnet._gn_silu(x, x, *n1, 32, 1e-5), w1,
+                                *q1)
                 + b1 + tvec[:, None, None, :])
         h = ref1.bfloat16()
         mean2, rstd2 = stats(ref1)
         resid = x if Ci == Co else torch.randn_like(h)
-        ref2 = (resnet._conv3x3(resnet._gn_silu(h, ref1, *n2, 32, 1e-5), w2)
+        ref2 = (resnet._conv3x3(resnet._gn_silu(h, ref1, *n2, 32, 1e-5), w2,
+                                *q2)
                 + b2 + resid.float())
         convs = {
-            "conv1": (x, mean1, rstd1, n1, w1, b1, tvec, None, Ci, ref1,
-                      True),
+            "conv1": (x, mean1, rstd1, n1, w1, b1, tvec, None, Ci,
+                      ref1, True, q1),
             "conv2": (h, mean2, rstd2, n2, w2, b2, None, resid, Co, ref2,
-                      False)}
+                      False, q2)}
         row = dict(shape=[B, H, W, Ci, Co])
         for conv, (inp, mean, rstd, norm, w, bias, tv, res, cin, ref,
-                   partials) in convs.items():
+                   partials, q) in convs.items():
             wp = w.permute(0, 2, 3, 1)
+            # the C entry's pointers before and after the weight's
+            scales = (q[1].data_ptr(),) if q else ()
+            wscale = (q[0].data_ptr(),) if q else ()
             ref_max = ref.abs().max().item()
-            ms, device_ms, err, out = {}, {}, {}, {}
+            ms, device_ms, err = {}, {}, {}
             for name in order:
                 tile, tiles = resnet_tile(fns[name], B, H, W, cin, Co)
                 o = torch.empty(B, H, W, Co, dtype=torch.bfloat16, device=dev)
@@ -326,8 +373,8 @@ def compare_resnet(fns: dict, wrapper) -> list:
 
                 def run(fn=fns[name], o=o, ps=ps, pq=pq, tile=tile):
                     e = fn(inp.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                           norm[0].data_ptr(), norm[1].data_ptr(),
-                           wp.data_ptr(), bias.data_ptr(), ptr(tv),
+                           norm[0].data_ptr(), norm[1].data_ptr(), *scales,
+                           wp.data_ptr(), *wscale, bias.data_ptr(), ptr(tv),
                            ptr(res), o.data_ptr(), ptr(ps), ptr(pq), B, H, W,
                            cin, Co, 32, tile,
                            torch._C._cuda_getCurrentRawStream(0))
@@ -336,35 +383,45 @@ def compare_resnet(fns: dict, wrapper) -> list:
                 ms.setdefault(name, []).append(cuda_time(run, 10))
                 device_ms.setdefault(name, []).append(graph_time(run, 10))
                 err[name] = (o.float() - ref).abs().max().item()
+            # W8A8: int8 weights, bf16 activations in and out
             nbytes = (2 * B * H * W * (cin + Co * (2 if res is not None else 1))
-                      + 18 * cin * Co)
+                      + (1 if w8a8 else 2) * 9 * cin * Co)
+            ops = {"int8" if w8a8 else "bf16": 2 * B * H * W * 9 * cin * Co}
             row[conv] = dict(ref_max=ref_max, ms=ms, device_ms=device_ms,
                              abs_err=err,
                              rel_err={n: err[n] / ref_max for n in fns},
-                             bound_ms=max(bound_ms(
-                                 nbytes, bf16=2 * B * H * W * 9 * cin * Co)))
+                             bound_ms=max(bound_ms(nbytes, **ops)))
             print(f"[{B},{H},{W},{Ci}]->{Co} {conv}: max|ref| {ref_max:.3f}; "
                   + "; ".join(f"{n} {ms[n]} ms (device only {device_ms[n]})"
                               f", max|err| / max|ref| {err[n] / ref_max:.2e}"
                               for n in fns)
                   + f"; bound {row[conv]['bound_ms']:.4f}")
-        xc = x.permute(0, 3, 1, 2)
-        hc = h.permute(0, 3, 1, 2)
+        row.update(wrapper_ms=cuda_time(lambda: wrapper(*args, **kw), 10),
+                   wrapper_device_ms=graph_time(lambda: wrapper(*args, **kw),
+                                                10))
+        if w8a8:  # the bf16 block at the same row, this checkout's
+            row.update(bf16_ms=cuda_time(
+                lambda: resnet.fused_resnet(*bf16_args), 10),
+                bf16_device_ms=graph_time(
+                    lambda: resnet.fused_resnet(*bf16_args), 10))
+            other = (f"the bf16 block {row['bf16_ms']:.4f} ms (device only "
+                     f"{row['bf16_device_ms']:.4f})")
+        else:
+            xc = x.permute(0, 3, 1, 2)
+            hc = h.permute(0, 3, 1, 2)
 
-        def cudnn():
-            F.conv2d(xc, w1, padding=1)
-            F.conv2d(hc, w2, padding=1)
-        row.update(wrapper_ms=cuda_time(lambda: wrapper(*args), 10),
-                   wrapper_device_ms=graph_time(lambda: wrapper(*args), 10),
-                   cudnn_ms=cuda_time(cudnn, 10),
-                   cudnn_device_ms=graph_time(cudnn, 10))
+            def cudnn():
+                F.conv2d(xc, w1, padding=1)
+                F.conv2d(hc, w2, padding=1)
+            row.update(cudnn_ms=cuda_time(cudnn, 10),
+                       cudnn_device_ms=graph_time(cudnn, 10))
+            other = (f"cuDNN's two convs {row['cudnn_ms']:.4f} ms (device "
+                     f"only {row['cudnn_device_ms']:.4f})")
         print(f"[{B},{H},{W},{Ci}]->{Co} block: wrapper "
               f"{row['wrapper_ms']:.4f} ms (device only "
-              f"{row['wrapper_device_ms']:.4f}); cuDNN's two convs "
-              f"{row['cudnn_ms']:.4f} ms (device only "
-              f"{row['cudnn_device_ms']:.4f})")
+              f"{row['wrapper_device_ms']:.4f}); {other}")
         rows.append(row)
-        del x, h, ref1, ref2, args
+        del x, h, ref1, ref2, args, bf16_args
         torch.cuda.empty_cache()
     return rows
 
@@ -402,11 +459,11 @@ def main(argv: list[str]) -> int:
             fns[name] = fn
             result["builds"][name] = report
             print(f"[build] {name}: registers per instance {report}")
-        if kernel is KERNELS["resnet"]:
-            result["rows"] = compare_resnet(fns, wrapper)
+        if kernel.get("module") == "resnet":
+            result["rows"] = compare_resnet(kernel, fns, wrapper)
         else:
             result["rows"] = compare(kernel, fns, wrapper)
-    if kernel is KERNELS["resnet"]:  # no host section: its rows are long
+    if kernel.get("module") == "resnet":  # no host section: long rows
         if json_path is not None:
             json_path.parent.mkdir(parents=True, exist_ok=True)
             json_path.write_text(json.dumps(result, indent=1))

@@ -486,10 +486,15 @@ def test_fused_sublayer_kernel_rejects_what_it_cannot_take(cuda):
         t_sub.fused_cross_sublayer(*args, heads=3, kv_len=77)
 
 
-def _w8a8_args(rng, cuda, B, H, W, Ci, Co):
+def _w8a8_args(rng, cuda, B, H, W, Ci, Co, spike=False):
     """bf16 block inputs with int8 conv weights (packed as the int8 tables
-    hold them) and their scales."""
+    hold them) and their scales; ``spike``: large values in the first 32
+    channels of x and of both weights' inputs."""
     args = _resnet_args(rng, cuda, B, H, W, Ci, Co)
+    if spike:
+        args[0][..., :32] *= 8
+        args[4][:, :32] *= 8
+        args[8][:, :32] *= 8
     q = []
     for i in (4, 8):
         w_q, scale = t_quant.quantize_weight(args[i])
@@ -505,6 +510,11 @@ def _w8a8_args(rng, cuda, B, H, W, Ci, Co):
     (8, 16, 16, 2560, 1280),  # up block 1, skip-concat width
     (2, 8, 8, 64, 32),        # tiny widths, projection, 8x8 image
     (1, 13, 21, 64, 64),      # ragged tiles on both image axes
+    # conv1 a half 128-channel chunk (320 = 2.5 chunks), Co = 96 past the
+    # 64-channel N tile
+    (2, 16, 16, 320, 96),
+    # one ragged chunk (96 of 128 channels), Co = 224 past the N tile
+    (3, 16, 24, 96, 224),
 ])
 def test_fused_resnet_w8a8_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     args, kw = _w8a8_args(np.random.default_rng(12), cuda, B, H, W, Ci, Co)
@@ -516,6 +526,78 @@ def test_fused_resnet_w8a8_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     assert got.shape == (B, H, W, Co) and got.dtype == torch.bfloat16
     err = (got.float() - want).abs().max() / want.abs().max()
     assert err.item() < RESNET_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", [(2, 320), (1, 64)])
+@pytest.mark.parametrize("B,H,W,Ci,Co,groups1,spike", [
+    # a ragged last chunk (32 of 128 channels) at 8 groups, ragged tiles on
+    # both image axes, Co past the N tile (at 320, short of the first
+    # warpgroup's 160: the second's weight box is not loaded)
+    (2, 13, 21, 160, 96, 8, False),
+    # one ragged chunk (96 of 128) with large values in the channels a 2-D
+    # weight map (the next tap's) or an unmasked halo (the next pixel's)
+    # would read, Co = 224 past the N tile (at 320, in the second
+    # warpgroup's channels)
+    (3, 16, 24, 96, 224, 32, True),
+    # Co = 640 over two blocks of 320, two chunks
+    (2, 16, 16, 256, 640, 32, False),
+])
+def test_fused_resnet_w8a8_kernel_instances_match_plain(
+        cuda, monkeypatch, launch, B, H, W, Ci, Co, groups1, spike):
+    # one kernel instance, whatever conv_plan_w8a8 would pick
+    monkeypatch.setattr(t_res, "_W8A8_TILES", (launch,))
+    args, kw = _w8a8_args(np.random.default_rng(18), cuda, B, H, W, Ci, Co,
+                          spike)
+    kw["num_groups1"] = groups1
+    got = t_res.fused_resnet_w8a8(*args, **kw)
+    want = t_res.reference_fused_resnet(*args, quant=True, **kw).float()
+    assert got.shape == (B, H, W, Co) and got.dtype == torch.bfloat16
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() < RESNET_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Ci,Co", [(8, 64, 64, 320, 320),
+                                         (3, 16, 24, 96, 224),
+                                         (8, 8, 8, 1280, 1280)])
+def test_w8a8_conv_entry_matches_plain_conv(cuda, B, H, W, Ci, Co):
+    """One launch of the W8A8 C entry as conv1 (GN1 prologue, +b1+tvec,
+    GN2 partials) against the plain W8A8 conv (``_conv3x3``) of the same
+    bf16 activation."""
+    args, kw = _w8a8_args(np.random.default_rng(19), cuda, B, H, W, Ci, Co)
+    x, tvec, gamma, beta, w, bias = args[:6]
+    s = x.float().reshape(B, -1, 32, Ci // 32)
+    mean = s.mean(dim=(1, 3))
+    rstd = torch.rsqrt((s * s).mean(dim=(1, 3)) - mean * mean + 1e-5)
+    sx = t_quant.static_act_scale(gamma, beta)
+    out, psum, psq = t_res._conv(
+        x, mean.contiguous(), rstd.contiguous(), gamma, beta,
+        t_quant.packed_conv_weight(w), bias, tvec, None, 32, True,
+        (sx, kw["w1_scale"]))
+    torch.cuda.synchronize()
+    a = t_res._gn_silu(x, x, gamma, beta, 32, 1e-5)
+    want = (t_res._conv3x3(a, w, kw["w1_scale"], sx)
+            + (bias + tvec)[:, None, None, :])
+    err = (out.float() - want).abs().max() / want.abs().max()
+    assert err.item() < RESNET_TOL
+    # the GN2 partials: a tile's sums of the fp32 values, over the plan's
+    # tiles, add up to the plain sums
+    plan = t_res.conv_plan_w8a8(B, H, W, Ci, Co, t_res._sm_count(0))
+    assert psum.shape == psq.shape == (B, plan.tiles, Co)
+    q_want = (want * want).sum(dim=(1, 2))
+    assert ((psq.sum(dim=1) - q_want).abs() / q_want).max().item() < 1e-2
+    s_err = (psum.sum(dim=1) - want.sum(dim=(1, 2))).abs()
+    assert (s_err / want.abs().sum(dim=(1, 2))).max().item() < 1e-2
+
+
+@pytest.mark.cuda
+def test_fused_resnet_w8a8_kernel_gives_the_same_bits_twice(cuda):
+    # the GN2 partials are reduced in a fixed order, without atomics
+    args, kw = _w8a8_args(np.random.default_rng(20), cuda, 8, 64, 64, 320,
+                          320)
+    assert torch.equal(t_res.fused_resnet_w8a8(*args, **kw),
+                       t_res.fused_resnet_w8a8(*args, **kw))
 
 
 @pytest.mark.cuda

@@ -1,23 +1,25 @@
-"""The launch plan of the bf16 fused-resnet conv kernel
-(``vidtome_torch.ops.resnet.conv_plan``), the TMA view of its packed
-weight (``weight_map``) and the weight packing of ``ResnetBlock2D``, on the
-CPU: the kernel itself runs only on the card (``tests/test_torch_kernels.py``),
-so its grid, tile and shared-memory budget at chip_smoke.py's rows and at
-SD1.5's block shapes, the byte strides TMA reads the weight with, and that
-no call repacks the weights are pinned here."""
+"""The launch plans of the bf16 and W8A8 fused-resnet conv kernels
+(``vidtome_torch.ops.resnet.conv_plan``, ``conv_plan_w8a8``), the TMA
+views of their packed weights (``weight_map``) and the weight packing of
+``ResnetBlock2D`` and the int8 tables, on the CPU: the kernels themselves
+run only on the card (``tests/test_torch_kernels.py``), so their grids,
+tiles and shared-memory budgets at chip_smoke.py's rows and at SD1.5's
+block shapes, the bytes TMA reads each weight tile from, and that no call
+repacks the weights are pinned here."""
 
 from __future__ import annotations
 
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from vidtome_torch.models.layers import ResnetBlock2D
 from vidtome_torch.ops import groupnorm as t_gn
 from vidtome_torch.ops import resnet as t_res
-from vidtome_torch.ops.quant import packed_conv_weight
+from vidtome_torch.ops.quant import packed_conv_weight, quantize_unet
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -174,3 +176,182 @@ def test_launch_hands_the_module_weights_to_the_c_entry(monkeypatch):
     # conv1 writes the GN2 partials, conv2 takes the shortcut
     assert calls[0][10] is not None and calls[0][8] is None
     assert calls[1][10] is None and calls[1][8] is not None
+
+
+def _check_w8a8_plan(plan, shape):
+    """The W8A8 plan's fields against each other and the card's limits."""
+    B, H, W, Ci, Co = shape
+    assert (plan.tile_h, plan.tile_w) == (8, 8)
+    assert (plan.warpgroups, plan.block_n) in t_res._W8A8_TILES
+    assert plan.tiles == -(-H // 8) * -(-W // 8)
+    assert plan.grid == (plan.tiles, -(-Co // plan.block_n), B)
+    assert plan.arg == plan.warpgroups | plan.block_n << 8
+    # the C dispatch's shared memory: a ring of 4 stages of block_n rows of
+    # 128 bytes, three 10 x 10 halo buffers of 8 planes of 16-byte pixel
+    # rows (101 of them), the barriers and the alignment slack
+    assert plan.smem == 4 * plan.block_n * 128 + 3 * 8 * 101 * 16 + 64 + 1024
+    assert plan.smem <= SMEM_BLOCK
+    # the kernel hands the producer's registers to the consumers
+    # (setmaxnreg) only where the block holds its SM alone
+    if plan.warpgroups == 2:
+        assert 2 * (plan.smem + 1024) > SMEM_SM
+
+
+def test_w8a8_phase3_rows_are_the_pinned_ones():
+    assert set(chip_smoke.RESNET_SHAPES) == set(PHASE3)
+
+
+@pytest.mark.parametrize("shape", sorted(PHASE3))
+def test_w8a8_plan_at_phase3_rows(shape):
+    # one 10 x 10 halo for 320 output channels at every row, conv1 and
+    # conv2: the activation, not the products, bounds the kernel
+    B, H, W, Ci, Co = shape
+    for cin in (Ci, Co):
+        plan = t_res.conv_plan_w8a8(B, H, W, cin, Co)
+        _check_w8a8_plan(plan, (B, H, W, cin, Co))
+        assert (plan.warpgroups, plan.block_n) == (2, 320)
+
+
+@pytest.mark.parametrize("shape", SD15)
+def test_w8a8_plan_at_sd15_blocks(shape):
+    plan = t_res.conv_plan_w8a8(*shape)
+    _check_w8a8_plan(plan, shape)
+    assert plan.block_n == 320  # SD's widths are multiples of 320
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co,want", [
+    (3, 16, 24, 96, 224, (1, 64)),    # small grid: 18 blocks at 320
+    (2, 8, 8, 64, 32, (1, 64)),       # Co under one warpgroup's 160
+    (1, 13, 21, 64, 64, (1, 64)),
+    (8, 8, 8, 1280, 1280, (2, 320)),  # 32 blocks, each SM's share at most
+    (4, 64, 64, 960, 320, (2, 320)),  # cfg-skip batch at level 0
+])
+def test_w8a8_plan_at_small_and_odd_shapes(B, H, W, Ci, Co, want):
+    plan = t_res.conv_plan_w8a8(B, H, W, Ci, Co)
+    assert (plan.warpgroups, plan.block_n) == want
+
+
+def test_w8a8_plan_follows_the_sm_count():
+    # 18 blocks at 320 against 72 at 64: on a card of 8 SMs 320 is cheaper
+    assert t_res.conv_plan_w8a8(3, 16, 24, 96, 224, sms=132).block_n == 64
+    assert t_res.conv_plan_w8a8(3, 16, 24, 96, 224, sms=8).block_n == 320
+
+
+def _tma_box(storage: np.ndarray, dims, strides, box, coords, elem: int):
+    """What a TMA load of ``box`` at ``coords`` reads from the bytes
+    ``storage`` through a map of ``dims`` and byte ``strides`` (elements of
+    ``elem`` bytes; coordinates past a dim read zeros), as [box[2], box[0]]
+    elements of the box's two non-unit dims."""
+    i0 = coords[0] + np.arange(box[0])
+    i2 = coords[2] + np.arange(box[2])
+    inside = (i2[:, None] < dims[2]) & (i0[None, :] < dims[0])
+    off = (i0[None, :] * elem + coords[1] * strides[0]
+           + i2[:, None] * strides[1] + coords[3] * strides[2])
+    out = np.zeros((box[2], box[0], elem), np.uint8)
+    for k in range(elem):
+        out[..., k][inside] = storage[off[inside] + k]
+    return out
+
+
+@pytest.mark.parametrize("Ci,Co,bn", [(320, 320, 160), (96, 224, 64),
+                                      (960, 64, 64), (256, 160, 160)])
+def test_w8a8_weight_map_reads_the_packed_int8_storage(Ci, Co, bn):
+    dims, strides, box = t_res.weight_map(Ci, Co, bn, w8a8=True)
+    assert dims == (Ci, 9, Co, 1)
+    assert box == (128, 1, bn, 1)
+    # TMA's rules: byte strides multiples of 16, 128 bytes a swizzled row
+    assert all(s % 16 == 0 for s in strides) and box[0] == 128
+    # the int8 table's weight: an OIHW view of packed [O, 3, 3, I] storage
+    torch.manual_seed(Ci + Co)
+    conv = torch.nn.Conv2d(Ci, Co, 3, padding=1)
+    table = quantize_unet(torch.nn.ModuleDict({"conv1": conv}))
+    w = table.get(conv).weight
+    assert w.dtype == torch.int8 and w.shape == (Co, Ci, 3, 3)
+    packed = packed_conv_weight(w)
+    assert packed.data_ptr() == w.data_ptr()
+    storage = packed.view(torch.uint8).numpy().reshape(-1)
+    wn = w.numpy()
+    # every (chunk, tap, N tile) box the kernel loads: the chunk's
+    # channels of that tap, zeros past Cin (a ragged chunk) and past Cout
+    for c0 in range(0, Ci, 128):
+        for tap in range(9):
+            for n0 in range(0, Co, bn):
+                got = _tma_box(storage, dims, strides, box, (c0, tap, n0, 0),
+                               1)[..., 0].view(np.int8)
+                want = np.zeros((bn, 128), np.int8)
+                part = wn[n0:n0 + bn, c0:c0 + 128, tap // 3, tap % 3]
+                want[:part.shape[0], :part.shape[1]] = part
+                assert np.array_equal(got, want), (c0, tap, n0)
+
+
+def test_bf16_weight_map_reads_the_packed_storage_box_by_box():
+    Ci, Co, bn = 96, 224, 160
+    dims, strides, box = t_res.weight_map(Ci, Co, bn)
+    w = torch.randn(Co, Ci, 3, 3).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    storage = packed_conv_weight(w).view(torch.uint8).numpy().reshape(-1)
+    wn = w.view(torch.int16).numpy()
+    for c0 in range(0, Ci, 64):
+        for tap in (0, 4, 8):
+            for n0 in range(0, Co, bn):
+                got = _tma_box(storage, dims, strides, box, (c0, tap, n0, 0),
+                               2).view(np.int16)[..., 0]
+                want = np.zeros((bn, 64), np.int16)
+                part = wn[n0:n0 + bn, c0:c0 + 64, tap // 3, tap % 3]
+                want[:part.shape[0], :part.shape[1]] = part
+                assert np.array_equal(got, want), (c0, tap, n0)
+
+
+def test_launch_hands_the_int8_table_weights_to_the_c_entry(monkeypatch):
+    """The W8A8 ``_launch`` gives the C entry the int8 table's own packed
+    weight storage (no per-call copy), the W8A8 plan's tile argument and
+    GN2 partials of the plan's tile count; the C entry, the stream and the
+    GroupNorm statistics passes are stood in for here."""
+    torch.manual_seed(0)
+    B, H, W, Ci, Co = 2, 24, 24, 64, 96
+    block = ResnetBlock2D(Ci, Co, 16).to(torch.bfloat16)
+    table = quantize_unet(block)
+    q1, q2 = table.get(block.conv1), table.get(block.conv2)
+    calls, partials = [], []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    def stats(x, groups, eps):
+        s = x.float().reshape(x.shape[0], -1, groups, x.shape[-1] // groups)
+        return s.mean(dim=(1, 3)), s.var(dim=(1, 3)).add(eps).rsqrt()
+
+    def from_partials(psum, psq, groups, count, eps):
+        partials.append((psum, psq))
+        return torch.zeros(B, groups), torch.ones(B, groups)
+
+    monkeypatch.setattr(t_res, "_library", lambda: (None, entry))
+    monkeypatch.setattr(t_res, "_stream", lambda x: 0)
+    monkeypatch.setattr(t_res, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(t_gn, "group_stats", stats)
+    monkeypatch.setattr(t_gn, "stats_from_partials", from_partials)
+    x = torch.randn(B, H, W, Ci).bfloat16()
+    tvec = torch.randn(B, Co)
+    n1, n2, sc = block.norm1, block.norm2, block.conv_shortcut
+    out = t_res._launch(x, tvec, n1.weight, n1.bias, q1.weight,
+                        block.conv1.bias, n2.weight, n2.bias, q2.weight,
+                        block.conv2.bias, sc.weight[:, :, 0, 0], sc.bias,
+                        n1.num_groups, n2.num_groups, n1.eps,
+                        quant=(q1.scale, q2.scale, q1.act_scale,
+                               q2.act_scale))
+    assert out.shape == (B, H, W, Co)
+    assert len(calls) == 2 and len(partials) == 1
+    for args, q, cin in ((calls[0], q1, Ci), (calls[1], q2, Co)):
+        assert args[6] == q.weight.data_ptr()  # the table's int8 storage
+        assert args[14:20] == (B, H, W, cin, Co, 32)
+        plan = t_res.conv_plan_w8a8(B, H, W, cin, Co)
+        assert args[20] == plan.arg
+    # conv1 writes the GN2 partials, [B, the plan's tiles, Co]; conv2 takes
+    # the shortcut
+    psum, psq = partials[0]
+    plan1 = t_res.conv_plan_w8a8(B, H, W, Ci, Co)
+    assert psum.shape == psq.shape == (B, plan1.tiles, Co)
+    assert (calls[0][12], calls[0][13]) == (psum.data_ptr(), psq.data_ptr())
+    assert calls[0][10] is None and calls[1][12] is None
+    assert calls[1][10] is not None and calls[1][9] is None

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) pieces shared by the attention kernels: mbarriers, TMA
-// copies and their tensor maps, wgmma on bf16 with fp32 accumulators, and
-// the exp2 / packing helpers of a softmax in registers.
+// Hopper (sm_90a) pieces shared by the attention and fused-resnet kernels:
+// mbarriers, TMA copies and their tensor maps, wgmma on bf16 with fp32
+// accumulators, and the exp2 / tanh / packing helpers of an activation in
+// registers.
 //
 // Accumulator layout of every wgmma here (per warp w of the warpgroup,
 // g = lane / 4, t = lane % 4): d[4j + e] is row 16w + g + 8 (e >> 1),
@@ -56,6 +57,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void mbar_wait_warp(uint32_t bar, uint32_t parity) {
   mbar_wait(bar, parity);
   __syncwarp();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
 // One box at (column c0, row c1, head c2, batch c3) into shared memory at
@@ -126,12 +132,30 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Until at most one committed wgmma group is pending.
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// Named barrier 1 over the first N threads of the block (a kernel's
+// consumer warpgroups, once its producer warp has left).
+template <int N>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
 // Keeps the compiler from moving accesses to wgmma operands across the
 // asynchronous product.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N>
@@ -243,6 +267,14 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// tanh on the special-function unit (one instruction; about 2^-11
+// relative error, under the bf16 rounding of the activation that follows).
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -298,6 +330,33 @@ int encode(CUtensorMap* map, const void* ptr, int D, int rows, int H, int B,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -3;
+}
+
+// The TMA map of a packed 3x3 conv weight [Cout, 3, 3, Cin] of `elem`
+// bytes an element (2: bf16, 1: int8): dims (Cin, 9, Cout, 1), innermost
+// first, box (128 bytes of channels, 1 tap, bn rows, 1) in 128-byte swizzle
+// rows.  The box's bytes land as [bn][128 bytes], a K-major B tile;
+// channels past Cin (a ragged last chunk) and rows past Cout read as
+// zeros, where a 2-D [Cout, 9 * Cin] map would read the next tap's
+// channels.  Returns 0, -2 when the driver has no encoder, -3 when it
+// refuses the map.
+int encode_conv_weights(CUtensorMap* map, const void* w, int Cin, int Cout,
+                        int bn, int elem) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return -2;
+  const cuuint64_t dims[4] = {(cuuint64_t)Cin, 9, (cuuint64_t)Cout, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)Cin * elem,
+                                 (cuuint64_t)Cin * 9 * elem,
+                                 (cuuint64_t)Cin * 9 * elem * Cout};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem), 1, (cuuint32_t)bn, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      4, const_cast<void*>(w), dims, strides, box, one,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 

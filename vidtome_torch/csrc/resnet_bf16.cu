@@ -11,7 +11,7 @@
 //      channel sums and sums of squares of h before rounding for GN2;
 //   3. GN2 statistics from those partials, reduced in a fixed order;
 //   4. conv3x3 (this file) with the GN2 prologue and +b2 +shortcut.
-// The W8A8 variant is csrc/resnet.cu.
+// The W8A8 variant is csrc/resnet_w8a8.cu.
 //
 // What bounds it on the H100: tensor-core issue (2*H*W*9*Cin*Cout
 // operations an image: 60 G for conv1 at [8,64,64,320], 0.061 ms at the
@@ -114,22 +114,6 @@ struct ConvArgs {
   int H, W, Cin, Cout, G;
 };
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Until at most one committed wgmma group is pending.
-__device__ __forceinline__ void wgmma_wait_1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// The consumer warpgroups alone (the producer warp has left).
-template <int N>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
                "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
@@ -177,15 +161,6 @@ __device__ __forceinline__ void wgmma_ss_k(float (&d)[80], uint64_t da,
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(da), "l"(db), "r"(1));
-}
-
-
-// tanh on the special-function unit (one instruction; about 2^-11
-// relative error, under the bf16 rounding of the activation that follows).
-__device__ __forceinline__ float tanh_approx(float x) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One halo vector: 8 channels of one halo pixel of a chunk, as loaded from
@@ -480,28 +455,6 @@ conv3x3_kernel(const __grid_constant__ CUtensorMap tm_w, ConvArgs a) {
   }
 }
 
-// The TMA map of the packed weight [Cout, 3, 3, Cin] bf16: dims (Cin, 9,
-// Cout, 1), innermost first, box (64 channels, 1 tap, BN rows, 1) in
-// 128-byte swizzle rows.  The box's bytes land as [BN][64], the K-major B
-// tile; channels past Cin and rows past Cout read as zeros.
-int encode_weights(CUtensorMap* map, const void* w, int Cin, int Cout,
-                   int bn) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return -2;
-  const cuuint64_t dims[4] = {(cuuint64_t)Cin, 9, (cuuint64_t)Cout, 1};
-  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)Cin * 18,
-                                 (cuuint64_t)Cin * 18 * Cout};
-  const cuuint32_t box[4] = {(cuuint32_t)kBK, 1, (cuuint32_t)bn, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(w), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -3;
-}
-
 template <int NWG, int BN>
 int launch(const ConvArgs& a, const void* w, int B, cudaStream_t stream) {
   using T = Tile<NWG, BN>;
@@ -510,7 +463,7 @@ int launch(const ConvArgs& a, const void* w, int B, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tm;
-  const int err = encode_weights(&tm, w, a.Cin, a.Cout, BN);
+  const int err = encode_conv_weights(&tm, w, a.Cin, a.Cout, BN, 2);
   if (err != 0) return err;
   const int tiles = ((a.H + T::TH - 1) / T::TH) * ((a.W + kTW - 1) / kTW);
   const dim3 grid(tiles, (a.Cout + BN - 1) / BN, B);

@@ -7,10 +7,10 @@ and activations).  On a CUDA tensor either runs the block as
 
   1. GN1 statistics of x (the Triton statistics passes of
      ``ops/groupnorm.py``);
-  2. conv1 (bf16: ``csrc/resnet_bf16.cu``, W8A8: ``csrc/resnet.cu``): GN1
-     normalize+SiLU as the input tile is staged (W8A8: then quantized with
-     the static post-norm scale), +b1+tvec, h stored bf16, per-tile fp32
-     channel sums of h for GN2;
+  2. conv1 (bf16: ``csrc/resnet_bf16.cu``, W8A8: ``csrc/resnet_w8a8.cu``):
+     GN1 normalize+SiLU as the input tile is staged (W8A8: then quantized
+     with the static post-norm scale), +b1+tvec (W8A8: after dequantizing),
+     h stored bf16, per-tile fp32 channel sums of h for GN2;
   3. GN2 statistics from those partials (the Triton reduction pass, fixed
      order, no atomics);
   4. conv2 (the same kernel): GN2 normalize+SiLU (+quantize) prologue,
@@ -22,9 +22,9 @@ shortcut are computed outside the kernel, the latter as a plain matmul in
 bf16 also under W8A8.  The conv weights are read as [Co, 3, 3, Ci]
 storage: ``ResnetBlock2D`` keeps its OIHW weights as views of such storage
 (``models/layers.py``), as the int8 tables do, so no call repacks them.
-The bf16 kernel's tile and output channels a block come from
-:func:`conv_plan`.  The source notes say what bounds each kernel and how
-its design answers.
+The kernels' tiles and output channels a block come from
+:func:`conv_plan` (bf16) and :func:`conv_plan_w8a8`.  The source notes say
+what bounds each kernel and how its design answers.
 """
 
 from __future__ import annotations
@@ -111,18 +111,13 @@ def _library():
                          ("resnet_bf16.cu",)).vidtome_resnet_conv3x3
     bf16.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
-    w8a8 = build_library("vidtome_resnet",
-                         ("resnet.cu",)).vidtome_resnet_conv3x3_w8a8
+    w8a8 = build_library("vidtome_resnet_w8a8",
+                         ("resnet_w8a8.cu",)).vidtome_resnet_conv3x3_w8a8
     w8a8.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     for fn in (bf16, w8a8):
         fn.restype = ctypes.c_int
     return bf16, w8a8
-
-
-def _tile_width(W: int) -> int:
-    """Width of the W8A8 kernel's 128-pixel tile for an image W wide."""
-    return 32 if W >= 32 else 16 if W >= 16 else 8
 
 
 H100_SMS = 132
@@ -135,15 +130,21 @@ _BLOCK_N = (160, 64)
 # output channels of one pixel's products (the prologue's tanh per element
 # against the tensor cores' rate)
 _HALO_COST = 64
+# the W8A8 kernel's launches, (consumer warpgroups side by side along the
+# output channels, output channels a block), as csrc/resnet_w8a8.cu
+# instantiates them, each on an 8 x 8 pixel tile
+_W8A8_TILES = ((2, 320), (1, 64))
 
 
 class ConvPlan(NamedTuple):
-    """One bf16 conv launch: the pixel tile (``tile_h`` x ``tile_w``, 8 rows
-    of 8 pixels a consumer warpgroup), ``block_n`` output channels a block,
-    the pixel tiles of one image (the GN2 partials' middle dimension), the
-    grid (tiles, output-channel blocks, batch) and the dynamic shared memory
-    a block takes (the weight ring, three halo buffers of 8 planes of
-    16-byte pixel rows, the barriers, 1024 bytes of alignment slack)."""
+    """One conv launch: the pixel tile (``tile_h`` x ``tile_w``), its
+    consumer warpgroups (bf16: each 8 rows of 8 pixels; W8A8: each
+    ``block_n / warpgroups`` of the channels), ``block_n`` output channels
+    a block, the pixel tiles of one image (the GN2 partials' middle
+    dimension), the grid (tiles, output-channel blocks, batch) and the
+    dynamic shared memory a block takes (the weight ring, three halo
+    buffers of 8 planes of 16-byte pixel rows, the barriers, 1024 bytes of
+    alignment slack)."""
     tile_h: int
     tile_w: int
     warpgroups: int
@@ -156,6 +157,16 @@ class ConvPlan(NamedTuple):
     def arg(self) -> int:
         """The C entry's ``tile`` argument."""
         return self.warpgroups | self.block_n << 8
+
+
+def _smem(tile_h: int, block_n: int, stages: int) -> int:
+    """Dynamic shared memory of a conv block: the weight ring (``block_n``
+    rows of 128 bytes a stage: 64 bf16 or 128 int8 channels), three halo
+    buffers of 8 planes of 16-byte pixel rows (an odd number of them), the
+    ring's barriers and 1024 bytes of alignment slack."""
+    halo = (tile_h + 2) * 10
+    return stages * block_n * 128 + 3 * 8 * (halo | 1) * 16 + 16 * stages \
+        + 1024
 
 
 def conv_plan(B: int, H: int, W: int, Cin: int, Cout: int,
@@ -179,23 +190,46 @@ def conv_plan(B: int, H: int, W: int, Cin: int, Cout: int,
             cost = -(-blocks // sms) * (th * tw * bn + _HALO_COST * halo)
             # the weight ring: 3 stages where two blocks share an SM
             stages = 3 if wgs == 1 and bn > 64 else 4
-            smem = (stages * bn * 128 + 3 * 8 * (halo | 1) * 16
-                    + 16 * stages + 1024)
             plans.append((blocks < sms, cost if blocks >= sms else -blocks,
                            cost, ConvPlan(th, tw, wgs, bn, tiles,
-                                          (tiles, -(-Cout // bn), B), smem)))
+                                          (tiles, -(-Cout // bn), B),
+                                          _smem(th, bn, stages))))
     return min(plans, key=lambda p: p[:3])[3]
 
 
-def weight_map(Cin: int, Cout: int, block_n: int):
-    """The TMA view of the packed bf16 weight [Cout, 3, 3, Cin] that the
-    bf16 kernel reads its B tiles through: dims (Cin, 9 taps, Cout, 1),
-    innermost first, byte strides of the outer three, and the box (64
-    channels, 1 tap, ``block_n`` rows, 1).  Past Cin (a ragged last chunk)
-    and past Cout TMA reads zeros; a 2-D [Cout, 9 * Cin] view would read the
-    next tap's channels instead."""
-    return ((Cin, 9, Cout, 1), (2 * Cin, 18 * Cin, 18 * Cin * Cout),
-            (64, 1, block_n, 1))
+def conv_plan_w8a8(B: int, H: int, W: int, Cin: int, Cout: int,
+                   sms: int = H100_SMS) -> ConvPlan:
+    """The launch of the W8A8 conv at [B, H, W, Cin] -> Cout on a card of
+    ``sms`` SMs: an 8 x 8 pixel tile, two consumer warpgroups of 160
+    output channels each or one of 64 (``_W8A8_TILES``).  A block holds an
+    SM (the card allocates registers by whole warpgroups), and the
+    activation of the halo, not the products, bounds the kernel: the plan
+    of least cost, the busiest SM's blocks, ceil(blocks / sms), times a
+    block's products and halo activation (an int8 chunk activates 128
+    channels for products of a bf16 chunk's time, so twice the bf16 plan's
+    halo cost); then the more blocks."""
+    tiles = -(-H // 8) * -(-W // 8)
+    plans = []
+    for wgs, bn in _W8A8_TILES:
+        blocks = tiles * -(-Cout // bn) * B
+        cost = -(-blocks // sms) * (64 * bn + 2 * _HALO_COST * 100)
+        plans.append((cost, -blocks, ConvPlan(
+            8, 8, wgs, bn, tiles, (tiles, -(-Cout // bn), B),
+            _smem(8, bn, 4))))
+    return min(plans, key=lambda p: p[:2])[2]
+
+
+def weight_map(Cin: int, Cout: int, block_n: int, w8a8: bool = False):
+    """The TMA view of the packed weight [Cout, 3, 3, Cin] (bf16, or int8
+    with ``w8a8``) that the conv kernels read their B tiles through
+    (``hopper.cuh``, ``encode_conv_weights``): dims (Cin, 9 taps, Cout, 1),
+    innermost first, byte strides of the outer three, and the box (128
+    bytes of channels: 64 bf16 or 128 int8, 1 tap, ``block_n`` rows, 1).
+    Past Cin (a ragged last chunk) and past Cout TMA reads zeros; a 2-D
+    [Cout, 9 * Cin] view would read the next tap's channels instead."""
+    e = 1 if w8a8 else 2
+    return ((Cin, 9, Cout, 1), (e * Cin, 9 * e * Cin, 9 * e * Cin * Cout),
+            (128 // e, 1, block_n, 1))
 
 
 @functools.cache
@@ -218,22 +252,18 @@ def _conv(x, mean, rstd, gamma, beta, w_packed, bias, tvec, resid, groups,
     the W8A8 variant); returns (out, psum, psq)."""
     B, H, W, Cin = x.shape
     Cout = w_packed.shape[0]
-    if quant is None:
-        plan = conv_plan(B, H, W, Cin, Cout, _sm_count(x.get_device()))
-        tile, n_tiles = plan.arg, plan.tiles
-    else:
-        tile = _tile_width(W)
-        n_tiles = -(-H // (128 // tile)) * -(-W // tile)
+    plan = (conv_plan if quant is None else conv_plan_w8a8)(
+        B, H, W, Cin, Cout, _sm_count(x.get_device()))
     out = torch.empty(B, H, W, Cout, dtype=torch.bfloat16, device=x.device)
     psum = psq = None
     if partials:
-        psum = torch.empty(B, n_tiles, Cout, dtype=torch.float32,
+        psum = torch.empty(B, plan.tiles, Cout, dtype=torch.float32,
                            device=x.device)
         psq = torch.empty_like(psum)
     norm = (x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
             beta.data_ptr())
     tail = (bias.data_ptr(), _ptr(tvec), _ptr(resid), out.data_ptr(),
-            _ptr(psum), _ptr(psq), B, H, W, Cin, Cout, groups, tile,
+            _ptr(psum), _ptr(psq), B, H, W, Cin, Cout, groups, plan.arg,
             _stream(x))
     bf16_fn, w8a8_fn = _library()
     if quant is None:
