@@ -6,9 +6,8 @@ Phases (any failure exits non-zero before the last line):
   1. device: the card's name and power limit;
   2. build: compile the CUDA libraries (flash attention, single-pass
      small-KV attention, the bf16 fused resnet, the W8A8 fused resnet,
-     best match, fused cross-attention sublayer, single-launch GroupNorm:
-     one nvcc each, all started together, sm_90a) and the Triton GroupNorm
-     kernels from this checkout's sources;
+     best match, fused cross-attention sublayer, GroupNorm: one nvcc each,
+     all started together, sm_90a) from this checkout's sources;
   3. kernel vs plain: each of the eight kernels in bf16 against its plain
      PyTorch version (fp32 on the same bf16 inputs; the W8A8 resnet's in
      bf16, at the kernel's rounding points) at the main paths' shapes, with
@@ -23,7 +22,12 @@ Phases (any failure exits non-zero before the last line):
      the convolutions alone, not the block; the W8A8 row also shows the
      bf16 block's time at the same row);
      flash is held to FLASH_TOL of max |ref| besides ATTN_TOL, small-KV to
-     SMALL_KV_REL_TOL besides SMALL_KV_TOL;
+     SMALL_KV_REL_TOL besides SMALL_KV_TOL; GroupNorm at every GN_SHAPES
+     row (every UNet shape, the CFG-skip batch, the VAE's, resident and
+     streaming), each entry against its plain version: full, stats (to
+     GN_STATS_TOL), apply from those statistics, and finalize at the fused
+     resnets' partials, each through the call and device-only, beside
+     F.group_norm and the bound, and summed per exact UNet call;
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
@@ -48,7 +52,8 @@ Phases (any failure exits non-zero before the last line):
      50+50 steps, under VIDTOME_GN_MODE=full (set for the phase only): the
      UNet calls per kind must match the mode tables, the W8A8 resnet kernel
      must launch once per resnet block each UNet call runs, the
-     single-launch GroupNorm must launch and the three-pass one not;
+     full GroupNorm entry must launch, and the stats and finalize entries
+     twice per W8A8 block (GN1's and GN2's statistics);
   8. int8 reference check: one int8 UNet call (fused resnet blocks) at a
      32x32 latent under VIDTOME_GN_MODE=full, on the card (bf16 kernels)
      and on the CPU (fp32 plain versions), with the same int8 table;
@@ -68,10 +73,13 @@ Phases (any failure exits non-zero before the last line):
      from it by more than the tolerance.
 Then one JSON line with the kernels' numbers (launches: summed over the
 exact, serving, int8 and PnP paths, each counted from 0; ms, plain_ms,
-library_ms and bound_ms summed over each kernel's phase-3 shapes; for the
+library_ms and bound_ms summed over each kernel's phase-3 shapes, for
+group_norm (the stats, apply and finalize entries) stats + apply a
+GN_SHAPES row plus the finalize rows, for full_group_norm the full entry;
+for the
 two attention kernels also device_ms and library_device_ms, the kernel's
 and SDPA's time in a replayed CUDA graph, without the host's, and for the
-two resnet variants device_ms), and last:
+two resnet variants and both GroupNorm rows device_ms), and last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 
@@ -104,6 +112,9 @@ ATTN_TOL = 2e-2   # absolute: bf16 probabilities and output, |out| <~ 1
 # (flash_ab.py, PERF.md)
 FLASH_TOL = 1e-2
 GN_TOL = 3e-2     # relative to max(1, |y|): one bf16 ulp at |y| < 4 is 2^-6
+# GroupNorm statistics (mean, rstd), relative to max(1, |ref|): fp32 sums in
+# another order
+GN_STATS_TOL = 1e-4
 RESNET_TOL = 2e-2  # relative to max |ref|: bf16 activations and h (2^-9 each)
 MATCH_TOL = 1e-4  # absolute on max scores: fp32 sums in another order
 MATCH_GAP = 1e-3  # argmax compared where the plain top-2 gap exceeds this
@@ -301,12 +312,41 @@ SUBLAYER_SHAPES = [  # (B, S, C, heads): SD2.1 PnP generation, 77 keys
     (12, 256, 1280, 20),
     (12, 64, 1280, 20),
 ]
-GN_SHAPES = [  # (B, rows, C, silu, eps): both GroupNorm kernels
-    (8, 512 * 512, 128, True, 1e-5),   # VAE decoder at 512x512
-    (8, 64 * 64, 320, True, 1e-5),     # UNet L0 resnet
-    (8, 8 * 8, 2560, True, 1e-5),      # UNet skip-concat width
-    (8, 64 * 64, 320, False, 1e-6),    # Transformer2D input norm
+GN_SHAPES = [  # (B, rows, C, silu, eps, norms per exact UNet call)
+    # SD1.5's UNet at a 64x64 latent, batch 8: all 61 GroupNorms of a call
+    (8, 64 * 64, 320, True, 1e-5, 8),     # L0 resnets, conv_norm_out
+    (8, 64 * 64, 320, False, 1e-6, 5),    # L0 Transformer2D input norms
+    (8, 64 * 64, 640, True, 1e-5, 2),     # last up block, skip concat
+    (8, 64 * 64, 960, True, 1e-5, 1),
+    (8, 32 * 32, 320, True, 1e-5, 1),
+    (8, 32 * 32, 640, True, 1e-5, 6),
+    (8, 32 * 32, 640, False, 1e-6, 5),
+    (8, 32 * 32, 960, True, 1e-5, 1),
+    (8, 32 * 32, 1280, True, 1e-5, 1),
+    (8, 32 * 32, 1920, True, 1e-5, 1),
+    (8, 16 * 16, 640, True, 1e-5, 1),
+    (8, 16 * 16, 1280, True, 1e-5, 6),
+    (8, 16 * 16, 1280, False, 1e-6, 5),
+    (8, 16 * 16, 1920, True, 1e-5, 1),
+    (8, 16 * 16, 2560, True, 1e-5, 2),
+    (8, 8 * 8, 1280, True, 1e-5, 11),
+    (8, 8 * 8, 1280, False, 1e-6, 1),
+    (8, 8 * 8, 2560, True, 1e-5, 3),      # up block 0, skip-concat width
+    (4, 64 * 64, 960, True, 1e-5, 0),     # the CFG-skip batch
+    # the VAE encoder and decoder at 512x512 (the last five stream)
+    (8, 64 * 64, 512, True, 1e-5, 0),
+    (8, 128 * 128, 256, True, 1e-5, 0),
+    (8, 128 * 128, 512, True, 1e-5, 0),
+    (8, 256 * 256, 128, True, 1e-5, 0),
+    (8, 256 * 256, 256, True, 1e-5, 0),
+    (8, 256 * 256, 512, True, 1e-5, 0),
+    (8, 512 * 512, 128, True, 1e-5, 0),
+    (8, 512 * 512, 256, True, 1e-5, 0),
 ]
+# the four GroupNorm rows phase 3 timed before every UNet and VAE shape
+# was listed: their sums are printed beside the earlier times in PERF.md
+GN_EARLIER_ROWS = [(8, 512 * 512, 128, True, 1e-5), (8, 64 * 64, 320, True, 1e-5),
+                   (8, 8 * 8, 2560, True, 1e-5), (8, 64 * 64, 320, False, 1e-6)]
 RESNET_SHAPES = [  # (B, H, W, Cin, Cout): both fused resnet variants
     (8, 64, 64, 320, 320),     # L0, identity shortcut
     (8, 32, 32, 640, 640),     # L1, identity shortcut
@@ -394,7 +434,7 @@ def phase_build(dev) -> None:
             "vidtome_resnet_w8a8": "resnet_w8a8.cu",
             "vidtome_matching": "matching.cu",
             "vidtome_sublayer": "sublayer.cu",
-            "vidtome_group_norm_full": "group_norm_full.cu"}
+            "vidtome_group_norm": "group_norm.cu"}
     logs = {name: [] for name in libs}
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build_library, name, (src,), log=logs[name])
@@ -402,14 +442,8 @@ def phase_build(dev) -> None:
             fut.result()
     attention._library(), attention._small_kv_library()
     resnet._library(), matching._library(), sublayer._library()
-    groupnorm._full_library()
+    groupnorm._library()
     t1 = time.perf_counter()
-    x = torch.zeros(1, 64, 32, device=dev, dtype=torch.bfloat16)
-    for silu in (False, True):
-        groupnorm._launch(x, torch.ones(32, device=dev),
-                          torch.zeros(32, device=dev), 32, 1e-5, silu)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
     for name, log in logs.items():
         for _name, secs, report in log:
             regs = [ln.split("Used")[1].split(",")[0].strip()
@@ -419,8 +453,7 @@ def phase_build(dev) -> None:
             print(f"[build] {name}: nvcc {secs:.1f} s; {len(spills)} "
                   f"kernels, registers {regs}, max spill line: "
                   f"{max(spills) if spills else 'n/a'}")
-    print(f"[build] CUDA libraries ready in {t1 - t0:.1f} s (parallel nvcc);"
-          f" Triton GroupNorm compiled in {t2 - t1:.1f} s")
+    print(f"[build] CUDA libraries ready in {t1 - t0:.1f} s (parallel nvcc)")
 
 
 def global_match_shape() -> tuple:
@@ -465,6 +498,137 @@ class KernelStats:
         r["bytes_ms"] += bound[0]
         r["ops_ms"] += bound[1]
         r["bound"] += max(bound)
+
+
+def phase_group_norm(dev, rng, stats: KernelStats) -> None:
+    """Phase 3 for the GroupNorm entries of csrc/group_norm.cu."""
+    from torch.nn import functional as F
+
+    from vidtome_torch.ops import groupnorm, resnet
+
+    def rel(got, want):  # relative to max(1, |want|)
+        return ((got.float() - want).abs()
+                / want.abs().clamp_min(1.0)).max().item()
+
+    sms = groupnorm._sm_count(0)
+    per_call = [0, 0.0, 0.0, 0.0, 0.0]  # launches x (full, pair, bound, lib)
+    earlier = [0.0, 0.0]  # full, stats + apply over GN_EARLIER_ROWS
+    for B, rows, C, silu, eps, n_call in GN_SHAPES:
+        a = (rng.standard_normal((B, rows, C), np.float32) * 2.0 + 0.5)
+        x = torch.from_numpy(a).to(dev, torch.bfloat16)
+        del a
+        w = torch.from_numpy(rng.standard_normal(C, np.float32) + 1).to(dev)
+        b = torch.from_numpy(rng.standard_normal(C, np.float32)).to(dev)
+        xf = x.float()
+        want_mean, want_rstd = groupnorm.reference_group_stats(xf, 32, eps)
+        want = groupnorm.reference_apply(xf, want_mean, want_rstd, w, b, 32,
+                                         silu)
+        got = groupnorm.full_group_norm(x, w, b, 32, eps, silu)
+        err_full, abs_full = rel(got, want), (got.float() - want).abs().max(
+        ).item()
+        mean, rstd = groupnorm.group_stats(x, 32, eps)
+        err_stats = max(rel(mean, want_mean), rel(rstd, want_rstd))
+        got = groupnorm.apply_group_norm(x, mean, rstd, w, b, 32, silu)
+        del want
+        want = groupnorm.reference_apply(xf, mean, rstd, w, b, 32, silu)
+        err_apply, abs_apply = rel(got, want), (got.float() - want).abs(
+        ).max().item()
+        del want, got
+
+        def full():
+            return groupnorm.full_group_norm(x, w, b, 32, eps, silu)
+
+        def pair():
+            return groupnorm.apply_group_norm(
+                x, *groupnorm.group_stats(x, 32, eps), w, b, 32, silu)
+
+        ms_full, dev_full = cuda_time(full, 10), graph_time(full, 10)
+        ms_pair, dev_pair = cuda_time(pair, 10), graph_time(pair, 10)
+        plain = cuda_time(lambda: groupnorm.reference_group_norm(
+            xf, w, b, 32, eps, silu), 3)
+        # one library call: F.group_norm on the NCHW (channels-last) view,
+        # without the SiLU
+        side = int(round(rows ** 0.5))
+        x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)
+        wb, bb = w.bfloat16(), b.bfloat16()
+
+        def lib_call():
+            return F.group_norm(x4, 32, wb, bb, eps)
+
+        lib, lib_dev = cuda_time(lib_call, 10), graph_time(lib_call, 10)
+        nbytes = 2 * B * rows * C
+        bound = bound_ms(2 * nbytes + 8 * C, fp32=(5 + 4 * silu) * B * rows * C)
+        stats_bound = max(bound_ms(nbytes, fp32=3 * B * rows * C))
+        p = groupnorm.plan(B, rows, C, 32, 2, sms)
+        print(f"[kernel] group_norm [{B},{rows},{C}] silu={silu} eps={eps} "
+              f"({p.slices} slices of {p.sc} ch, clusters of {p.cluster}, "
+              f"{p.blocks} blocks, {'resident' if p.resident else 'streaming'}"
+              f"): max rel err full {err_full:.2e}, apply {err_apply:.2e} "
+              f"(tol {GN_TOL}), stats {err_stats:.2e} (tol {GN_STATS_TOL}); "
+              f"full {ms_full:.4f} ms (device only {dev_full:.4f}), stats + "
+              f"apply {ms_pair:.4f} ms (device only {dev_pair:.4f}), plain "
+              f"{plain:.3f} ms, F.group_norm {lib:.4f} ms (device only "
+              f"{lib_dev:.4f}); bound {max(bound):.4f} ms (stats alone "
+              f"{stats_bound:.4f})")
+        if not (err_full < GN_TOL and err_apply < GN_TOL
+                and err_stats < GN_STATS_TOL):
+            raise AssertionError(f"GroupNorm kernel disagrees at "
+                                 f"{(B, rows, C)}")
+        stats.add("full_group_norm", abs_full, ms_full, plain, lib, bound,
+                  dev_full, lib_dev)
+        stats.add("group_norm", abs_apply, ms_pair, plain, lib, bound,
+                  dev_pair, lib_dev)
+        for i, v in enumerate((n_call, n_call * dev_full, n_call * dev_pair,
+                               n_call * max(bound), n_call * lib_dev)):
+            per_call[i] += v
+        if (B, rows, C, silu, eps) in GN_EARLIER_ROWS:
+            earlier[0] += ms_full
+            earlier[1] += ms_pair
+        del x, xf, x4, mean, rstd
+        torch.cuda.empty_cache()
+    n, full_ms, pair_ms, bound_sum, lib_sum = per_call
+    print(f"[kernel] group_norm per exact UNet call ({n} norms, device only, "
+          f"at the rows above): full {full_ms:.4f} ms, stats + apply "
+          f"{pair_ms:.4f} ms, F.group_norm {lib_sum:.4f} ms, bound "
+          f"{bound_sum:.4f} ms")
+    print(f"[kernel] group_norm over the earlier runs' four rows, through "
+          f"the call: full {earlier[0]:.4f} ms, stats + apply "
+          f"{earlier[1]:.4f} ms")
+
+    # the finalize entry at the fused resnets' GN2 partials [B, tiles, Co]
+    for B, H, W, Ci, Co in RESNET_SHAPES:
+        tiles = resnet.conv_plan(B, H, W, Ci, Co, sms).tiles
+        k = -(-H * W // tiles)  # rows a tile
+        h = torch.from_numpy(rng.standard_normal((B, tiles, k, Co), np.float32)
+                             * 2.0 + 0.5).to(dev)
+        sums, sqs = h.sum(2).contiguous(), (h * h).sum(2).contiguous()
+        del h
+        count = tiles * k
+        mean, rstd = groupnorm.stats_from_partials(sums, sqs, 32, count, 1e-5)
+        want = groupnorm.reference_stats_from_partials(sums, sqs, 32, count,
+                                                       1e-5)
+        err = max(rel(mean, want[0]), rel(rstd, want[1]))
+        abs_err = max((mean - want[0]).abs().max().item(),
+                      (rstd - want[1]).abs().max().item())
+
+        def fin():
+            return groupnorm.stats_from_partials(sums, sqs, 32, count, 1e-5)
+
+        ms, device = cuda_time(fin, 10), graph_time(fin, 10)
+        plain = cuda_time(lambda: groupnorm.reference_stats_from_partials(
+            sums, sqs, 32, count, 1e-5), 3)
+        bound = bound_ms(2 * 4 * B * tiles * Co + 2 * 4 * B * 32,
+                         fp32=2 * B * tiles * Co)
+        print(f"[kernel] group_norm finalize [{B},{tiles},{Co}] (conv2 of "
+              f"[{B},{H},{W},{Ci}]->{Co}): max rel err {err:.2e} (tol "
+              f"{GN_STATS_TOL}); kernel {ms:.4f} ms (device only "
+              f"{device:.4f}), plain {plain:.3f} ms, bound {max(bound):.4f} "
+              f"ms")
+        if not err < GN_STATS_TOL:
+            raise AssertionError(f"GroupNorm finalize disagrees at "
+                                 f"{(B, tiles, Co)}")
+        stats.add("group_norm", abs_err, ms, plain, None, bound, device)
+        del sums, sqs
 
 
 def phase_kernels(dev) -> KernelStats:
@@ -539,38 +703,7 @@ def phase_kernels(dev) -> KernelStats:
               f"device only {device:.4f} ms (SDPA {lib_device:.4f} ms), "
               f"bound {bound:.4f} ms")
 
-    for name, fn in (("group_norm", groupnorm.group_norm),
-                     ("full_group_norm", groupnorm.full_group_norm)):
-        for B, rows, C, silu, eps in GN_SHAPES:
-            x = bf16((B, rows, C), 2.0, 0.5)
-            w = torch.from_numpy(rng.standard_normal(C, np.float32) + 1).to(dev)
-            b = torch.from_numpy(rng.standard_normal(C, np.float32)).to(dev)
-            xf = x.float()
-            got = fn(x, w, b, 32, eps, silu)
-            want = groupnorm.reference_group_norm(xf, w, b, 32, eps, silu)
-            diff = (got.float() - want).abs()
-            err = (diff / want.abs().clamp_min(1.0)).max().item()
-            abs_err = diff.max().item()
-            del want, diff
-            ms = cuda_time(lambda: fn(x, w, b, 32, eps, silu), 10)
-            plain = cuda_time(lambda: groupnorm.reference_group_norm(
-                xf, w, b, 32, eps, silu), 3)
-            # one library call: F.group_norm on the NCHW (channels-last)
-            # view, without the SiLU
-            side = int(round(rows ** 0.5))
-            x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)
-            wb, bb = w.bfloat16(), b.bfloat16()
-            lib = cuda_time(lambda: F.group_norm(x4, 32, wb, bb, eps), 10)
-            bound = bound_ms(2 * 2 * B * rows * C + 8 * C,
-                             fp32=(5 + 4 * silu) * B * rows * C)
-            report(f"{name} [{B},{rows},{C}] silu={silu} eps={eps}: max rel "
-                   f"err {err:.2e}, ", abs_err, GN_TOL, ms, plain, lib, bound)
-            if not err < GN_TOL:
-                raise AssertionError(f"{name} kernel disagrees at "
-                                     f"{(B, rows, C)}")
-            stats.add(name, abs_err, ms, plain, lib, bound)
-            del x, xf, got, x4
-            torch.cuda.empty_cache()
+    phase_group_norm(dev, rng, stats)
 
     def f32(*shape, scale=1.0, shift=0.0):
         return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale
@@ -760,11 +893,14 @@ def phase_main_path(dev, bundle) -> dict:
     context = stage("text", lambda: generator.text.embed_cfg(
         prompt, generator.negative_prompt))
     table = generator.fidx_table()
+    gen_before = read_launches()
     clean = stage("generate", lambda: generator.ddim_sample(
         inverted[torch.as_tensor(generator.pad_src, device=dev)], context,
         fidx_table=table))
+    gen = {k: v - gen_before[k] for k, v in read_launches().items()}
     out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
     launches = read_launches()
+    unet_calls = sum(generator.unet_calls.values())
 
     if table.shape[1] != 2:
         raise AssertionError(f"expected 2 chunks, got {table.shape[1]}")
@@ -774,15 +910,23 @@ def phase_main_path(dev, bundle) -> dict:
         raise AssertionError("frames not finite or outside [0, 1]")
     if not torch.isfinite(inverted).all():
         raise AssertionError("inverted latents not finite")
-    for k in ("flash_attention", "small_kv_attention", "group_norm",
+    for k in ("flash_attention", "small_kv_attention", "full_group_norm",
               "best_match"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched on the exact "
                                  f"path")
+    # every GroupNorm of the exact path (no fused resnets) takes the full
+    # entry, once a norm: 61 a UNet call
+    if launches["group_norm"] or gen["full_group_norm"] != 61 * unet_calls:
+        raise AssertionError(f"exact path: GroupNorm launches {gen} over "
+                             f"{unet_calls} UNet calls, want 61 full a call")
     print(f"[main] {N_FRAMES} frames {SIZE}x{SIZE}, {STEPS}+{STEPS} DDIM "
           f"steps, 2 chunks; frames mean {out.mean().item():.4f} std "
           f"{out.std().item():.4f}; stage seconds "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"[main] GroupNorm launches per generation UNet call: "
+          f"{gen['full_group_norm'] / unet_calls:.0f} full entry "
+          f"({unet_calls} UNet calls)")
     print(f"[main] kernel launches in this run: {launches}")
     return launches
 
@@ -851,10 +995,18 @@ def phase_serving(dev, bundle) -> dict:
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError("serving frames not finite or outside [0, 1]")
     for k in ("flash_attention", "small_kv_attention", "group_norm",
-              "fused_resnet", "best_match"):
+              "full_group_norm", "fused_resnet", "best_match"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched on the serving "
                                  f"path")
+    # the fused resnet blocks take GN1's statistics from the stats entry
+    # and GN2's from the finalize entry; every other GroupNorm the full one
+    if launches["group_norm"] != 2 * launches["fused_resnet"]:
+        raise AssertionError(f"serving path: {launches['group_norm']} stats "
+                             f"and finalize launches for "
+                             f"{launches['fused_resnet']} fused resnets")
+    runs = sum(v for calls in (generator.unet_calls, inverter.unet_calls)
+               for k, v in calls.items() if k != "eps_skip")
 
     # the exact path from the same inverted latents (not counted)
     exact = Generator(bundle, exact_config(SERVE_STEPS))
@@ -872,6 +1024,9 @@ def phase_serving(dev, bundle) -> dict:
           + f"; exact generate + decode {t_exact:.3f}")
     print(f"[serve] PSNR serving vs exact frames (same inverted latents, "
           f"random weights: printed only) {psnr:.2f} dB")
+    print(f"[serve] GroupNorm launches: full {launches['full_group_norm']}, "
+          f"stats + finalize {launches['group_norm']} over {runs} UNet "
+          f"calls run")
     print(f"[serve] kernel launches in this run: {launches}")
     return launches
 
@@ -996,9 +1151,12 @@ def phase_int8(dev, bundle) -> dict:
     if got_w8a8 != want_w8a8:
         raise AssertionError("W8A8 resnet launches differ from the resnet "
                              "blocks the UNet calls ran")
-    if launches["group_norm"] or launches["fused_resnet"]:
-        raise AssertionError("the three-pass GroupNorm or the bf16 resnet "
-                             "launched on the int8 path under full mode")
+    if launches["fused_resnet"]:
+        raise AssertionError("the bf16 resnet launched on the int8 path")
+    if launches["group_norm"] != 2 * launches["fused_resnet_w8a8"]:
+        raise AssertionError(f"int8 path: {launches['group_norm']} stats and "
+                             f"finalize launches for "
+                             f"{launches['fused_resnet_w8a8']} W8A8 resnets")
     for k in ("full_group_norm", "flash_attention", "small_kv_attention",
               "best_match"):
         if launches[k] <= 0:
@@ -1053,7 +1211,7 @@ def phase_int8_reference(dev, bundle) -> None:
         raise AssertionError(f"int8 card vs CPU reference rel err {err}")
     if not (ran["fused_resnet_w8a8"] and ran["full_group_norm"]):
         raise AssertionError("the int8 reference call ran no W8A8 resnet "
-                             "or single-launch GroupNorm kernel")
+                             "or full GroupNorm kernel")
     del cpu, cpu_table
 
 
@@ -1124,9 +1282,10 @@ def phase_pnp(dev, bundle) -> dict:
     if gen_launches["fused_cross_sublayer"] != n_blocks * gen_calls:
         raise AssertionError("sublayer launches differ from 16 per "
                              "generation UNet call")
-    if inv_launches["fused_cross_sublayer"] or launches["fused_resnet"]:
+    if (inv_launches["fused_cross_sublayer"] or launches["fused_resnet"]
+            or launches["group_norm"]):
         raise AssertionError("a kernel outside this path launched")
-    for k in ("flash_attention", "group_norm", "best_match",
+    for k in ("flash_attention", "full_group_norm", "best_match",
               "small_kv_attention"):
         if gen_launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched in the PnP "
@@ -1237,9 +1396,9 @@ def main() -> int:
                                "vidtome_tpu/ops/attention.py:248"),
         "fused_cross_sublayer": ("cuda", "vidtome_torch/csrc/sublayer.cu",
                                  "vidtome_tpu/ops/sublayer.py:165"),
-        "group_norm": ("triton", "vidtome_torch/ops/groupnorm.py",
+        "group_norm": ("cuda", "vidtome_torch/csrc/group_norm.cu",
                        "vidtome_tpu/ops/groupnorm.py:108"),
-        "full_group_norm": ("cuda", "vidtome_torch/csrc/group_norm_full.cu",
+        "full_group_norm": ("cuda", "vidtome_torch/csrc/group_norm.cu",
                             "vidtome_tpu/ops/groupnorm.py:212"),
         "fused_resnet": ("cuda", "vidtome_torch/csrc/resnet_bf16.cu",
                          "vidtome_tpu/ops/resnet.py:232"),

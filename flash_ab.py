@@ -2,7 +2,7 @@
 CUDA card, in turns, at chip_smoke.py's shapes for that kernel, beside the
 wrapper and the library call.
 
-    python3 flash_ab.py [--kernel=flash|small_kv|resnet|resnet_w8a8]
+    python3 flash_ab.py [--kernel=flash|small_kv|resnet|resnet_w8a8|group_norm]
                         [--root=DIR ...] [--json=PATH] [NAME=DIR ...]
 
 ``--kernel`` picks the source, its C entry and the shapes (default
@@ -34,7 +34,18 @@ wrapper and the library call.
             of the activation moves); ``resnet_w8a8.cu`` with the launch
             of ``conv_plan_w8a8`` (or that of a ``resnet.py`` beside the
             source in DIR); beside them the W8A8 block and the bf16 block
-            through their wrappers.
+            through their wrappers;
+  group_norm  ``group_norm.cu``'s full entry (``vidtome_group_norm``, mode
+            0, with this checkout's ``ops/groupnorm.plan``) at
+            ``chip_smoke.GN_SHAPES``, beside the routes of the package
+            under each ``--root``: a package with ``csrc/group_norm.cu``
+            gives its full entry and its stats + apply entries, an earlier
+            one (``git archive`` of a tree before it) its three Triton
+            passes (``group_norm`` under ``VIDTOME_GN_MODE=auto``) and its
+            cooperative single-launch kernel (``full_group_norm``); every
+            build and route in turns, through the call and device-only,
+            held against ``reference_group_norm`` (max |err| relative to
+            max(1, |ref|)), beside ``F.group_norm`` and the bound.
 Each build DIR holds that source (and the ``*.cuh`` it includes) with the
 C signature of ``vidtome_torch/csrc``'s; ``new=vidtome_torch/csrc`` is this
 checkout's kernel.  All are compiled at once (one nvcc each, the flags of
@@ -70,6 +81,7 @@ import importlib
 import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -79,8 +91,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import (EXP2_S, FLASH_SHAPES, RESNET_SHAPES, SMALL_KV_SHAPES,
-                        bound_ms, cuda_time, graph_time)
+from chip_smoke import (EXP2_S, FLASH_SHAPES, GN_SHAPES, RESNET_SHAPES,
+                        SMALL_KV_SHAPES, bound_ms, cuda_time, graph_time)
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "flash_ab"
@@ -105,6 +117,8 @@ KERNELS = {
                         shapes=RESNET_SHAPES + [(3, 16, 24, 96, 224)],
                         wrapper="fused_resnet_w8a8", module="resnet",
                         w8a8=True),
+    "group_norm": dict(source="group_norm.cu", entry="vidtome_group_norm",
+                       shapes=GN_SHAPES, module="groupnorm"),
 }
 
 
@@ -154,6 +168,23 @@ def build(kernel: dict, name: str, src: Path):
             spec.loader.exec_module(module)
             fn.plan = getattr(module, "conv_plan_w8a8" if kernel["w8a8"]
                               else "conv_plan")
+    elif kernel.get("module") == "groupnorm":
+        lib = ctypes.CDLL(str(out))
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.clusters = lib.vidtome_group_norm_clusters
+        fn.clusters.argtypes = [ctypes.c_int] * 4
+        # a build DIR may bring the planner of its own launch in a
+        # groupnorm.py beside its source (then its clusters entry may take
+        # other arguments, and is not asked)
+        fn.plan = None
+        if (src / "groupnorm.py").exists():
+            fn.clusters = None
+            spec = importlib.util.spec_from_file_location(
+                f"plan_{name}", src / "groupnorm.py")
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            fn.plan = module.plan
     else:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * kernel[
             "ints"] + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
@@ -220,6 +251,118 @@ def wrappers(kernel: dict, roots: list[Path]) -> dict:
             sys.path.remove(str(root))
         found[str(root)] = getattr(module, kernel["wrapper"])
     return found
+
+
+def group_norm_routes(roots: list[Path]) -> dict:
+    """The GroupNorm routes of the package under each root, each imported
+    on its own (its kernels built into its own ``build/``): name ->
+    fn(x, w, b, eps, silu)."""
+    routes = {}
+    for root in roots:
+        for mod in [m for m in sys.modules if m.split(".")[0] == "vidtome_torch"]:
+            del sys.modules[mod]
+        sys.path.insert(0, str(root))
+        try:
+            m = importlib.import_module("vidtome_torch.ops.groupnorm")
+        finally:
+            sys.path.remove(str(root))
+        tag = root.name if root != ROOT else "tree"
+        if hasattr(m, "apply_group_norm"):  # csrc/group_norm.cu
+            routes[f"{tag} full"] = (
+                lambda x, w, b, eps, silu, m=m: m.full_group_norm(
+                    x, w, b, 32, eps, silu))
+            routes[f"{tag} stats+apply"] = (
+                lambda x, w, b, eps, silu, m=m: m.apply_group_norm(
+                    x, *m.group_stats(x, 32, eps), w, b, 32, silu))
+        else:  # the Triton passes and the cooperative kernel
+            routes[f"{tag} triton"] = (
+                lambda x, w, b, eps, silu, m=m: m.group_norm(
+                    x, w, b, 32, eps, silu))
+            routes[f"{tag} cooperative"] = (
+                lambda x, w, b, eps, silu, m=m: m.full_group_norm(
+                    x, w, b, 32, eps, silu))
+    return routes
+
+
+def compare_group_norm(fns: dict, routes: dict, groupnorm) -> list:
+    """Every build's full entry and every route at each GN_SHAPES row, in
+    turns, against the plain GroupNorm (``groupnorm``: this checkout's
+    ``ops/groupnorm``, its planner and plain version)."""
+    F = torch.nn.functional
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows_out = []
+    for B, rows, C, silu, eps, _ in GN_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((B, rows, C), np.float32)
+                             * 2.0 + 0.5).to(dev, torch.bfloat16)
+        w = torch.from_numpy(rng.standard_normal(C, np.float32) + 1).to(dev)
+        b = torch.from_numpy(rng.standard_normal(C, np.float32)).to(dev)
+        want = groupnorm.reference_group_norm(x.float(), w, b, 32, eps, silu)
+        tree_plan = functools.partial(
+            groupnorm.plan, clusters=groupnorm._card_clusters(0, 0))
+        plan = tree_plan(B, rows, C, 32, 2, sms)
+        runs, plans = {}, {}
+        for name, fn in fns.items():
+            y = torch.empty_like(x)
+            p = (fn.plan or tree_plan)(B, rows, C, 32, 2, sms)
+            ints = (ctypes.c_int * len(p))(*p)
+            at_once = (fn.clusters(0, 0, p.cluster, p.smem)
+                       if fn.clusters else "not asked")
+            plans[name] = (f"{p.slices} x {p.sc} ch, clusters of {p.cluster}"
+                           f", {p.blocks} blocks, {p.smem} B, "
+                           f"{'resident' if p.resident else 'streaming'}, "
+                           f"{at_once} clusters at once")
+
+            def run(fn=fn, y=y, ints=ints):
+                e = fn(0, 0, x.data_ptr(), y.data_ptr(), w.data_ptr(),
+                       b.data_ptr(), None, None, ints, eps, int(silu), 0,
+                       torch._C._cuda_getCurrentRawStream(0))
+                if e:
+                    raise RuntimeError(f"launch failed: error {e}")
+                return y
+            runs[name] = run
+        for name, route in routes.items():
+            runs[name] = functools.partial(route, x, w, b, eps, silu)
+        ms, device_ms, err = {}, {}, {}
+        for name in list(runs) + list(reversed(runs)):
+            ms.setdefault(name, []).append(cuda_time(runs[name], 10))
+            try:
+                device_ms.setdefault(name, []).append(
+                    graph_time(runs[name], 10))
+            except RuntimeError as exc:  # a launch a graph cannot capture
+                print(f"[{name}] device-only time not measured: {exc}")
+            if name not in err:
+                out = runs[name]()
+                err[name] = ((out.float() - want).abs()
+                             / want.abs().clamp_min(1.0)).max().item()
+                del out
+        side = int(round(rows ** 0.5))
+        x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)
+        wb, bb = w.bfloat16(), b.bfloat16()
+
+        def lib():
+            return F.group_norm(x4, 32, wb, bb, eps)
+        row = dict(shape=[B, rows, C], silu=silu, eps=eps,
+                   plan=plan._asdict(), build_plans=plans, ms=ms,
+                   device_ms=device_ms,
+                   rel_err=err, library_ms=cuda_time(lib, 10),
+                   library_device_ms=graph_time(lib, 10),
+                   bound_ms=max(bound_ms(2 * 2 * B * rows * C + 8 * C,
+                                         fp32=(5 + 4 * silu) * B * rows * C)))
+        rows_out.append(row)
+        print(f"[{B},{rows},{C}] silu={silu} ({plan.slices} x {plan.sc} ch, "
+              f"clusters of {plan.cluster}, "
+              f"{'resident' if plan.resident else 'streaming'}): "
+              + "; ".join(f"{n} {ms[n]} ms (device only {device_ms.get(n)})"
+                          f", max rel err {err[n]:.2e}" for n in runs)
+              + "; build plans " + "; ".join(f"{n}: {v}"
+                                             for n, v in plans.items())
+              + f"; F.group_norm {row['library_ms']:.4f} ms (device only "
+              f"{row['library_device_ms']:.4f}); bound {row['bound_ms']:.4f}")
+        del x, want, x4, runs
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def compare(kernel: dict, fns: dict, wrapper) -> list:
@@ -441,8 +584,14 @@ def main(argv: list[str]) -> int:
         else:
             name, path = arg.split("=", 1)
             builds[name] = (ROOT / path).resolve()
-    wrapped = wrappers(kernel, roots or [ROOT])
-    wrapper = next(iter(wrapped.values()))
+    if kernel.get("module") == "groupnorm":
+        os.environ.pop("VIDTOME_GN_MODE", None)  # an earlier tree's auto
+        os.environ.pop("VIDTOME_DISABLE_PALLAS_GN", None)
+        tree = importlib.import_module("vidtome_torch.ops.groupnorm")
+        routes = group_norm_routes(roots or [ROOT])
+    else:
+        wrapped = wrappers(kernel, roots or [ROOT])
+        wrapper = next(iter(wrapped.values()))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -461,9 +610,11 @@ def main(argv: list[str]) -> int:
             print(f"[build] {name}: registers per instance {report}")
         if kernel.get("module") == "resnet":
             result["rows"] = compare_resnet(kernel, fns, wrapper)
-        else:
+        elif kernel.get("module") != "groupnorm":
             result["rows"] = compare(kernel, fns, wrapper)
-    if kernel.get("module") == "resnet":  # no host section: long rows
+    if kernel.get("module") == "groupnorm":
+        result["rows"] = compare_group_norm(fns, routes, tree)
+    if kernel.get("module") in ("resnet", "groupnorm"):  # no host section
         if json_path is not None:
             json_path.parent.mkdir(parents=True, exist_ok=True)
             json_path.write_text(json.dumps(result, indent=1))

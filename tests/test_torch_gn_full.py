@@ -1,5 +1,5 @@
-"""The single-launch GroupNorm's plain version and the GroupNorm route, on
-the CPU.
+"""The full GroupNorm entry's plain version and the GroupNorm route, on the
+CPU.
 
 The port's ``full_group_norm`` (its plain version on a CPU tensor) is held
 against the Pallas ``full_group_norm`` in interpret mode at the JAX

@@ -27,9 +27,10 @@ kernel rounds y2, q, p and a to bf16 where the fp32 plain version does
 not, about 1e-2 more).  The W8A8 fused resnet is held against its plain
 version run in bf16 on the card (the same rounding points, so the same
 int8 activations but where fp32 sums in another order move a value across
-a rounding boundary), 2e-2 of max |ref| as the bf16 kernel; the
-single-launch GroupNorm as the three-pass one, and in fp32 to 1e-4
-relative to max(1, |y|).
+a rounding boundary), 2e-2 of max |ref| as the bf16 kernel.  The
+GroupNorm entries: y as above (in fp32 to 1e-4 relative to max(1, |y|)),
+the statistics to 1e-4 relative (fp32 sums in another order), and the same
+bits on a second call (no atomics).
 """
 
 from __future__ import annotations
@@ -135,26 +136,73 @@ def test_flash_kernel_rejects_fp32(cuda):
         t_attn.flash_attention(q, q, q)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,rows,C,silu,eps", [
-    (8, 4096, 320, True, 1e-5),
-    (8, 64, 2560, True, 1e-5),
-    (2, 1000, 96, False, 1e-6),
-    (8, 16384, 128, True, 1e-5),
-])
-def test_group_norm_kernel_matches_plain(cuda, B, rows, C, silu, eps):
-    rng = np.random.default_rng(3)
-    x = _bf16(rng, (B, rows, C), cuda, scale=2.0, shift=0.5)
-    w = torch.from_numpy(rng.normal(size=C).astype(np.float32) + 1).to(cuda)
-    b = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(cuda)
-    before = t_gn.group_norm.launches
-    got = t_gn.group_norm(x, w, b, 32, eps, silu)
-    torch.cuda.synchronize()
-    assert t_gn.group_norm.launches == before + 1
-    want = t_gn.reference_group_norm(x.float(), w, b, 32, eps, silu)
-    assert got.dtype == torch.bfloat16
+# (B, rows, C, silu, eps, dtype): every GroupNorm shape of SD1.5's UNet at
+# 512x512 (resident slabs), the VAE's (the 65536- and 262144-row ones
+# stream), the CFG-skip batch, and the narrow test widths
+GN_CASES = [
+    (8, 4096, 320, True, 1e-5, torch.bfloat16),
+    (8, 4096, 320, False, 1e-6, torch.bfloat16),  # Transformer2D input norm
+    (8, 4096, 640, True, 1e-5, torch.bfloat16),
+    (8, 4096, 960, True, 1e-5, torch.bfloat16),
+    (8, 1024, 320, True, 1e-5, torch.bfloat16),
+    (8, 1024, 640, False, 1e-6, torch.bfloat16),
+    (8, 1024, 960, True, 1e-5, torch.bfloat16),
+    (8, 1024, 1280, True, 1e-5, torch.bfloat16),
+    (8, 1024, 1920, True, 1e-5, torch.bfloat16),
+    (8, 256, 640, True, 1e-5, torch.bfloat16),
+    (8, 256, 1280, False, 1e-6, torch.bfloat16),
+    (8, 256, 1920, True, 1e-5, torch.bfloat16),
+    (8, 256, 2560, True, 1e-5, torch.bfloat16),
+    (8, 64, 1280, True, 1e-5, torch.bfloat16),
+    (8, 64, 2560, True, 1e-5, torch.bfloat16),
+    (4, 4096, 960, True, 1e-5, torch.bfloat16),   # the CFG-skip batch
+    (8, 4096, 512, False, 1e-5, torch.bfloat16),  # VAE mid block
+    (8, 16384, 128, True, 1e-5, torch.bfloat16),
+    (8, 16384, 512, True, 1e-5, torch.bfloat16),
+    (8, 65536, 256, True, 1e-5, torch.bfloat16),  # streaming
+    (8, 262144, 128, True, 1e-5, torch.bfloat16),  # streaming, largest
+    (4, 262144, 128, True, 1e-5, torch.bfloat16),  # streaming, 64-byte rows
+    (2, 1000, 96, False, 1e-6, torch.bfloat16),
+    (1, 300, 64, True, 1e-5, torch.float32),
+]
+
+
+def _gn_inputs(seed, cuda, B, rows, C, dtype, affine=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = _bf16(rng, (B, rows, C), cuda, scale=2.0, shift=0.5).to(dtype)
+    w = torch.from_numpy(rng.normal(size=C).astype(np.float32) + 1).to(
+        cuda, affine)
+    b = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(
+        cuda, affine)
+    return x, w, b
+
+
+def _check_gn(got, want, dtype):
+    assert got.dtype == dtype
     err = ((got.float() - want).abs() / want.abs().clamp_min(1.0)).max()
-    assert err.item() < GN_TOL
+    assert err.item() < (GN_TOL if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,rows,C,silu,eps,dtype", GN_CASES)
+def test_group_norm_kernel_matches_plain(cuda, B, rows, C, silu, eps, dtype):
+    """The stats and apply entries (``VIDTOME_GN_MODE=stats``), each against
+    its plain version, the same bits twice."""
+    x, w, b = _gn_inputs(3, cuda, B, rows, C, dtype)
+    before = t_gn.group_norm.launches
+    mean, rstd = t_gn.group_stats(x, 32, eps)
+    got = t_gn.apply_group_norm(x, mean, rstd, w, b, 32, silu)
+    again = t_gn.apply_group_norm(x, *t_gn.group_stats(x, 32, eps), w, b, 32,
+                                  silu)
+    torch.cuda.synchronize()
+    assert t_gn.group_norm.launches == before + 4
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    want_mean, want_rstd = t_gn.reference_group_stats(x.float(), 32, eps)
+    torch.testing.assert_close(mean, want_mean, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, atol=0, rtol=1e-4)
+    # apply against the plain normalize from the same statistics
+    want = t_gn.reference_apply(x.float(), mean, rstd, w, b, 32, silu)
+    _check_gn(got, want, dtype)
 
 
 def _resnet_args(rng, cuda, B, H, W, Ci, Co):
@@ -614,30 +662,73 @@ def test_fused_resnet_w8a8_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,rows,C,silu,eps,dtype", [
-    (8, 4096, 320, True, 1e-5, torch.bfloat16),
-    (8, 64, 2560, True, 1e-5, torch.bfloat16),
-    (4, 4096, 960, True, 1e-5, torch.bfloat16),   # the CFG-skip batch
-    (2, 1000, 96, False, 1e-6, torch.bfloat16),
-    (8, 16384, 128, True, 1e-5, torch.bfloat16),
-    (1, 300, 64, True, 1e-5, torch.float32),
-])
+@pytest.mark.parametrize("B,rows,C,silu,eps,dtype", GN_CASES)
 def test_full_group_norm_kernel_matches_plain(cuda, B, rows, C, silu, eps,
                                               dtype):
-    rng = np.random.default_rng(14)
-    x = _bf16(rng, (B, rows, C), cuda, scale=2.0, shift=0.5).to(dtype)
-    w = torch.from_numpy(rng.normal(size=C).astype(np.float32) + 1).to(cuda)
-    b = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(cuda)
+    x, w, b = _gn_inputs(14, cuda, B, rows, C, dtype)
     before = t_gn.full_group_norm.launches
     got = t_gn.full_group_norm(x, w, b, 32, eps, silu)
     again = t_gn.full_group_norm(x, w, b, 32, eps, silu)
     torch.cuda.synchronize()
     assert t_gn.full_group_norm.launches == before + 2
     assert torch.equal(got, again)  # no atomics: the same bits every run
-    want = t_gn.reference_group_norm(x.float(), w, b, 32, eps, silu)
-    assert got.dtype == dtype
-    err = ((got.float() - want).abs() / want.abs().clamp_min(1.0)).max()
-    assert err.item() < (GN_TOL if dtype == torch.bfloat16 else 1e-4)
+    _check_gn(got, t_gn.reference_group_norm(x.float(), w, b, 32, eps, silu),
+              dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,rows,C", [(8, 4096, 320), (8, 262144, 128)])
+def test_group_norm_kernel_takes_a_bf16_affine(cuda, B, rows, C):
+    """The affine as a bf16 module holds it: no cast launch, the same
+    result as the fp32 affine of the same values."""
+    x, w, b = _gn_inputs(17, cuda, B, rows, C, torch.bfloat16,
+                         affine=torch.bfloat16)
+    got = t_gn.full_group_norm(x, w, b, 32, 1e-5, True)
+    want = t_gn.full_group_norm(x, w.float(), b.float(), 32, 1e-5, True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,tiles,C,count", [
+    (8, 128, 320, 4096),    # L0 conv tiles
+    (4, 16, 1280, 64),
+    (8, 256, 640, 1024),
+    (2, 3, 96, 300),
+])
+def test_group_norm_finalize_matches_plain(cuda, B, tiles, C, count):
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy((rng.normal(size=(B, tiles, 32, C)) * 2 + 0.5)
+                         .astype(np.float32)).to(cuda)
+    sums, sqs = x.sum(2).contiguous(), (x * x).sum(2).contiguous()
+    before = t_gn.group_norm.launches
+    mean, rstd = t_gn.stats_from_partials(sums, sqs, 32, count, 1e-5)
+    again = t_gn.stats_from_partials(sums, sqs, 32, count, 1e-5)
+    torch.cuda.synchronize()
+    assert t_gn.group_norm.launches == before + 2
+    assert torch.equal(mean, again[0]) and torch.equal(rstd, again[1])
+    want = t_gn.reference_stats_from_partials(sums, sqs, 32, count, 1e-5)
+    torch.testing.assert_close(mean, want[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, want[1], atol=0, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_group_norm_kernel_rejects_what_it_cannot_take(cuda):
+    rng = np.random.default_rng(19)
+    x = _bf16(rng, (2, 64, 36), cuda)
+    w, b = torch.ones(36, device=cuda), torch.zeros(36, device=cuda)
+    with pytest.raises(ValueError, match="no slice"):  # 9 channels a group
+        t_gn.full_group_norm(x, w, b, 4)
+    x = _bf16(rng, (2, 64, 64), cuda)
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(TypeError):
+        t_gn.full_group_norm(x.half(), w, b, 32)
+    with pytest.raises(ValueError, match="weight"):
+        t_gn.full_group_norm(x, w[:32], b, 32)
+    with pytest.raises(TypeError, match="one dtype"):
+        t_gn.full_group_norm(x, w.bfloat16(), b, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        t_gn.full_group_norm(x.view(-1)[4:4 + 64 * 100].view(1, 100, 64),
+                             w, b, 32)
 
 
 @pytest.mark.cuda
@@ -649,7 +740,7 @@ def test_gn_mode_routes_cuda_tensors(cuda, monkeypatch):
         monkeypatch.delenv(key, raising=False)
     counts = lambda: (t_gn.group_norm.launches,  # noqa: E731
                       t_gn.full_group_norm.launches)
-    for mode, step in (("auto", (1, 0)), ("stats", (1, 0)), ("full", (0, 1))):
+    for mode, step in (("auto", (0, 1)), ("stats", (2, 0)), ("full", (0, 1))):
         monkeypatch.setenv("VIDTOME_GN_MODE", mode)
         before = counts()
         t_gn.group_norm(x, w, b, 32, 1e-5, True)

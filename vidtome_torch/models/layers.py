@@ -7,7 +7,7 @@ it without a copy.  Parameter names follow the diffusers layout
 (``to_out.0``, ``ff.net.0.proj``, ``downsamplers.0.conv``), so a diffusers
 checkpoint loads with few renames (``models/convert.py``).
 
-On CUDA every GroupNorm runs the Triton kernel (``ops/groupnorm.py``) and
+On CUDA every GroupNorm runs the GroupNorm kernel (``ops/groupnorm.py``) and
 every attention one of the attention kernels (``ops/attention.py``: the
 single-pass kernel for KV of at most 256 tokens, flash above); with
 ``resnet_mode="fused"`` every ResnetBlock2D without a PnP injection runs

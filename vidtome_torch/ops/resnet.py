@@ -5,14 +5,14 @@ replaces the Pallas ``fused_resnet`` with bf16 weights and
 :func:`fused_resnet_w8a8` its W8A8 variant (``quant=True``: int8 weights
 and activations).  On a CUDA tensor either runs the block as
 
-  1. GN1 statistics of x (the Triton statistics passes of
-     ``ops/groupnorm.py``);
+  1. GN1 statistics of x (the stats entry of ``ops/groupnorm.py``, one
+     launch);
   2. conv1 (bf16: ``csrc/resnet_bf16.cu``, W8A8: ``csrc/resnet_w8a8.cu``):
      GN1 normalize+SiLU as the input tile is staged (W8A8: then quantized
      with the static post-norm scale), +b1+tvec (W8A8: after dequantizing),
      h stored bf16, per-tile fp32 channel sums of h for GN2;
-  3. GN2 statistics from those partials (the Triton reduction pass, fixed
-     order, no atomics);
+  3. GN2 statistics from those partials (the finalize entry of
+     ``ops/groupnorm.py``: fixed order, no atomics);
   4. conv2 (the same kernel): GN2 normalize+SiLU (+quantize) prologue,
      +b2 +shortcut epilogue, the block output bf16;
 
