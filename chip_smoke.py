@@ -27,13 +27,21 @@ Phases (any failure exits non-zero before the last line):
      streaming), each entry against its plain version: full, stats (to
      GN_STATS_TOL), apply from those statistics, and finalize at the fused
      resnets' partials, each through the call and device-only, beside
-     F.group_norm and the bound, and summed per exact UNet call;
+     F.group_norm and the bound, and summed per exact UNet call; best
+     match at every MATCH_SHAPES row (the local rounds and global merges
+     of levels 0 and 1), through the call and device-only, with the
+     planner's launch (ops/matching.match_plan) and, as a yardstick (two
+     calls, not the same function), torch.bmm + amax/argmax device-only;
+     then the device-only time of one core/merge._build_plan at the L0
+     local round and of its pieces (normalize, the gathers with the bf16
+     cast, the kernel, the lanes' best and the sort, the scatters);
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
      the bank is initialised on one and merged against on the other), VAE
      decode -- through the port's Inverter and Generator; the launch
-     counters of the kernels it runs must rise during it;
+     counters of the kernels it runs must rise during it, GroupNorm's full
+     entry 61 times and best match 3 times a generation UNet call;
   5. reference check: one UNet call (unfused and fused resnet blocks) and
      one VAE decode of the same SD1.5 weights at a small input, on the card
      (bf16, kernels) and on the CPU (fp32, plain versions);
@@ -79,7 +87,8 @@ GN_SHAPES row plus the finalize rows, for full_group_norm the full entry;
 for the
 two attention kernels also device_ms and library_device_ms, the kernel's
 and SDPA's time in a replayed CUDA graph, without the host's, and for the
-two resnet variants and both GroupNorm rows device_ms), and last:
+two resnet variants, both GroupNorm rows and best match device_ms), and
+last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
 
@@ -355,10 +364,11 @@ RESNET_SHAPES = [  # (B, H, W, Cin, Cout): both fused resnet variants
     (4, 64, 64, 960, 320),     # 15 channel chunks, cfg-skip batch
     (8, 8, 8, 1280, 1280),     # 8x8 level (mid, down 3, up 0): 4 a full call
 ]
-MATCH_SHAPES = [  # (B, S, D, C)
+MATCH_SHAPES = [  # (B, S, D, C); a level: its global merge vs the bank
     (2, 12288, 4096, 320),     # L0 local round
     (2, 3072, 1024, 640),      # L1 local round
-    None,                      # L0 global merge vs the bank: from the config
+    0,                         # L0 global merge, from the serving config
+    1,                         # L1 global merge
 ]
 
 
@@ -456,15 +466,19 @@ def phase_build(dev) -> None:
     print(f"[build] CUDA libraries ready in {t1 - t0:.1f} s (parallel nvcc)")
 
 
-def global_match_shape() -> tuple:
-    """The L0 global merge of the serving profile: the locally merged chunk
-    against a bank of the same length, both lanes (align_batch)."""
+def match_shape(row) -> tuple:
+    """A MATCH_SHAPES row; a level's global merge of the serving profile
+    is the locally merged chunk against a bank of the same length, both
+    lanes (align_batch): [2, 4711] at L0, [2, 1178] at L1."""
     from vidtome_torch.models.tome import ToMeConfig
 
+    if isinstance(row, tuple):
+        return row
     gene = serve_config()["generation"]
     n = ToMeConfig(frames=4, local_merge_ratio=gene["local_merge_ratio"],
-                   len_quantum=gene["len_quantum"]).merged_local_len(64 * 64)
-    return (2, n, n, 320)
+                   len_quantum=gene["len_quantum"]).merged_local_len(
+                       64 * 64 >> 2 * row)
+    return (2, n, n, 320 << row)
 
 
 def bound_ms(nbytes: float, **ops: float) -> tuple[float, float]:
@@ -629,6 +643,66 @@ def phase_group_norm(dev, rng, stats: KernelStats) -> None:
                                  f"{(B, tiles, Co)}")
         stats.add("group_norm", abs_err, ms, plain, None, bound, device)
         del sums, sqs
+
+
+def merge_engine_times(dev, rng) -> None:
+    """Device-only ms of one core/merge._build_plan at the exact path's L0
+    local round (CONFIG: 2 lanes sharing one matching, 4 frames of 64x64
+    tokens, C = 320, frame 0 dst, ratio 0.9, len_quantum 1024), and of its
+    pieces on the same inputs: the normalize, the two gathers with the
+    bf16 cast, the best-match kernel, the lanes' best and the stable sort,
+    and the index gathers, cat and three scatters."""
+    from vidtome_torch.core import merge
+    from vidtome_torch.ops import matching
+
+    B, F, T, C = 2, 4, 64 * 64, 320
+    metric = torch.from_numpy(rng.standard_normal(
+        (B, F * T, C), np.float32)).to(dev, torch.bfloat16)
+    a_idx = torch.arange(T, F * T, device=dev).expand(B, -1)
+    b_idx = torch.arange(T, device=dev).expand(B, -1)
+    S = (F - 1) * T
+    r = merge.quantize_r(S, int(S * 0.9), T, 1024)
+    U = S - r
+
+    def plan():
+        return merge._build_plan(metric, a_idx, b_idx, r, True, [0], T, 0)
+
+    def normalize():
+        return metric / metric.float().norm(dim=-1, keepdim=True).clamp_min(
+            1e-6)
+    mnorm = normalize()
+
+    def gathers():
+        return (merge._take(mnorm, a_idx).to(torch.bfloat16),
+                merge._take(mnorm, b_idx).to(torch.bfloat16))
+    src, dst = gathers()
+    node_max, node_idx = matching.best_match(src, dst)
+
+    def select():  # the lanes' best, then the U lowest
+        best, lane = node_max.max(dim=0, keepdim=True)
+        unm = torch.sort(best, dim=-1, stable=True).indices[:, :U]
+        return unm.expand(B, U), node_idx.gather(0, lane).expand(B, S)
+    unm_idx, idx = select()
+
+    def scatters():  # _build_plan's tail
+        kept = a_idx.gather(1, unm_idx)
+        gather = torch.cat([kept, b_idx], dim=1)
+        inv = torch.zeros(B, F * T, dtype=torch.long, device=dev)
+        inv.scatter_(1, b_idx, U + torch.arange(T, device=dev).expand(B, T))
+        inv.scatter_(1, a_idx, U + idx)
+        inv.scatter_(1, kept, torch.arange(U, device=dev).expand(B, U))
+        return gather, inv
+    whole = graph_time(plan, 10)
+    parts = {"normalize": normalize, "gathers + bf16 cast": gathers,
+             "best_match": lambda: matching.best_match(src, dst),
+             "lanes' best + stable sort": select,
+             "index gathers + cat + 3 scatters": scatters}
+    parts = {k: graph_time(fn, 10) for k, fn in parts.items()}
+    print(f"[merge] _build_plan at the L0 local round [{B},{F * T},{C}] "
+          f"(S {S}, D {T}, r {r}): device only {whole:.4f} ms, through the "
+          f"call {cuda_time(plan, 10):.4f} ms; pieces device only: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; the kernel {parts['best_match'] / whole:.0%} of the plan")
 
 
 def phase_kernels(dev) -> KernelStats:
@@ -804,8 +878,9 @@ def phase_kernels(dev) -> KernelStats:
         del args
         torch.cuda.empty_cache()
 
-    for shape in MATCH_SHAPES:
-        B, S, D, C = shape or global_match_shape()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for row in MATCH_SHAPES:
+        B, S, D, C = match_shape(row)
         src = torch.nn.functional.normalize(f32(B, S, C), dim=-1).bfloat16()
         dst = torch.nn.functional.normalize(f32(B, D, C), dim=-1).bfloat16()
         srcf, dstf = src.float(), dst.float()
@@ -817,20 +892,33 @@ def phase_kernels(dev) -> KernelStats:
         wrong = int((got_idx != want_idx)[clear].sum())
         del top2
         ms = cuda_time(lambda: matching.best_match(src, dst), 10)
+        device = graph_time(lambda: matching.best_match(src, dst), 10)
         plain = cuda_time(lambda: matching.reference_best_match(srcf, dstf),
                           3)
+
+        def yardstick():  # bf16 scores in memory between the two calls
+            scores = torch.bmm(src, dst.transpose(1, 2))
+            return scores.amax(dim=-1), scores.argmax(dim=-1)
+        yard = graph_time(yardstick, 10)
+        plan = matching.match_plan(B, S, D, C, sms)
         bound = bound_ms(2 * B * (S + D) * C + 12 * B * S,
                          bf16=2 * B * S * D * C)
         report(f"best_match [{B},{S}x{D},{C}]: argmax differs at {wrong} of "
                f"{int(clear.sum())} rows with a top-2 gap > {MATCH_GAP} "
                f"({B * S - int(clear.sum())} near-ties not compared),", err,
-               MATCH_TOL, ms, plain, None, bound)
+               MATCH_TOL, ms, plain, None, bound,
+               f"; device only {device:.4f} ms; bmm + amax/argmax (a "
+               f"yardstick, not the same function) device only {yard:.4f} "
+               f"ms; plan: {plan.rows} rows a block, src tile "
+               f"{'resident' if plan.resident else 'streamed'}, grid "
+               f"{plan.grid}, {plan.smem} B shared memory")
         if not err < MATCH_TOL or wrong:
             raise AssertionError(f"best_match kernel disagrees at "
                                  f"{(B, S, D, C)}")
-        stats.add("best_match", err, ms, plain, None, bound)
+        stats.add("best_match", err, ms, plain, None, bound, device)
         del src, dst, srcf, dstf
         torch.cuda.empty_cache()
+    merge_engine_times(dev, rng)
 
     for B, S, C, heads in SUBLAYER_SHAPES:
         args = [bf16((B, S, C)), bf16((B, S, C), 0.5), bf16((B, 77, C)),
@@ -924,6 +1012,15 @@ def phase_main_path(dev, bundle) -> dict:
           f"steps, 2 chunks; frames mean {out.mean().item():.4f} std "
           f"{out.std().item():.4f}; stage seconds "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    # best match: the local rounds of levels 0 and 1 every UNet call, both
+    # levels' global merges on the chunk that merges against the bank (one
+    # of the two each step, the other initialises it): 3 a call
+    if gen["best_match"] != 3 * unet_calls:
+        raise AssertionError(f"exact path: {gen['best_match']} best_match "
+                             f"launches over {unet_calls} UNet calls, want "
+                             f"3 a call")
+    print(f"[main] best_match launches per generation UNet call: "
+          f"{gen['best_match'] / unet_calls:.0f}")
     print(f"[main] GroupNorm launches per generation UNet call: "
           f"{gen['full_group_norm'] / unet_calls:.0f} full entry "
           f"({unet_calls} UNet calls)")

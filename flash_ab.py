@@ -2,7 +2,8 @@
 CUDA card, in turns, at chip_smoke.py's shapes for that kernel, beside the
 wrapper and the library call.
 
-    python3 flash_ab.py [--kernel=flash|small_kv|resnet|resnet_w8a8|group_norm]
+    python3 flash_ab.py [--kernel=flash|small_kv|resnet|resnet_w8a8|
+                                  group_norm|best_match]
                         [--root=DIR ...] [--json=PATH] [NAME=DIR ...]
 
 ``--kernel`` picks the source, its C entry and the shapes (default
@@ -45,7 +46,22 @@ wrapper and the library call.
             cooperative single-launch kernel (``full_group_norm``); every
             build and route in turns, through the call and device-only,
             held against ``reference_group_norm`` (max |err| relative to
-            max(1, |ref|)), beside ``F.group_norm`` and the bound.
+            max(1, |ref|)), beside ``F.group_norm`` and the bound;
+  best_match  ``matching.cu``, ``vidtome_best_match`` (this checkout's
+            ``ops/matching.match_plan`` for a build that takes a plan; an
+            older tree's takes none) at ``chip_smoke.MATCH_SHAPES`` of
+            unit-norm rows, then two probes: every score negative with a
+            ragged D, and every src row's best an exact tie between dst
+            copies (where a dropped column mask and a flipped tie rule
+            show); each build's max |err| of the maxima and its argmax
+            differences (where the plain top-2 gap passes ``MATCH_GAP``;
+            at the duplicate probe every row), beside the wrapper, ``bmm``
+            + ``amax``/``argmax`` (device-only), the bound, and at the
+            unit rows the first build that takes a plan device-only at
+            each block height (64, 128, 192 rows; the src tile resident
+            where it fits); last the host's wall a call and time to
+            return at [1, 64x128, 64] of each build's C entry and of each
+            root's wrapper, three rounds of turns.
 Each build DIR holds that source (and the ``*.cuh`` it includes) with the
 C signature of ``vidtome_torch/csrc``'s; ``new=vidtome_torch/csrc`` is this
 checkout's kernel.  All are compiled at once (one nvcc each, the flags of
@@ -91,8 +107,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import (EXP2_S, FLASH_SHAPES, GN_SHAPES, RESNET_SHAPES,
-                        SMALL_KV_SHAPES, bound_ms, cuda_time, graph_time)
+from chip_smoke import (EXP2_S, FLASH_SHAPES, GN_SHAPES, MATCH_GAP,
+                        MATCH_SHAPES, MATCH_TOL, RESNET_SHAPES,
+                        SMALL_KV_SHAPES, bound_ms, cuda_time, graph_time,
+                        match_shape)
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "flash_ab"
@@ -119,6 +137,17 @@ KERNELS = {
                         w8a8=True),
     "group_norm": dict(source="group_norm.cu", entry="vidtome_group_norm",
                        shapes=GN_SHAPES, module="groupnorm"),
+    # chip_smoke's rows of unit-norm random src and dst, then two probes:
+    # every score negative with a ragged D (4711 = 36 tiles + 103 rows),
+    # and dst = 2104 rows twice over with every src row a copy of one of
+    # them, so each row's best is an exact tie between copies 2104 apart:
+    # in different dst tiles, in the same thread's columns (2104 a multiple
+    # of 8), where only the order of the running compare picks the lower copy
+    "best_match": dict(source="matching.cu", entry="vidtome_best_match",
+                       shapes=[("unit", match_shape(r)) for r in MATCH_SHAPES]
+                       + [("negative", (2, 4711, 4711, 320)),
+                          ("duplicates", (2, 12288, 4208, 320))],
+                       module="matching", wrapper="best_match"),
 }
 
 
@@ -168,6 +197,11 @@ def build(kernel: dict, name: str, src: Path):
             spec.loader.exec_module(module)
             fn.plan = getattr(module, "conv_plan_w8a8" if kernel["w8a8"]
                               else "conv_plan")
+    elif kernel.get("module") == "matching":
+        # a source whose entry takes a plan (the first version takes none)
+        fn.planned = "int rows, int resident" in (src / source).read_text()
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
+            6 if fn.planned else 4) + [ctypes.c_void_p]
     elif kernel.get("module") == "groupnorm":
         lib = ctypes.CDLL(str(out))
         fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [
@@ -221,6 +255,21 @@ def output(kernel: dict, q):
     B, H, Sq, D = q.shape
     return torch.empty(B, Sq, H, D, dtype=q.dtype,
                        device=q.device).transpose(1, 2)
+
+
+def enqueue_us(run, iters: int = 200) -> float:
+    """Host microseconds a call of ``run`` takes to return, over ``iters``
+    calls in a row (too few to fill the launch queue), after warm-up: the
+    host's own cost, where ``wall_us`` may read the card's."""
+    for _ in range(20):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def wall_us(run, iters: int = 500) -> float:
@@ -416,6 +465,148 @@ def compare(kernel: dict, fns: dict, wrapper) -> list:
     return rows
 
 
+def match_run(fn, src, dst, mx, ix, matching, rows=None):
+    """One call of a best-match build's C entry (for a build that takes a
+    plan: ``rows`` src rows a block, the src tile resident where it fits,
+    or by default the plan of ``matching``, this checkout's
+    ``ops/matching``)."""
+    B, S, C = src.shape
+    D = dst.shape[1]
+    args = (src.data_ptr(), dst.data_ptr(), mx.data_ptr(), ix.data_ptr(),
+            B, S, D, C)
+    if fn.planned:
+        plan = matching.match_plan(B, S, D, C, matching._sm_count(0))
+        if rows is not None:
+            resident = matching._smem(rows, -(-C // 64), True) <= \
+                matching.SMEM_MAX
+            plan = plan._replace(rows=rows, resident=resident)
+        args += (plan.rows, int(plan.resident))
+
+    def run():  # on the current stream (a graph's capture stream too)
+        e = fn(*args, torch._C._cuda_getCurrentRawStream(0))
+        if e:
+            raise RuntimeError(f"launch failed: error {e}")
+    return run
+
+
+def match_inputs(kind: str, B: int, S: int, D: int, C: int, rng, dev):
+    """(src, dst, the dst the plain answer is taken against) of a row."""
+    F = torch.nn.functional
+
+    def unit(*shape):
+        return F.normalize(torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev), dim=-1).bfloat16()
+    if kind == "unit":
+        src, dst = unit(B, S, C), unit(B, D, C)
+        return src, dst, dst
+    if kind == "negative":
+        src, dst = unit(B, S, C).abs(), -unit(B, D, C).abs()
+        return src, dst, dst
+    base = unit(B, D // 2, C)
+    pick = torch.from_numpy(rng.integers(0, D // 2, (B, S))).to(dev)
+    src = torch.stack([base[b, pick[b]] for b in range(B)])
+    return src, torch.cat([base, base], dim=1), base
+
+
+def compare_match(kernel: dict, fns: dict, wrapped: dict, matching) -> list:
+    """Every build's C entry in turns at each row, through the call and
+    device-only, held against the plain version (max |err| of the maxima,
+    argmax differences where the plain top-2 gap passes MATCH_GAP, and at
+    the duplicate probe every row, whose answer is the lower copy); beside
+    them the wrapper (of the first root), ``torch.bmm`` + ``amax``/
+    ``argmax`` (bf16 scores in memory between: a yardstick, not the same
+    function) and the bound; ``matching``: this checkout's
+    ``ops/matching``."""
+    wrapper = next(iter(wrapped.values()))
+
+    order = list(fns) + list(reversed(fns))
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    rows = []
+    for kind, (B, S, D, C) in kernel["shapes"]:
+        src, dst, ref_dst = match_inputs(kind, B, S, D, C, rng, dev)
+        scores = torch.bmm(src.float(), ref_dst.float().transpose(1, 2))
+        want_max, want_idx = scores.max(dim=-1)
+        top2 = scores.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > MATCH_GAP
+        if kind == "duplicates":  # every row's answer is the lower copy
+            clear = torch.ones_like(clear)
+        del scores, top2
+        ms, device_ms, err, wrong = {}, {}, {}, {}
+        for name in order:
+            mx = torch.empty(B, S, device=dev)
+            ix = torch.empty(B, S, dtype=torch.long, device=dev)
+            run = match_run(fns[name], src, dst, mx, ix, matching)
+            ms.setdefault(name, []).append(cuda_time(run, 10))
+            device_ms.setdefault(name, []).append(graph_time(run, 10))
+            err[name] = (mx - want_max).abs().max().item()
+            wrong[name] = int((ix != want_idx)[clear].sum())
+
+        # every block height of the first build that takes a plan,
+        # device-only: what the planner chose among
+        heights = {}
+        planned = next((n for n, fn in fns.items() if fn.planned), None)
+        if kind == "unit" and planned is not None:
+            mx = torch.empty(B, S, device=dev)
+            ix = torch.empty(B, S, dtype=torch.long, device=dev)
+            for h in (64, 128, 192):
+                heights[h] = graph_time(match_run(
+                    fns[planned], src, dst, mx, ix, matching, h), 10)
+
+        def yardstick():
+            sc = torch.bmm(src, dst.transpose(1, 2))
+            return sc.amax(dim=-1), sc.argmax(dim=-1)
+        plan = matching.match_plan(B, S, D, C, matching._sm_count(0))
+        row = dict(kind=kind, shape=[B, S, D, C], plan=plan._asdict(),
+                   ms=ms, device_ms=device_ms, max_err=err,
+                   argmax_wrong=wrong,
+                   compared=int(clear.sum()), heights_device_ms=heights,
+                   sound={n: err[n] < MATCH_TOL and not wrong[n] for n in fns},
+                   wrapper_ms=cuda_time(lambda: wrapper(src, dst), 10),
+                   wrapper_device_ms=graph_time(lambda: wrapper(src, dst), 10),
+                   yardstick_device_ms=graph_time(yardstick, 10),
+                   bound_ms=max(bound_ms(2 * B * (S + D) * C + 12 * B * S,
+                                         bf16=2 * B * S * D * C)))
+        rows.append(row)
+        print(f"[{kind} {B},{S}x{D},{C}] plan {plan.rows} rows, "
+              f"{'resident' if plan.resident else 'streamed'}, grid "
+              f"{plan.grid}; "
+              + "; ".join(f"{n} {ms[n]} ms (device only {device_ms[n]}), "
+                          f"max|err| {err[n]:.2e}, argmax wrong at "
+                          f"{wrong[n]} of {row['compared']}" for n in fns)
+              + f"; wrapper {row['wrapper_ms']:.4f} ms (device only "
+              f"{row['wrapper_device_ms']:.4f}); bmm + amax/argmax device "
+              f"only {row['yardstick_device_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f}"
+              + (f"; {planned} device only by block rows {heights}"
+                 if heights else ""))
+        del src, dst, ref_dst
+        torch.cuda.empty_cache()
+    # the host's cost of a call where the kernel's is small, three rounds
+    # of turns: the wall a call and the host's time to return, of each
+    # build's C entry (one that takes a plan encodes two tensor maps every
+    # call) and of each root's wrapper
+    src = torch.zeros(1, 64, 64, dtype=torch.bfloat16, device=dev)
+    dst = torch.zeros(1, 128, 64, dtype=torch.bfloat16, device=dev)
+    mx = torch.empty(1, 64, device=dev)
+    ix = torch.empty(1, 64, dtype=torch.long, device=dev)
+    runs = {name: match_run(fn, src, dst, mx, ix, matching)
+            for name, fn in fns.items()}
+    for root, w in wrapped.items():
+        runs[f"wrapper {root}"] = functools.partial(w, src, dst)
+    host = {}
+    for _ in range(3):
+        for name in list(runs) + list(reversed(runs)):
+            for measure in (wall_us, enqueue_us):
+                host.setdefault(f"{name} {measure.__name__}", []).append(
+                    round(measure(runs[name]), 2))
+    print("[host] us a call at [1,64x128,64] (wall_us: wall; enqueue_us: "
+          "until the call returns): "
+          + "; ".join(f"{n} {v}" for n, v in host.items()))
+    rows.append(dict(host_us=host))
+    return rows
+
+
 def resnet_tile(fn, B: int, H: int, W: int, Cin: int, Cout: int):
     """(tile argument, pixel tiles of an image) of a build's C entry."""
     from vidtome_torch.ops import resnet
@@ -584,10 +775,13 @@ def main(argv: list[str]) -> int:
         else:
             name, path = arg.split("=", 1)
             builds[name] = (ROOT / path).resolve()
+    # this checkout's module (planners, plain versions), before the roots'
+    # packages are imported in its place
+    tree = importlib.import_module(
+        f"vidtome_torch.ops.{kernel.get('module', 'attention')}")
     if kernel.get("module") == "groupnorm":
         os.environ.pop("VIDTOME_GN_MODE", None)  # an earlier tree's auto
         os.environ.pop("VIDTOME_DISABLE_PALLAS_GN", None)
-        tree = importlib.import_module("vidtome_torch.ops.groupnorm")
         routes = group_norm_routes(roots or [ROOT])
     else:
         wrapped = wrappers(kernel, roots or [ROOT])
@@ -610,11 +804,13 @@ def main(argv: list[str]) -> int:
             print(f"[build] {name}: registers per instance {report}")
         if kernel.get("module") == "resnet":
             result["rows"] = compare_resnet(kernel, fns, wrapper)
+        elif kernel.get("module") == "matching":
+            result["rows"] = compare_match(kernel, fns, wrapped, tree)
         elif kernel.get("module") != "groupnorm":
             result["rows"] = compare(kernel, fns, wrapper)
     if kernel.get("module") == "groupnorm":
         result["rows"] = compare_group_norm(fns, routes, tree)
-    if kernel.get("module") in ("resnet", "groupnorm"):  # no host section
+    if kernel.get("module") in ("resnet", "groupnorm", "matching"):
         if json_path is not None:
             json_path.parent.mkdir(parents=True, exist_ok=True)
             json_path.write_text(json.dumps(result, indent=1))

@@ -309,8 +309,12 @@ def _unit_bf16(rng, shape, cuda):
 
 
 def _check_match(got, want, scores):
-    top2 = scores.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > MATCH_GAP
+    if scores.shape[-1] > 1:
+        top2 = scores.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > MATCH_GAP
+    else:  # one dst row: every argmax is 0
+        clear = torch.ones(scores.shape[:-1], dtype=torch.bool,
+                           device=scores.device)
     assert (got[0] - want[0]).abs().max().item() < MATCH_TOL
     assert torch.equal(got[1][clear], want[1][clear])
 
@@ -320,6 +324,11 @@ def _check_match(got, want, scores):
     (2, 12288, 4096, 320),    # level-0 local round
     (2, 300, 211, 40),        # ragged S and D, C not a multiple of 16
     (1, 64, 64, 1728),        # widest C the kernel takes
+    (2, 4711, 4711, 320),     # level-0 global merge against the bank
+    (2, 3072, 1024, 640),     # level-1 local round
+    (1, 200, 300, 1728),      # wide C: src streamed beside dst, 64 rows
+    (2, 12288, 300, 1728),    # the same with 192-row blocks
+    (1, 1, 1, 8),             # one src row, one dst row, narrowest C
 ])
 def test_best_match_kernel_matches_plain(cuda, B, S, D, C):
     rng = np.random.default_rng(6)
@@ -346,6 +355,90 @@ def test_best_match_kernel_ties_to_lowest_index(cuda):
     scores = torch.bmm(src.float(), base.float().transpose(1, 2))
     assert (got[1] < 130).all()
     _check_match(got, want, scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128, 192])
+@pytest.mark.parametrize("resident", [True, False])
+def test_best_match_kernel_instances_match_plain(cuda, rows, resident):
+    """Every instance of the C entry (block rows, src tile resident or
+    streamed), whatever the planner would pick, on one shape."""
+    rng = np.random.default_rng(8)
+    B, S, D, C = 2, 500, 333, 320
+    src, dst = _unit_bf16(rng, (B, S, C), cuda), _unit_bf16(rng, (B, D, C), cuda)
+    mx = torch.empty(B, S, device=cuda)
+    ix = torch.empty(B, S, dtype=torch.long, device=cuda)
+    err = t_match._library()(src.data_ptr(), dst.data_ptr(), mx.data_ptr(),
+                             ix.data_ptr(), B, S, D, C, rows, int(resident),
+                             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    scores = torch.bmm(src.float(), dst.float().transpose(1, 2))
+    _check_match((mx, ix), t_match.reference_best_match(src.float(),
+                                                        dst.float()), scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,C", [
+    (2, 4711, 4711, 320),     # the global merge's ragged D
+    (1, 300, 1, 64),          # one dst row: 127 of the tile's columns masked
+    (2, 200, 131, 40),        # ragged D and C
+])
+def test_best_match_kernel_masks_columns_past_d(cuda, B, S, D, C):
+    """Every score negative: the zero-filled dst rows past D score exactly 0
+    and must not win (a dropped column mask returns 0 and an index >= D)."""
+    rng = np.random.default_rng(9)
+    src = _unit_bf16(rng, (B, S, C), cuda).abs()
+    dst = -_unit_bf16(rng, (B, D, C), cuda).abs()
+    got = t_match.best_match(src, dst)
+    want = t_match.reference_best_match(src.float(), dst.float())
+    assert (want[0] < 0).all() and (got[0] < 0).all()
+    assert (got[1] < D).all()
+    _check_match(got, want, torch.bmm(src.float(), dst.float().transpose(1, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [136, 8, 130])
+def test_best_match_kernel_ties_across_tiles_and_warpgroups(cuda, n):
+    """dst is n rows and an exact copy of them; every src row is a copy of
+    one of those rows, so its best score is an exact tie between the two
+    copies, and the lowest index must win in every consumer warpgroup of
+    the 192-row blocks.  n = 136: the copies straddle 128-row dst tiles in
+    the same thread's columns (n a multiple of 8), so the running compare
+    across tiles decides; n = 8: both in one tile and one thread, so the
+    thread's scan decides; n = 130: in different threads, so their
+    combine decides."""
+    rng = np.random.default_rng(10)
+    B, S, C = 2, 12288, 64
+    assert t_match.match_plan(B, S, 2 * n, C).rows == 192
+    base = _unit_bf16(rng, (B, n, C), cuda)
+    pick = torch.from_numpy(rng.integers(0, n, (B, S))).to(cuda)
+    src = torch.stack([base[b, pick[b]] for b in range(B)])
+    got = t_match.best_match(src, torch.cat([base, base], dim=1))
+    want = t_match.reference_best_match(src.float(), base.float())
+    assert torch.equal(got[1], pick)
+    assert torch.equal(want[1], pick)
+    assert (got[0] - want[0]).abs().max().item() < MATCH_TOL
+
+
+@pytest.mark.cuda
+def test_best_match_kernel_same_bits_on_every_call(cuda):
+    rng = np.random.default_rng(11)
+    src = _unit_bf16(rng, (2, 4711, 320), cuda)
+    dst = _unit_bf16(rng, (2, 4711, 320), cuda)
+    first = t_match.best_match(src, dst)
+    second = t_match.best_match(src, dst)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_best_match_kernel_rejects_unaligned_and_strided(cuda):
+    flat = torch.zeros(8 + 64 * 32, dtype=torch.bfloat16, device=cuda)
+    x = flat[4:4 + 64 * 32].view(1, 64, 32)  # 8 bytes past 16-byte bounds
+    with pytest.raises(ValueError, match="16"):
+        t_match.best_match(x, x)
+    wide = torch.zeros(1, 64, 48, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_match.best_match(wide[:, :, :40], wide[:, :, :40])
 
 
 @pytest.mark.cuda

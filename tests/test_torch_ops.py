@@ -175,3 +175,34 @@ def test_plain_best_match_matches_jax(B, S, D, C, dup):
         copy = (got_idx >= D // 2) & (got_idx < 2 * (D // 2))
         assert not copy.any()
     assert t_match.best_match.launches == 0
+
+
+@pytest.mark.parametrize("case", ["ties_across_tiles", "negative_ragged"])
+def test_plain_best_match_ties_and_masks_match_jax(case):
+    """What the Hopper kernel must keep, in the plain version and the JAX
+    package alike: exact ties between dst copies 130 rows apart (across the
+    Pallas kernel's 128-row dst tiles) go to the lower index, and with every
+    score negative no padded dst row (score 0) wins."""
+    rng = np.random.default_rng(4)
+    if case == "ties_across_tiles":
+        base = _unit(rng, (2, 130, 64))
+        pick = rng.integers(0, 130, (2, 300))
+        src = np.stack([base[b, pick[b]] for b in range(2)])
+        dst = np.concatenate([base, base], axis=1)
+    else:
+        src = np.abs(_unit(rng, (2, 300, 40)))
+        dst = -np.abs(_unit(rng, (2, 211, 40)))
+    sj, dj = (jnp.asarray(a, jnp.bfloat16) for a in (src, dst))
+    st, dt = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in (sj, dj))
+    got_max, got_idx = t_match.reference_best_match(st, dt)
+    for mx, ix in (j_match.best_match(sj, dj, block_s=128, block_d=128,
+                                      interpret=True),
+                   j_match.best_match_reference(sj, dj)):
+        np.testing.assert_allclose(got_max.numpy(), np.asarray(mx),
+                                   atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(got_idx.numpy(), np.asarray(ix))
+    if case == "ties_across_tiles":
+        np.testing.assert_array_equal(got_idx.numpy(), pick)
+    else:
+        assert (got_max < 0).all() and (got_idx < 211).all()
