@@ -34,7 +34,10 @@ Phases (any failure exits non-zero before the last line):
      calls, not the same function), torch.bmm + amax/argmax device-only;
      then the device-only time of one core/merge._build_plan at the L0
      local round and of its pieces (normalize, the gathers with the bf16
-     cast, the kernel, the lanes' best and the sort, the scatters);
+     cast, the kernel, the lanes' best and the sort, the scatters); the
+     fused sublayer at every SUBLAYER_SHAPES row through the call and
+     device-only, with its plan (ops/sublayer.plan) and, as a yardstick,
+     the port's unfused bf16 chain for the same work device-only;
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
@@ -74,7 +77,9 @@ Phases (any failure exits non-zero before the last line):
      on the first 25 / 40 steps.  The small-KV kernel must launch exactly
      once per inversion UNet call and transformer block routed to it, the
      sublayer kernel 16 times per generation UNet call (SD2.1's transformer
-     blocks); flash, GroupNorm and best match must rise;
+     blocks); flash, GroupNorm and best match must rise; then one
+     generation UNet call (no merging) with sublayer_mode fused and off,
+     its device time (torch.profiler) and its time through the call;
   10. SD2.1 reference check: one UNet call at an 8x8 latent with 3 lanes,
      both injections on and sublayer_mode="fused", card (bf16 kernels) vs
      CPU (fp32 plain); the same call with the injections off must differ
@@ -87,7 +92,8 @@ GN_SHAPES row plus the finalize rows, for full_group_norm the full entry;
 for the
 two attention kernels also device_ms and library_device_ms, the kernel's
 and SDPA's time in a replayed CUDA graph, without the host's, and for the
-two resnet variants, both GroupNorm rows and best match device_ms), and
+two resnet variants, both GroupNorm rows, best match and the sublayer
+device_ms), and
 last:
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
@@ -705,6 +711,58 @@ def merge_engine_times(dev, rng) -> None:
           + f"; the kernel {parts['best_match'] / whole:.0%} of the plan")
 
 
+def sublayer_inputs(rng, dev, B: int, S: int, C: int, skv: int = 77):
+    """A sublayer row's inputs: x, a1 [B, S, C], k, v [B, skv, C], Wq, Wout
+    [C, C] (bf16), bout, g2, b2, g3, b3 [C] (fp32), from ``rng``."""
+    def bf16(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                * scale).to(dev, torch.bfloat16)
+
+    def f32(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale
+                                + shift).to(dev)
+
+    return [bf16((B, S, C)), bf16((B, S, C), 0.5), bf16((B, skv, C)),
+            bf16((B, skv, C)), f32(C, C, scale=C ** -0.5).bfloat16(),
+            f32(C, C, scale=C ** -0.5).bfloat16(), f32(C, scale=0.1),
+            f32(C, scale=0.1, shift=1.0), f32(C, scale=0.1),
+            f32(C, scale=0.1, shift=1.0), f32(C, scale=0.1)]
+
+
+def sublayer_bound(B: int, S: int, C: int, skv: int = 77) -> tuple:
+    """bound_ms of one sublayer call: x, a1 read, x3, y3 written, K, V and
+    both weights read once, the five vectors (fp32); the two projections
+    and the attention's two products."""
+    return bound_ms(2 * (4 * B * S * C + 2 * B * skv * C + 2 * C * C)
+                    + 4 * 5 * C, bf16=B * S * (4 * C * C + 4 * skv * C))
+
+
+def unfused_sublayer(args, heads: int, kv_len: int, eps: float = 1e-5):
+    """The port's unfused bf16 chain for the sublayer's work, as a
+    TransformerBlock runs it with sublayer_mode off (K and V given): h = x +
+    a1, norm2, to_q, attention (small-KV at these key counts), to_out,
+    the residual, norm3.  Several calls: a yardstick, not one library
+    call."""
+    from torch.nn import functional as F
+
+    from vidtome_torch.ops import attention
+
+    x, a1, k, v, wq, wout, *vecs = args
+    bout, g2, b2, g3, b3 = (t.bfloat16() for t in vecs)
+    B, S, C = x.shape
+
+    def split(t):  # [B, s, C] -> [B, heads, s, D] view
+        return t.view(B, t.shape[1], heads, C // heads).transpose(1, 2)
+
+    def run():
+        h = x + a1
+        q = F.linear(F.layer_norm(h, (C,), g2, b2, eps), wq)
+        o = attention.attention(split(q), split(k), split(v), kv_len)
+        x3 = h + F.linear(o.transpose(1, 2).reshape(B, S, C), wout, bout)
+        return x3, F.layer_norm(x3, (C,), g3, b3, eps)
+    return run
+
+
 def phase_kernels(dev) -> KernelStats:
     from torch.nn import functional as F
 
@@ -921,11 +979,7 @@ def phase_kernels(dev) -> KernelStats:
     merge_engine_times(dev, rng)
 
     for B, S, C, heads in SUBLAYER_SHAPES:
-        args = [bf16((B, S, C)), bf16((B, S, C), 0.5), bf16((B, 77, C)),
-                bf16((B, 77, C)), f32(C, C, scale=C ** -0.5).bfloat16(),
-                f32(C, C, scale=C ** -0.5).bfloat16(), f32(C, scale=0.1),
-                f32(C, scale=0.1, shift=1.0), f32(C, scale=0.1),
-                f32(C, scale=0.1, shift=1.0), f32(C, scale=0.1)]
+        args = sublayer_inputs(rng, dev, B, S, C)
         args_f = [a.float() for a in args]
         kw = dict(heads=heads, kv_len=77)
         x3, y3 = sublayer.fused_cross_sublayer(*args, **kw)
@@ -933,18 +987,30 @@ def phase_kernels(dev) -> KernelStats:
         err = max((x3.float() - wx3).abs().max().item(),
                   (y3.float() - wy3).abs().max().item())
         del x3, y3, wx3, wy3
-        ms = cuda_time(lambda: sublayer.fused_cross_sublayer(*args, **kw), 10)
+
+        def fused():
+            return sublayer.fused_cross_sublayer(*args, **kw)
+        ms = cuda_time(fused, 10)
+        device = graph_time(fused, 10)
+        chain = graph_time(unfused_sublayer(args, heads, 77), 10)
         plain = cuda_time(lambda: sublayer.reference_cross_sublayer(
             *args_f, **kw), 3)
-        bound = bound_ms(2 * (4 * B * S * C + 2 * B * 77 * C + 2 * C * C)
-                         + 4 * 5 * C,
-                         bf16=B * S * (4 * C * C + 4 * 77 * C))
+        bound = sublayer_bound(B, S, C)
+        p = sublayer.plan(B, S, C, heads, 77, 77, sms,
+                          sublayer._card_clusters(0))
         report(f"fused_cross_sublayer [{B},{S},{C}] heads {heads}, 77 keys "
-               f"(x3, y3):", err, SUBLAYER_TOL, ms, plain, None, bound)
+               f"(x3, y3):", err, SUBLAYER_TOL, ms, plain, None, bound,
+               f"; device only {device:.4f} ms; the port's unfused bf16 "
+               f"chain (norm2, to_q, small-KV, to_out, residuals, norm3: a "
+               f"yardstick of several calls) device only {chain:.4f} ms; "
+               f"plan: clusters of {p.cluster} ({p.heads_rank} heads of "
+               f"{p.head_dim} a rank), {p.stages} stages, {p.kv_bufs} K/V "
+               f"buffers a consumer, grid {p.grid}, {p.smem} B shared "
+               f"memory")
         if not err < SUBLAYER_TOL:
             raise AssertionError(f"fused sublayer kernel disagrees at "
                                  f"{(B, S, C, heads)}")
-        stats.add("fused_cross_sublayer", err, ms, plain, None, bound)
+        stats.add("fused_cross_sublayer", err, ms, plain, None, bound, device)
         del args, args_f
         torch.cuda.empty_cache()
     return stats
@@ -1400,6 +1466,58 @@ def phase_pnp(dev, bundle) -> dict:
     return launches
 
 
+def profiled_device_ms(fn) -> float | None:
+    """Device milliseconds summed over the kernels of one call of ``fn``
+    (torch.profiler, after a warm-up call); None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the kernels' own entries (a launching op's entry repeats their time)
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 if us > 0 else None
+
+
+def phase_pnp_call(dev, bundle) -> None:
+    """One SD2.1 PnP generation UNet call (3 lanes x 4 frames at a 64x64
+    latent, both injections on, no merging) with sublayer_mode fused and
+    off, in turns (fused, off, off, fused): its device time summed over its
+    kernels (torch.profiler) and its time through the call (CUDA events,
+    the host's gaps included)."""
+    rng = np.random.default_rng(3)
+    width = bundle.unet.config.cross_attention_dim
+    x = torch.from_numpy(rng.standard_normal((12, 64, 64, 4), np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((12, 77, width), np.float32))
+    x, ctx = x.to(dev, torch.bfloat16), ctx.to(dev, torch.bfloat16)
+    device, wall = {}, {}
+    with torch.inference_mode():
+        for mode in ("fused", "off", "off", "fused"):
+            def call(mode=mode):
+                return bundle.unet(x, 501, ctx, sublayer_mode=mode,
+                                   attn_inject=True, conv_inject=True,
+                                   num_lanes=3)
+            try:
+                device.setdefault(mode, []).append(profiled_device_ms(call))
+            except Exception as exc:  # a measurement only: say so, go on
+                print(f"[pnp] device time not measured ({exc!r})")
+                device.setdefault(mode, []).append(None)
+            wall.setdefault(mode, []).append(cuda_time(call, 3))
+    print(f"[pnp] one SD2.1 PnP generation UNet call [12,64,64,4], 3 "
+          f"lanes, injections on, no merging: device ms (torch.profiler, "
+          f"summed over its kernels) fused {device['fused']}, off "
+          f"{device['off']}; through the call (CUDA events) fused "
+          f"{[round(v, 3) for v in wall['fused']]}, off "
+          f"{[round(v, 3) for v in wall['off']]}")
+
+
 def phase_reference_sd21(dev, bundle) -> None:
     """SD2.1 weights, one UNet call at an 8x8 latent with 3 lanes, both PnP
     injections on and sublayer_mode="fused": bf16 kernels on the card vs
@@ -1476,6 +1594,8 @@ def main() -> int:
     print(f"[pnp] SD2.1 random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     pnp = phase_pnp(dev, bundle)
+    torch.cuda.synchronize()
+    phase_pnp_call(dev, bundle)
     torch.cuda.synchronize()
     phase_reference_sd21(dev, bundle)
     torch.cuda.synchronize()

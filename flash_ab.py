@@ -3,7 +3,8 @@ CUDA card, in turns, at chip_smoke.py's shapes for that kernel, beside the
 wrapper and the library call.
 
     python3 flash_ab.py [--kernel=flash|small_kv|resnet|resnet_w8a8|
-                                  group_norm|best_match]
+                                  group_norm|best_match|sublayer|
+                                  sublayer_phases|tma]
                         [--root=DIR ...] [--json=PATH] [NAME=DIR ...]
 
 ``--kernel`` picks the source, its C entry and the shapes (default
@@ -61,7 +62,25 @@ wrapper and the library call.
             each block height (64, 128, 192 rows; the src tile resident
             where it fits); last the host's wall a call and time to
             return at [1, 64x128, 64] of each build's C entry and of each
-            root's wrapper, three rounds of turns.
+            root's wrapper, three rounds of turns;
+  sublayer  ``sublayer.cu``, ``vidtome_fused_cross_sublayer`` (this
+            checkout's ``ops/sublayer`` plan and tensor maps for a build
+            that takes them; an older tree's takes its block's row
+            fragments and fp32 vectors) at ``chip_smoke.SUBLAYER_SHAPES``
+            and SD1.5's widths at batch 8, 77 keys; each build's max |err|
+            of x3 and y3 against the plain version in fp32 (a planted fault
+            is a ``sed`` copy built beside the sound one), beside each
+            root's wrapper through the call and device-only, the port's
+            unfused bf16 chain device-only (``chip_smoke.unfused_sublayer``)
+            and the bound;
+  sublayer_phases  no build DIR: an instrumented copy of this checkout's
+            ``sublayer.cu`` (``PHASE_STAMPS``: clock64 at each phase's
+            ends, thread 0 of each consumer warpgroup) at the sublayer
+            rows, the mean SM cycles a block spends in each phase;
+  tma       no build: the rate at which one SM's TMA brings a 64-row
+            tile of bf16 into shared memory, by box width (32 and 64
+            columns swizzled, 160 and 256 not), alone and with every SM
+            loading, from device memory and from L2 (``TMA_RATE_CU``).
 Each build DIR holds that source (and the ``*.cuh`` it includes) with the
 C signature of ``vidtome_torch/csrc``'s; ``new=vidtome_torch/csrc`` is this
 checkout's kernel.  All are compiled at once (one nvcc each, the flags of
@@ -109,8 +128,9 @@ import torch
 
 from chip_smoke import (EXP2_S, FLASH_SHAPES, GN_SHAPES, MATCH_GAP,
                         MATCH_SHAPES, MATCH_TOL, RESNET_SHAPES,
-                        SMALL_KV_SHAPES, bound_ms, cuda_time, graph_time,
-                        match_shape)
+                        SMALL_KV_SHAPES, SUBLAYER_SHAPES, SUBLAYER_TOL,
+                        bound_ms, cuda_time, graph_time, match_shape,
+                        sublayer_bound, sublayer_inputs, unfused_sublayer)
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "flash_ab"
@@ -148,6 +168,15 @@ KERNELS = {
                        + [("negative", (2, 4711, 4711, 320)),
                           ("duplicates", (2, 12288, 4208, 320))],
                        module="matching", wrapper="best_match"),
+    # chip_smoke's SD2.1 PnP rows, then SD1.5's widths (8 heads: D = 40,
+    # 80, 160) at batch 8
+    "sublayer": dict(source="sublayer.cu",
+                     entry="vidtome_fused_cross_sublayer",
+                     shapes=SUBLAYER_SHAPES + [(8, 4096, 320, 8),
+                                               (8, 1024, 640, 8),
+                                               (8, 256, 1280, 8),
+                                               (8, 64, 1280, 8)],
+                     module="sublayer", wrapper="fused_cross_sublayer"),
 }
 
 
@@ -202,6 +231,16 @@ def build(kernel: dict, name: str, src: Path):
         fn.planned = "int rows, int resident" in (src / source).read_text()
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
             6 if fn.planned else 4) + [ctypes.c_void_p]
+    elif kernel.get("module") == "sublayer":
+        # a source whose entry takes the planner's plan and tensor maps (an
+        # older tree's takes the block's row fragments and shared memory)
+        fn.planned = "const int* plan" in (src / source).read_text()
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float,
+                                                ctypes.c_void_p]
+                       if fn.planned else [ctypes.c_void_p]
+                       + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                               ctypes.c_longlong,
+                                               ctypes.c_void_p])
     elif kernel.get("module") == "groupnorm":
         lib = ctypes.CDLL(str(out))
         fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [
@@ -607,6 +646,104 @@ def compare_match(kernel: dict, fns: dict, wrapped: dict, matching) -> list:
     return rows
 
 
+def sublayer_run(fn, args, heads: int, kv_len: int, out, sublayer):
+    """One call of a sublayer build's C entry writing ``out`` (x3, y3): a
+    build that takes a plan gets this checkout's (``sublayer``: its
+    ``ops/sublayer``) plan and tensor maps; an older one its block's row
+    fragments (128 rows up to C = 320, 64 up to 640, 32 above) and the
+    fp32 vectors it reads."""
+    x, a1, k, v, wq, wout, *vecs = args
+    B, S, C = x.shape
+    skv = k.shape[1]
+    keep = [sublayer._scaled_wq(wq, heads, torch.bfloat16)]
+    if fn.planned:
+        launch = sublayer._signature(x.shape, skv, x.device, heads, kv_len)
+        if launch.plan.cluster > 1:
+            keep.append(torch.empty(2, B, S, C, dtype=x.dtype,
+                                    device=x.device))
+        ptrs = (ctypes.c_void_p * 14)(*(t.data_ptr() for t in (
+            x, a1, k, v, keep[0], wout, *vecs, *out)),
+            keep[1].data_ptr() if len(keep) > 1 else None)
+        flags = sum(1 << i for i, t in enumerate(vecs)
+                    if t.dtype == torch.bfloat16)
+
+        def call(stream):
+            return fn(ptrs, launch.ints, launch.maps, flags, 1e-5, stream)
+    else:
+        keep += [t.float().contiguous() for t in vecs]
+        dp, kvp = -(-(C // heads) // 16) * 16, -(-skv // 16) * 16
+        rows = 128 if C <= 320 else 64 if C <= 640 else 32
+        smem = 2 * (2 * rows * (C + 8) + 2 * kvp * (dp + 8))
+        ptrs = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in (
+            x, a1, k, v, keep[0], wout, *keep[1:], *out)))
+
+        def call(stream):
+            return fn(ptrs, B, S, C, heads, dp, rows // 16, skv, kvp, kv_len,
+                      1e-5, smem, stream)
+
+    def run():  # on the current stream (a graph's capture stream too)
+        e = call(torch._C._cuda_getCurrentRawStream(0))
+        if e:
+            raise RuntimeError(f"launch failed: error {e}")
+    run.keep = keep
+    return run
+
+
+def compare_sublayer(kernel: dict, fns: dict, wrapped: dict,
+                     sublayer) -> list:
+    """Every build's C entry in turns at each row (77 keys), through the
+    call and device-only, held against the plain version in fp32 (max
+    |err| of x3 and y3); beside them each root's wrapper through the call
+    and device-only, the port's unfused bf16 chain device-only, the bound
+    and this checkout's plan (``sublayer``: its ``ops/sublayer``)."""
+    order = list(fns) + list(reversed(fns))
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    rows = []
+    for B, S, C, heads in kernel["shapes"]:
+        args = sublayer_inputs(rng, dev, B, S, C)
+        kw = dict(heads=heads, kv_len=77)
+        want = sublayer.reference_cross_sublayer(*[a.float() for a in args],
+                                                 **kw)
+        ms, device_ms, err = {}, {}, {}
+        for name in order:
+            out = (torch.empty_like(args[0]), torch.empty_like(args[0]))
+            run = sublayer_run(fns[name], args, heads, 77, out, sublayer)
+            ms.setdefault(name, []).append(cuda_time(run, 10))
+            device_ms.setdefault(name, []).append(graph_time(run, 10))
+            err[name] = max((o.float() - w).abs().max().item()
+                            for o, w in zip(out, want))
+        del want
+        wrapper_ms, wrapper_device_ms = {}, {}
+        for root, w in wrapped.items():
+            def call(w=w):
+                return w(*args, **kw)
+            wrapper_ms[root] = cuda_time(call, 10)
+            wrapper_device_ms[root] = graph_time(call, 10)
+        p = sublayer.plan(B, S, C, heads, 77, 77, sublayer._sm_count(0),
+                          sublayer._card_clusters(0))
+        row = dict(shape=[B, S, C, heads], plan=p._asdict(), ms=ms,
+                   device_ms=device_ms, max_err=err,
+                   sound={n: err[n] < SUBLAYER_TOL for n in fns},
+                   wrapper_ms=wrapper_ms, wrapper_device_ms=wrapper_device_ms,
+                   chain_device_ms=graph_time(
+                       unfused_sublayer(args, heads, 77), 10),
+                   bound_ms=max(sublayer_bound(B, S, C)))
+        rows.append(row)
+        print(f"[{B},{S},{C}] heads {heads}: plan clusters of {p.cluster}, "
+              f"{p.stages} stages, {p.kv_bufs} K/V buffers, grid {p.grid}; "
+              + "; ".join(f"{n} {ms[n]} ms (device only {device_ms[n]}), "
+                          f"max|err| {err[n]:.2e}" for n in fns)
+              + "; " + "; ".join(
+                  f"wrapper {r} {wrapper_ms[r]:.4f} ms (device only "
+                  f"{wrapper_device_ms[r]:.4f})" for r in wrapped)
+              + f"; unfused chain device only {row['chain_device_ms']:.4f}; "
+              f"bound {row['bound_ms']:.4f}")
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def resnet_tile(fn, B: int, H: int, W: int, Cin: int, Cout: int):
     """(tile argument, pixel tiles of an image) of a build's C entry."""
     from vidtome_torch.ops import resnet
@@ -760,10 +897,205 @@ def compare_resnet(kernel: dict, fns: dict, wrapper) -> list:
     return rows
 
 
+# One block an SM loads 80 KB (a 64-row tile of x and a1 at C = 320) by TMA
+# boxes of one width, 20 times, and reads its clock: from device memory
+# (tiles across a 125 MB tensor) or from L2 (4 tiles, all blocks alike)
+TMA_RATE_CU = r"""
+#include "hopper.cuh"
+#include <cstdio>
+#include <vector>
+__global__ void __launch_bounds__(128, 1)
+tma_rate(const __grid_constant__ CUtensorMap tm, int boxes, int cols, int tiles,
+         long long* out, int reps) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + 200 * 1024;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int r = 0; r < reps; ++r) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, cols * 128 * boxes);
+      const int tile = (blockIdx.x * reps + r) % tiles;
+      for (int j = 0; j < boxes; ++j) {
+        tma_load(base + j * cols * 128, &tm, bar, j * cols, tile * 64, 0, 0);
+      }
+    }
+    mbar_wait(bar, r & 1);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = clock64() - t0;
+}
+int main() {
+  const int C = 1280, S = 4096 * 12;
+  void* x;
+  long long* out;
+  cudaMalloc(&x, (size_t)C * S * 2);
+  cudaMemset(x, 0, (size_t)C * S * 2);
+  cudaMalloc(&out, 132 * 8);
+  cudaFuncSetAttribute(tma_rate, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       210 * 1024);
+  const int cols[4] = {32, 64, 160, 256};
+  const CUtensorMapSwizzle sw[4] = {CU_TENSOR_MAP_SWIZZLE_64B,
+                                    CU_TENSOR_MAP_SWIZZLE_128B,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE};
+  for (int c = 0; c < 4; ++c) {
+    CUtensorMap tm;
+    const long long st[3] = {(long long)S * C, (long long)S * C, C};
+    if (encode(&tm, x, C, S, 1, 1, st, 64, cols[c], sw[c])) return 1;
+    const int boxes = 81920 / (cols[c] * 128);
+    for (int tiles : {S / 64, 4}) {
+      for (int grid : {1, 132}) {
+        const int reps = 20;
+        for (int k = 0; k < 2; ++k) {  // the first launch warms up
+          tma_rate<<<grid, 128, 210 * 1024>>>(tm, boxes, cols[c], tiles, out,
+                                              reps);
+        }
+        if (cudaDeviceSynchronize() != cudaSuccess) return 2;
+        std::vector<long long> h(grid);
+        cudaMemcpy(h.data(), out, grid * 8, cudaMemcpyDeviceToHost);
+        double m = 0;
+        for (long long v : h) m += v;
+        m /= grid;
+        printf("[tma] %d-column boxes (%d-byte rows%s), %s, %d blocks: %.0f "
+               "cycles per 80 KB, %.1f bytes a cycle an SM\n", cols[c],
+               cols[c] * 2, c < 2 ? ", swizzled" : "",
+               tiles == 4 ? "L2 (4 tiles)" : "device memory", grid, m / reps,
+               81920.0 * reps / m);
+      }
+    }
+  }
+  return 0;
+}
+"""
+
+
+def tma_rate() -> int:
+    """Builds and runs TMA_RATE_CU: the bytes a cycle one SM's TMA brings in
+    for a 64-row tile in boxes of 32, 64, 160 and 256 columns, alone and
+    with every SM loading, from device memory and from L2."""
+    from vidtome_torch.ops.cuda_build import CSRC, nvcc_path
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    src, exe = OUT / "tma_rate.cu", OUT / "tma_rate"
+    src.write_text(TMA_RATE_CU)
+    subprocess.run([nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-I", str(CSRC), "-o", str(exe),
+                    str(src)], check=True)
+    return subprocess.run([str(exe)]).returncode
+
+
+# Clock stamps of an instrumented copy of csrc/sublayer.cu: (text of the
+# source, where the stamp goes: before or after it, slot).  Thread 0 of each
+# consumer warpgroup writes clock64() to vt_t[block][warpgroup][slot];
+# slots 15-19 time the first head's attention.
+PHASE_STAMPS = [
+    ('  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\\n" ::"n"(kConsumerRegs));\n', "after", 0),
+    ("  cluster_sync();  // A: every rank's LN2 partials are published\n", "before", 1),
+    ("  cluster_sync();  // A: every rank's LN2 partials are published\n", "after", 2),
+    ("  fence_proxy_async(n > 1);\n  cluster_sync();  // B", "before", 3),
+    ("  cluster_sync();  // B: every rank's slice and y2 scratch are written\n", "after", 4),
+    ("  // both consumers are done reading y2 from the slice\n", "before", 5),
+    ("  consumers_sync<kConsumers>();  // a is whole in the slice, K / V are read\n", "before", 6),
+    ("  cluster_sync();  // C: every rank's a is in the scratch\n", "after", 7),
+    ("  consumers_sync<kConsumers>();  // the slice and the ring are read\n", "before", 8),
+    ("  consumers_sync<kConsumers>();\n  mbar_wait(xa, 1);\n", "before", 9),
+    ("  consumers_sync<kConsumers>();\n  mbar_wait(xa, 1);\n", "after", 10),
+    ("  cluster_sync();  // D: every rank's LN3 partials are published\n", "before", 11),
+    ("  cluster_sync();  // D: every rank's LN3 partials are published\n", "after", 12),
+    ("  cluster_exit();  // E: no rank leaves while a peer reads its partials\n", "before", 13),
+    ("  cluster_exit();  // E: no rank leaves while a peer reads its partials\n", "after", 14),
+    ("    mbar_wait_warp(kv_full + 8 * (2 * WG + buf), use & 1);\n", "before", 15),
+    ("    mbar_wait_warp(kv_full + 8 * (2 * WG + buf), use & 1);\n", "after", 16),
+    ("    // softmax over the row (rows g and g + 8", "before", 17),
+    ("    // O = P V_h: per 16-key step", "before", 18),
+    ("    if (lane == 0) mbar_arrive(kv_empty + 8 * (2 * WG + buf));\n", "before", 19),
+]
+PHASES = [("LN2 loads", 0, 1), ("barrier A", 1, 2), ("stats + y2", 2, 3),
+          ("fence + barrier B", 3, 4), ("q projection", 4, 5),
+          ("attention", 5, 6), ("a out + barrier C", 6, 7),
+          ("out projection", 7, 8), ("o staged", 8, 9),
+          ("x, a1 wait", 9, 10), ("x3 row pass", 10, 11),
+          ("barrier D", 11, 12), ("y3 + stores", 12, 13),
+          ("barrier E", 13, 14), ("head 0: K/V wait", 15, 16),
+          ("head 0: S", 16, 17), ("head 0: softmax", 17, 18),
+          ("head 0: P V", 18, 19)]
+
+
+def phases_source(text: str) -> str:
+    """The instrumented copy of csrc/sublayer.cu (PHASE_STAMPS)."""
+    text = text.replace("namespace cg = cooperative_groups;\n", """namespace cg = cooperative_groups;
+__device__ long long vt_t[8192][2][20];
+#define VT_STAMP(i) do { \\
+    const int vb = blockIdx.y * gridDim.x + blockIdx.x; \\
+    long long c; asm volatile("mov.u64 %0, %%clock64;" : "=l"(c)); \\
+    if ((threadIdx.x & 127) == 0 && vb < 8192) vt_t[vb][threadIdx.x >> 7][i] = c; \\
+  } while (0)
+""", 1)
+    for anchor, where, slot in PHASE_STAMPS:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"sublayer.cu changed: stamp anchor {anchor!r}")
+        stamp = (f"    if (j == 0) VT_STAMP({slot});\n" if slot >= 15
+                 else f"  VT_STAMP({slot});\n")
+        text = text.replace(anchor, stamp + anchor if where == "before"
+                            else anchor + stamp)
+    return text + ('\nextern "C" int vt_times(void* dst) { return (int)'
+                   'cudaMemcpyFromSymbol(dst, vt_t, sizeof(vt_t)); }\n'
+                   'extern "C" int vt_clear() { void* p = nullptr; '
+                   'cudaGetSymbolAddress(&p, vt_t); '
+                   'return (int)cudaMemset(p, 0, sizeof(vt_t)); }\n')
+
+
+def sublayer_phases() -> int:
+    """Per block, the mean SM cycles of each phase of the kernel (an
+    instrumented copy of this checkout's csrc/sublayer.cu) for each
+    consumer warpgroup, at chip_smoke's SUBLAYER_SHAPES and SD1.5's rows."""
+    from vidtome_torch.ops import sublayer
+    from vidtome_torch.ops.cuda_build import CSRC
+
+    src = OUT / "phases"
+    src.mkdir(parents=True, exist_ok=True)
+    (src / "hopper.cuh").write_bytes((CSRC / "hopper.cuh").read_bytes())
+    (src / "sublayer.cu").write_text(
+        phases_source((CSRC / "sublayer.cu").read_text()))
+    fn, _ = build(KERNELS["sublayer"], "phases", src)
+    lib = ctypes.CDLL(str(OUT / "libphases.so"))
+    rng = np.random.default_rng(0)
+    for B, S, C, heads in KERNELS["sublayer"]["shapes"]:
+        args = sublayer_inputs(rng, torch.device("cuda"), B, S, C)
+        out = (torch.empty_like(args[0]), torch.empty_like(args[0]))
+        run = sublayer_run(fn, args, heads, 77, out, sublayer)
+        lib.vt_clear()  # a consumer without heads leaves its slots 0
+        ms = cuda_time(run, 5)  # the stamps of its last launch
+        torch.cuda.synchronize()
+        p = sublayer.plan(B, S, C, heads, 77, 77, sublayer._sm_count(0),
+                          sublayer._card_clusters(0))
+        t = np.zeros((8192, 2, 20), np.int64)
+        lib.vt_times(t.ctypes.data_as(ctypes.c_void_p))
+        t = t[:p.grid[0] * p.grid[1]].astype(np.float64)
+        for wg in (0, 1):
+            seg = {name: round(float((t[:, wg, b] - t[:, wg, a]).mean()))
+                   for name, a, b in PHASES if t[:, wg, a].any()}
+            print(f"[phases] [{B},{S},{C}] heads {heads} (clusters of "
+                  f"{p.cluster}, {p.grid[0] * p.grid[1]} blocks, {ms:.4f} "
+                  f"ms a launch with the stamps), consumer {wg}: cycles "
+                  f"{round(float((t[:, wg, 14] - t[:, wg, 0]).mean()))}; "
+                  + ", ".join(f"{k} {v}" for k, v in seg.items()))
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device", file=sys.stderr)
         return 1
+    if "--kernel=tma" in argv:
+        return tma_rate()
+    if "--kernel=sublayer_phases" in argv:
+        return sublayer_phases()
     builds, kernel, json_path, roots = {}, KERNELS["flash"], None, []
     for arg in argv:
         if arg.startswith("--root="):
@@ -806,11 +1138,14 @@ def main(argv: list[str]) -> int:
             result["rows"] = compare_resnet(kernel, fns, wrapper)
         elif kernel.get("module") == "matching":
             result["rows"] = compare_match(kernel, fns, wrapped, tree)
+        elif kernel.get("module") == "sublayer":
+            result["rows"] = compare_sublayer(kernel, fns, wrapped, tree)
         elif kernel.get("module") != "groupnorm":
             result["rows"] = compare(kernel, fns, wrapper)
     if kernel.get("module") == "groupnorm":
         result["rows"] = compare_group_norm(fns, routes, tree)
-    if kernel.get("module") in ("resnet", "groupnorm", "matching"):
+    if kernel.get("module") in ("resnet", "groupnorm", "matching",
+                                "sublayer"):
         if json_path is not None:
             json_path.parent.mkdir(parents=True, exist_ok=True)
             json_path.write_text(json.dumps(result, indent=1))

@@ -602,6 +602,10 @@ def _sublayer_args(rng, cuda, B, S, C, skv):
     (2, 4096, 320, 8, 77, 77),      # SD1.5 level 0: D = 40
     (2, 100, 640, 8, 80, 77),       # D = 80, ragged S, masked key tail
     (2, 16, 64, 4, 16, 16),         # tiny test widths
+    (8, 1024, 640, 8, 77, 77),      # SD1.5 level 1 at batch 8: D = 80
+    (8, 256, 1280, 8, 77, 77),      # SD1.5 level 2: D = 160
+    (8, 64, 1280, 8, 77, 77),       # SD1.5 mid block: D = 160
+    (2, 70, 1280, 8, 128, 100),     # 128 padded keys, 100 valid, D = 160
 ])
 def test_fused_sublayer_kernel_matches_plain(cuda, B, S, C, heads, skv,
                                              kv_len):
@@ -613,6 +617,63 @@ def test_fused_sublayer_kernel_matches_plain(cuda, B, S, C, heads, skv,
     wx3, wy3 = t_sub.reference_cross_sublayer(*[a.float() for a in args],
                                               heads=heads, kv_len=kv_len)
     assert x3.dtype == y3.dtype == torch.bfloat16
+    assert (x3.float() - wx3).abs().max().item() < SUBLAYER_TOL
+    assert (y3.float() - wy3).abs().max().item() < SUBLAYER_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C,heads", [
+    (2, 100, 320, 5),    # one block a cluster
+    (2, 100, 640, 10),   # two
+    (2, 70, 1280, 20),   # four
+])
+def test_fused_sublayer_kernel_ignores_keys_past_kv_len(cuda, B, S, C,
+                                                        heads):
+    """Garbage rows of k and v past kv_len give the bits of zeros there
+    (TMA reads them as zeros; the scores are masked)."""
+    rng = np.random.default_rng(12)
+    args = _sublayer_args(rng, cuda, B, S, C, 96)
+    clean = [a.clone() for a in args]
+    for t in clean[2:4]:
+        t[:, 77:] = 0
+    for t, fill in zip(args[2:4], (37.0, -5.0)):
+        t[:, 77:] = fill
+    got = t_sub.fused_cross_sublayer(*args, heads=heads, kv_len=77)
+    want = t_sub.fused_cross_sublayer(*clean, heads=heads, kv_len=77)
+    ref = t_sub.reference_cross_sublayer(*[a.float() for a in clean],
+                                         heads=heads, kv_len=77)
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, ref):
+        assert torch.equal(g, w)
+        assert (g.float() - r).abs().max().item() < SUBLAYER_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C,heads", [(3, 200, 320, 8), (2, 130, 1280, 20)])
+def test_fused_sublayer_kernel_same_bits_twice(cuda, B, S, C, heads):
+    """Statistics reduced over DSMEM in rank order, no atomics: two calls
+    give the same bits."""
+    args = _sublayer_args(np.random.default_rng(13), cuda, B, S, C, 77)
+    first = t_sub.fused_cross_sublayer(*args, heads=heads, kv_len=77)
+    second = t_sub.fused_cross_sublayer(*args, heads=heads, kv_len=77)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_sublayer_kernel_reads_bf16_affines(cuda):
+    """bout and the LayerNorm affines as a bf16 module holds them."""
+    args = _sublayer_args(np.random.default_rng(14), cuda, 2, 100, 640,
+                          77)[:6]
+    args += [t.bfloat16() for t in _sublayer_args(
+        np.random.default_rng(15), cuda, 1, 1, 640, 1)[6:]]
+    before = t_sub.fused_cross_sublayer.launches
+    x3, y3 = t_sub.fused_cross_sublayer(*args, heads=10, kv_len=77)
+    torch.cuda.synchronize()
+    assert t_sub.fused_cross_sublayer.launches == before + 1
+    wx3, wy3 = t_sub.reference_cross_sublayer(*[a.float() for a in args],
+                                              heads=10, kv_len=77)
     assert (x3.float() - wx3).abs().max().item() < SUBLAYER_TOL
     assert (y3.float() - wy3).abs().max().item() < SUBLAYER_TOL
 

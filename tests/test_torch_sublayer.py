@@ -145,7 +145,13 @@ def test_sublayer_plain_masks_keys_past_kv_len():
 
 
 def test_block_rows_by_width():
-    assert [t_sub.block_rows(c) for c in (64, 320, 640, 1280)] == \
-        [128, 128, 64, 32]
+    """A block takes 64 rows at every width; wider rows spread over more
+    blocks of a cluster (320 columns a rank at most) instead of fewer rows
+    a block."""
+    plans = [t_sub.plan(2, 4096, c, c // 64, 77, 77)
+             for c in (128, 320, 640, 1280, 2560)]
+    assert [p.cluster for p in plans] == [1, 1, 2, 4, 8]
+    assert [p.width for p in plans] == [128, 320, 320, 320, 320]
+    assert all(p.grid == (64 * p.cluster, 2) for p in plans)
     with pytest.raises(ValueError):
-        t_sub.block_rows(2560)
+        t_sub.plan(2, 4096, 5120, 80, 77, 77)
