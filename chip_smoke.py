@@ -68,7 +68,23 @@ Phases (any failure exits non-zero before the last line):
   8. int8 reference check: one int8 UNet call (fused resnet blocks) at a
      32x32 latent under VIDTOME_GN_MODE=full, on the card (bf16 kernels)
      and on the CPU (fp32 plain versions), with the same int8 table;
-  9. PnP path: the SD1.5 bundle freed, SD2.1 at full width with random
+  9. ControlNet path: the SD1.5 bundle's canny ControlNet (random, seeded,
+     built by init_model(control="canny"); its zero convs and the hint
+     encoder's conv_out moved by 0.05 N(0, 1), else it adds nothing), the
+     same clip through configs/demo-canny.yaml's keys over demo.yaml's and
+     default.yaml's at 50+50 DDIM steps with inversion.control: canny, so
+     both stages run it before every UNet call; the control images through
+     the png cache in a temporary work_dir.  Every ControlNet call must
+     launch flash 4 times, small-KV 10 and the full GroupNorm entry 27
+     (CONTROLNET_LAUNCHES, read per call from its forward hooks), beside
+     the UNet's own; frames finite in [0, 1]; prints the stage seconds and
+     the PSNR against the exact path's frames (printed only);
+  10. ControlNet reference check: one ControlNet call and the UNet call fed
+     its residuals, card (bf16 kernels) vs CPU (fp32 plain), at an 8x8
+     latent (REF_TOL) and with both int8 tables at a 32x32 latent
+     (INT8_REF_TOL); control_scale 0 must differ by more than the
+     tolerance;
+  11. PnP path: the SD1.5 bundle freed, SD2.1 at full width with random
      weights (seeded), bf16, the same clip through configs/dog.yaml's
      inversion and generation keys (prompts aside; default.yaml beneath
      them, as dog.yaml's base_config) at 50+50 DDIM steps, with
@@ -80,12 +96,13 @@ Phases (any failure exits non-zero before the last line):
      blocks); flash, GroupNorm and best match must rise; then one
      generation UNet call (no merging) with sublayer_mode fused and off,
      its device time (torch.profiler) and its time through the call;
-  10. SD2.1 reference check: one UNet call at an 8x8 latent with 3 lanes,
+  12. SD2.1 reference check: one UNet call at an 8x8 latent with 3 lanes,
      both injections on and sublayer_mode="fused", card (bf16 kernels) vs
      CPU (fp32 plain); the same call with the injections off must differ
      from it by more than the tolerance.
 Then one JSON line with the kernels' numbers (launches: summed over the
-exact, serving, int8 and PnP paths, each counted from 0; ms, plain_ms,
+exact, serving, int8, ControlNet and PnP paths, each counted from 0; ms,
+plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes, for
 group_norm (the stats, apply and finalize entries) stats + apply a
 GN_SHAPES row plus the finalize rows, for full_group_norm the full entry;
@@ -143,6 +160,14 @@ SUBLAYER_TOL = 5e-2  # absolute on x3, y3: x3 up to |6| rounds by 2^-6, and
 #                      y2, q, p, a are rounded in the kernel, not the plain
 PNP_STEPS = 50
 INT8_STEPS = 50
+CONTROLNET_STEPS = 50
+# launches of one SD1.5 ControlNet call (batch 8, unmerged; its 7
+# transformer blocks and 10 resnet blocks): flash for the self-attentions at
+# 64x64 and 32x32, small-KV for the 7 cross-attentions and the
+# self-attentions at 16x16 and 8x8, the full GroupNorm entry for the 20
+# resnet and 7 transformer norms; its resnets are never fused
+CONTROLNET_LAUNCHES = {"flash_attention": 4, "small_kv_attention": 10,
+                       "full_group_norm": 27}
 # the int8 UNet call on the card (bf16 activations quantized to int8) vs
 # the CPU (fp32 activations quantized to int8): bf16 rounding (2^-9) moves
 # activations near 127 steps by up to a quarter step, so a share of them
@@ -225,6 +250,29 @@ def pnp_config() -> dict:
     return cfg
 
 
+def controlnet_config() -> dict:
+    """configs/demo-canny.yaml's inversion and generation keys over
+    demo.yaml's over default.yaml's (its base_config chain), its edit
+    prompt, at CONTROLNET_STEPS DDIM steps, with inversion.control: canny
+    so that both stages run the ControlNet."""
+    import yaml
+
+    def load(name):
+        with open(ROOT / "configs" / name) as f:
+            return yaml.safe_load(f)
+
+    chain = [load(n) for n in ("default.yaml", "demo.yaml",
+                               "demo-canny.yaml")]
+    cfg = {"seed": chain[0]["seed"], "float_precision": "bf16"}
+    for stage in ("inversion", "generation"):
+        cfg[stage] = {k: v for layer in chain
+                      for k, v in layer[stage].items()}
+    cfg["inversion"].update(control="canny", steps=CONTROLNET_STEPS,
+                            save_steps=CONTROLNET_STEPS)
+    cfg["generation"]["n_timesteps"] = CONTROLNET_STEPS
+    return cfg
+
+
 def int8_config() -> dict:
     """The int8 serving slice at INT8_STEPS DDIM steps: default.yaml's
     inversion keys (prompt and save path aside) with bench.py's
@@ -280,6 +328,7 @@ FLASH_SHAPES = [  # (B, H, Sq, Skv, D)
     (2, 8, 5120, 5120, 40),   # L0 merged self-attention (local merge)
     (2, 8, 6144, 6144, 40),   # L0 merged self-attention (+ global merge)
     (8, 8, 4096, 4096, 40),   # L0 per-frame self-attention (inversion)
+    (8, 8, 1024, 1024, 80),   # L1 per frame (inversion, the ControlNet)
     (2, 8, 1536, 1536, 80),   # L1 merged self-attention
     (8, 8, 256, 256, 160),    # L2 per frame
     (8, 8, 4096, 77, 40),     # L0 cross-attention against the prompt
@@ -302,7 +351,8 @@ SMALL_KV_SHAPES = [  # (B, H, Sq, Skv, D)
     (8, 8, 64, 64, 160),      # SD1.5 mid block self-attention
 ]
 # launches of each SMALL_KV_SHAPES row per UNet call: SD1.5 (batch 8: every
-# SD1.5 path; the 22 are all of its small-KV launches), SD2.1 inversion
+# SD1.5 path; the 22 are all of its small-KV launches), an SD1.5 ControlNet
+# call (its 7 cross-attentions and 3 self-attentions), SD2.1 inversion
 # (batch 8) and SD2.1 PnP generation (batch 12, sublayer_mode off, the
 # default; under "fused" the sublayer kernel takes the cross-attentions).
 # Each of the 16 transformer blocks runs one cross-attention: 5 at each of
@@ -314,12 +364,12 @@ SMALL_KV_LAUNCHES = {
     (12, 5, 4096, 77, 64): {"SD2.1 PnP": 5},
     (12, 20, 256, 256, 64): {"SD2.1 PnP": 5},
     (12, 20, 64, 77, 64): {"SD2.1 PnP": 1},
-    (8, 8, 4096, 77, 40): {"SD1.5": 5},
-    (8, 8, 1024, 77, 80): {"SD1.5": 5},
-    (8, 8, 256, 77, 160): {"SD1.5": 5},
-    (8, 8, 256, 256, 160): {"SD1.5": 5},
-    (8, 8, 64, 77, 160): {"SD1.5": 1},
-    (8, 8, 64, 64, 160): {"SD1.5": 1},
+    (8, 8, 4096, 77, 40): {"SD1.5": 5, "SD1.5 ControlNet": 2},
+    (8, 8, 1024, 77, 80): {"SD1.5": 5, "SD1.5 ControlNet": 2},
+    (8, 8, 256, 77, 160): {"SD1.5": 5, "SD1.5 ControlNet": 2},
+    (8, 8, 256, 256, 160): {"SD1.5": 5, "SD1.5 ControlNet": 2},
+    (8, 8, 64, 77, 160): {"SD1.5": 1, "SD1.5 ControlNet": 1},
+    (8, 8, 64, 64, 160): {"SD1.5": 1, "SD1.5 ControlNet": 1},
 }
 SUBLAYER_SHAPES = [  # (B, S, C, heads): SD2.1 PnP generation, 77 keys
     (12, 4096, 320, 5),
@@ -1378,6 +1428,267 @@ def phase_int8_reference(dev, bundle) -> None:
     del cpu, cpu_table
 
 
+@torch.no_grad()
+def perturb_controlnet(controlnet, seed: int = 5) -> None:
+    """Move the ControlNet's zero-initialised convs (its zero convs and the
+    hint encoder's conv_out) by 0.05 N(0, 1), as trained ControlNets have
+    them (tests/test_pipeline_control.py perturbs the zero convs): at zero
+    the network adds nothing and the control images reach nothing."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in controlnet.zero_init_modules():
+        for p in (mod.weight, mod.bias):
+            noise = torch.randn(p.shape, generator=gen) * 0.05
+            p.add_(noise.to(p.device, p.dtype))
+
+
+class LaunchesPerCall:
+    """The kernel launches of each call of ``module``, from its forward
+    hooks (read before and after every call)."""
+
+    def __init__(self, module):
+        self.calls: list[dict] = []
+        self._handles = [module.register_forward_pre_hook(self._pre),
+                         module.register_forward_hook(self._post)]
+
+    def _pre(self, module, args):
+        self._before = read_launches()
+
+    def _post(self, module, args, out):
+        self.calls.append({k: v - self._before[k]
+                           for k, v in read_launches().items()})
+
+    def close(self) -> None:
+        for h in self._handles:
+            h.remove()
+
+
+def phase_controlnet(dev, bundle) -> dict:
+    """configs/demo-canny.yaml on the SD1.5 bundle, both stages through the
+    ControlNet, 50+50 DDIM steps, the control images through the png
+    cache."""
+    import tempfile
+
+    from vidtome_torch.io.artifacts import control_image_dir
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = controlnet_config()
+    perturb_controlnet(bundle.controlnet)
+    frames = make_frames()
+    frame_ids = list(range(N_FRAMES))
+    inverter = Inverter(bundle, cfg)
+    generator = Generator(bundle, cfg)
+    times = {}
+    stage = functools.partial(timed, times)
+    per_call = LaunchesPerCall(bundle.controlnet)
+    try:
+        with tempfile.TemporaryDirectory() as work_dir:
+            reset_launches()
+            latents, conds = stage("encode", lambda: inverter.encode(frames))
+            control_inv = stage("control_inv",
+                                lambda: inverter.control_images(frames))
+            inv_before = read_launches()
+            inverted = stage("invert", lambda: inverter.ddim_inversion(
+                latents, conds, control=control_inv))
+            inv_launches = {k: v - inv_before[k]
+                            for k, v in read_launches().items()}
+            n_inv_cn = len(per_call.calls)
+            generator.configure_frames(N_FRAMES)
+            pad = torch.as_tensor(generator.pad_src, device=dev)
+            control = stage("control", lambda: generator.load_control(
+                frames, frame_ids, work_dir))
+            cdir = Path(control_image_dir(work_dir, generator.control))
+            pngs = sorted(p.name for p in cdir.glob("*.png"))
+            again = generator.load_control(frames, frame_ids, work_dir)
+            name, prompt = next(iter(generator.prompt.items()))
+            context = stage("text", lambda: generator.context(prompt))
+            table = generator.fidx_table()
+            x0 = inverted[pad]
+            gen_before = read_launches()
+            clean = stage("generate", lambda: generator.ddim_sample(
+                x0, context, fidx_table=table, control=control[pad]))
+            gen_launches = {k: v - gen_before[k]
+                            for k, v in read_launches().items()}
+            out = stage("decode",
+                        lambda: generator.vae.decode(clean[:N_FRAMES]))
+            launches = read_launches()
+    finally:
+        per_call.close()
+
+    inv_calls = sum(inverter.unet_calls.values())
+    gen_calls = sum(generator.unet_calls.values())
+    cn_calls = per_call.calls
+    want = {k: CONTROLNET_LAUNCHES.get(k, 0) for k in KERNELS}
+    odd = [c for c in cn_calls if c != want]
+    print(f"[controlnet] SD1.5 + canny ControlNet (random, zero convs "
+          f"moved), {N_FRAMES} frames {SIZE}x{SIZE}, {CONTROLNET_STEPS}+"
+          f"{CONTROLNET_STEPS} DDIM steps, {table.shape[1]} chunks, "
+          f"configs/demo-canny.yaml keys, inversion.control canny, "
+          f"control_scale {generator.control_scale}; UNet calls inversion "
+          f"{dict(inverter.unet_calls)}, generation "
+          f"{dict(generator.unet_calls)}; ControlNet calls {len(cn_calls)} "
+          f"(inversion {n_inv_cn})")
+    print(f"[controlnet] launches per ControlNet call: "
+          f"{cn_calls[0] if cn_calls else None} (want {CONTROLNET_LAUNCHES}; "
+          f"{len(odd)} calls differ); control images {tuple(control.shape)} "
+          f"{control.dtype}, {len(pngs)} pngs in <work_dir>/{cdir.name}")
+    if not (inverter.use_controlnet and generator.use_controlnet):
+        raise AssertionError("a stage runs without its ControlNet")
+    if n_inv_cn != inv_calls or len(cn_calls) != inv_calls + gen_calls:
+        raise AssertionError("ControlNet calls differ from the UNet calls")
+    if odd:
+        raise AssertionError(f"ControlNet launches per call {odd[0]}, want "
+                             f"{want}")
+    if pngs != [f"{i:04}.png" for i in frame_ids] or not torch.equal(
+            again, control):
+        raise AssertionError("the control images did not go through the "
+                             "png cache")
+    if not 0 < control.float().mean().item() < 1:
+        raise AssertionError("canny found no edges in the clip")
+    # the UNet's own launches beside the ControlNet's: every GroupNorm the
+    # full entry (61 a UNet call), best match 3 a generation call
+    for part, n_unet, n_cn, got in (
+            ("inversion", inv_calls, n_inv_cn, inv_launches),
+            ("generation", gen_calls, gen_calls, gen_launches)):
+        want_gn = 61 * n_unet + CONTROLNET_LAUNCHES["full_group_norm"] * n_cn
+        if got["full_group_norm"] != want_gn or got["group_norm"]:
+            raise AssertionError(f"{part}: GroupNorm launches {got}, want "
+                                 f"{want_gn} full")
+    if gen_launches["best_match"] != 3 * gen_calls:
+        raise AssertionError(f"generation: {gen_launches['best_match']} "
+                             f"best_match launches over {gen_calls} UNet "
+                             f"calls")
+    if tuple(out.shape) != (N_FRAMES, SIZE, SIZE, 3):
+        raise AssertionError(f"frames shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("ControlNet frames not finite or outside "
+                             "[0, 1]")
+    if not torch.isfinite(inverted).all():
+        raise AssertionError("ControlNet inverted latents not finite")
+
+    # the exact path (no ControlNet) from the same inverted latents, not
+    # counted
+    exact_cfg = copy.deepcopy(cfg)
+    exact_cfg["generation"]["control"] = "none"
+    exact = Generator(bundle, exact_cfg)
+    exact.configure_frames(N_FRAMES)
+    t0 = time.perf_counter()
+    ref = exact.vae.decode(exact.ddim_sample(
+        x0, context, fidx_table=exact.fidx_table())[:N_FRAMES])
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    mse = ((out.float() - ref.float()) ** 2).mean().item()
+    psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    print(f"[controlnet] frames mean {out.mean().item():.4f} std "
+          f"{out.std().item():.4f}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; exact generate + decode {t_exact:.3f}")
+    print(f"[controlnet] PSNR ControlNet vs exact frames (same inverted "
+          f"latents, random weights: printed only) {psnr:.2f} dB")
+    print(f"[controlnet] kernel launches in this run: {launches}")
+    controlnet_call_times(dev, bundle, control[:N_FRAMES])
+    return launches
+
+
+def controlnet_call_times(dev, bundle, cond) -> None:
+    """One ControlNet call and one UNet call at the inversion's batch (8
+    frames at a 64x64 latent, 512x512 control images), in turns (ControlNet,
+    UNet, UNet, ControlNet): device ms summed over their kernels
+    (torch.profiler) and ms through the call (CUDA events)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((N_FRAMES, SIZE // 8, SIZE // 8,
+                                              4), np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((N_FRAMES, 77, 768),
+                                               np.float32))
+    x, ctx = x.to(dev, torch.bfloat16), ctx.to(dev, torch.bfloat16)
+    calls = {"controlnet": lambda: bundle.controlnet(x, 501, ctx, cond),
+             "unet": lambda: bundle.unet(x, 501, ctx)}
+    device, wall = {}, {}
+    with torch.inference_mode():
+        for name in ("controlnet", "unet", "unet", "controlnet"):
+            try:
+                device.setdefault(name, []).append(
+                    profiled_device_ms(calls[name]))
+            except Exception as exc:  # a measurement only: say so, go on
+                print(f"[controlnet] device time not measured ({exc!r})")
+                device.setdefault(name, []).append(None)
+            wall.setdefault(name, []).append(cuda_time(calls[name], 3))
+    print(f"[controlnet] one call at [{N_FRAMES},{SIZE // 8},{SIZE // 8},4], "
+          f"{SIZE}x{SIZE} control images: device ms (torch.profiler, summed "
+          f"over its kernels) ControlNet {device['controlnet']}, UNet "
+          f"{device['unet']}; through the call (CUDA events) ControlNet "
+          f"{[round(v, 3) for v in wall['controlnet']]}, UNet "
+          f"{[round(v, 3) for v in wall['unet']]}")
+
+
+def phase_controlnet_reference(dev, bundle) -> None:
+    """One ControlNet call and the UNet call fed its residuals, on the card
+    (bf16 kernels) and on the CPU (fp32 plain versions): at an 8x8 latent
+    and a 64x64 hint to REF_TOL, and with both int8 tables at a 32x32
+    latent and a 256x256 hint (the smallest at which every int8 product has
+    more than 16 rows) to INT8_REF_TOL; the same call at control_scale 0
+    must differ by more than the tolerance."""
+    from vidtome_torch.ops.quant import (CONTROLNET_EXCLUDE, QuantTable,
+                                         QWeight, quantize_unet)
+
+    def cpu_table(table, root):
+        return QuantTable(root, {
+            n: QWeight(e.weight.cpu(), e.scale.cpu(),
+                       None if e.act_scale is None else e.act_scale.cpu())
+            for n, e in table.entries.items()})
+
+    rng = np.random.default_rng(4)
+    width = bundle.unet.config.cross_attention_dim
+    cpu_unet = copy.deepcopy(bundle.unet).to("cpu", torch.float32)
+    cpu_cn = copy.deepcopy(bundle.controlnet).to("cpu", torch.float32)
+    for latent, quant, tol in ((8, False, REF_TOL), (32, True, INT8_REF_TOL)):
+        x = torch.from_numpy(rng.standard_normal((2, latent, latent, 4),
+                                                 np.float32))
+        ctx = torch.from_numpy(rng.standard_normal((2, 77, width),
+                                                   np.float32))
+        cond = torch.from_numpy(rng.random((2, 8 * latent, 8 * latent, 3),
+                                           np.float32))
+        tables = cpu_tables = (None, None)
+        if quant:
+            tables = (quantize_unet(bundle.controlnet,
+                                    exclude=CONTROLNET_EXCLUDE),
+                      quantize_unet(bundle.unet))
+            cpu_tables = (cpu_table(tables[0], cpu_cn),
+                          cpu_table(tables[1], cpu_unet))
+
+        def run(cn, unet, d, scale, qts):
+            down, mid = cn(x.to(d), 501, ctx.to(d), cond.to(d),
+                           conditioning_scale=scale, qt=qts[0])
+            return unet(x.to(d), 501, ctx.to(d), down_residuals=down,
+                        mid_residual=mid, qt=qts[1]).float().cpu()
+
+        with torch.inference_mode():
+            before = read_launches()
+            got = run(bundle.controlnet, bundle.unet, dev, 1.0, tables)
+            ran = {k: v - before[k] for k, v in read_launches().items()}
+            want = run(cpu_cn, cpu_unet, "cpu", 1.0, cpu_tables)
+            zero = run(cpu_cn, cpu_unet, "cpu", 0.0, cpu_tables)
+        scale = want.abs().max()
+        err = ((got - want).abs().max() / scale).item()
+        gap = ((zero - want).abs().max() / scale).item()
+        what = "int8 tables" if quant else "bf16"
+        print(f"[reference] SD1.5 ControlNet + UNet ({what}) at a "
+              f"{latent}x{latent} latent, {8 * latent}x{8 * latent} hint: "
+              f"card kernels vs CPU fp32 plain max rel err {err:.2e} (tol "
+              f"{tol}); control_scale 0 vs 1 {gap:.2e} (must exceed {tol}); "
+              f"kernels launched on the card {ran}")
+        if not err < tol:
+            raise AssertionError(f"ControlNet ({what}) card vs CPU reference "
+                                 f"rel err {err}")
+        if not gap > tol:
+            raise AssertionError(f"the ControlNet changes the output by only "
+                                 f"{gap}")
+        if not (ran["full_group_norm"] and ran["small_kv_attention"]):
+            raise AssertionError("the reference call ran no GroupNorm or "
+                                 "small-KV kernel")
+    del cpu_unet, cpu_cn
+
+
 def small_kv_blocks(unet, latent: int) -> int:
     """Attentions of one unmerged UNet call at a latent x latent input that
     the dispatch sends to the small-KV kernel: every cross-attention (77
@@ -1570,10 +1881,11 @@ def main() -> int:
     from vidtome_torch.models.registry import init_model
 
     t0 = time.perf_counter()
-    bundle = init_model("1.5", weight_dtype="bf16", device=dev, seed=0)
+    bundle = init_model("1.5", weight_dtype="bf16", device=dev, seed=0,
+                        control="canny")
     torch.cuda.synchronize()
-    print(f"[main] SD1.5 random weights on the card in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[main] SD1.5 and a canny ControlNet, random weights, on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
     exact = phase_main_path(dev, bundle)
     torch.cuda.synchronize()
     phase_reference(dev, bundle)
@@ -1583,6 +1895,10 @@ def main() -> int:
     int8 = phase_int8(dev, bundle)
     torch.cuda.synchronize()
     phase_int8_reference(dev, bundle)
+    torch.cuda.synchronize()
+    controlnet = phase_controlnet(dev, bundle)
+    torch.cuda.synchronize()
+    phase_controlnet_reference(dev, bundle)
     torch.cuda.synchronize()
 
     del bundle
@@ -1599,7 +1915,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_reference_sd21(dev, bundle)
     torch.cuda.synchronize()
-    for path in (exact, int8, pnp):
+    for path in (exact, int8, controlnet, pnp):
         launches = {k: launches[k] + path[k] for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

@@ -96,7 +96,7 @@ def test_invert_generate_matches_jax(tmp_path):
 
 def test_cli_stages_on_cpu(tmp_path):
     """The CLI's stages on a tiny CPU bundle: invert a frame folder, cache
-    the latents, edit, write the video; an unported option (a ControlNet
+    the latents, edit, write the video; an unported option (the openpose
     control) is refused."""
     from tests.helpers import make_tiny_video
     from vidtome_torch import cli
@@ -115,6 +115,6 @@ def test_cli_stages_on_cpu(tmp_path):
     out = cli.run_generation(cfg, bundle)
     assert out["edit"].shape == (8, 64, 64, 3)
     assert (tmp_path / "out" / "edit" / "frames" / "0007.png").exists()
-    cfg.generation["control"] = "canny"
+    cfg.generation["control"] = "openpose"
     with pytest.raises(NotImplementedError):
         cli.run_generation(cfg, bundle)

@@ -24,7 +24,8 @@ latents agree to atol 1e-4 (fp32 noise); the frames reach the repo's
 
 Also: ``configs/dog.yaml`` and ``configs/demo-pnp.yaml`` build both stages,
 PnP refuses the eps skip and the deep cache with the JAX package's
-ValueErrors, and every ControlNet control is still refused.
+ValueErrors, and openpose (and every ControlNet control on a bundle
+without a ControlNet) is refused.
 """
 
 from __future__ import annotations
@@ -222,9 +223,19 @@ def test_pnp_refuses_step_skips(key, value):
 @pytest.mark.parametrize("control", ["tile", "ip2p", "openpose", "softedge",
                                      "depth", "lineart_anime", "canny"])
 def test_controlnet_controls_still_refused(control):
+    """openpose is not ported; the other ControlNet controls are refused on
+    a bundle without a ControlNet and build on one with it."""
     bundle = init_model("tiny", weight_dtype="fp32", device="cpu")
-    with pytest.raises(NotImplementedError, match="control"):
+    if control == "openpose":
+        with pytest.raises(NotImplementedError, match="control"):
+            TGen(bundle, _config(control=control))
+        return
+    with pytest.raises(ValueError, match="needs a ControlNet"):
         TGen(bundle, _config(control=control))
+    with_cn = init_model("tiny", weight_dtype="fp32", device="cpu",
+                         control=control)
+    gen = TGen(with_cn, _config(control=control))
+    assert gen.use_controlnet and not gen.use_pnp and gen.num_lanes == 2
 
 
 @pytest.mark.parametrize("stage", ["inversion", "generation"])

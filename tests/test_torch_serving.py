@@ -199,7 +199,7 @@ def test_serve_yaml_builds_both_stages():
     ("generation", "merge_ff", True),
     ("generation", "chunk_batch", True),
     ("generation", "chunk_boundaries", "ragged"),
-    ("inversion", "control", "canny"),
+    ("inversion", "control", "openpose"),
     ("top", "use_lora", True),
 ])
 def test_serve_yaml_still_refuses_unported(stage, key, value):

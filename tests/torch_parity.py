@@ -61,14 +61,44 @@ def port_tome(cfg) -> ToMeConfig:
 
 
 def port_bundle_from_jax(bundle, sd_version: str = "tiny"):
-    """A CPU fp32 port bundle carrying the JAX bundle's weights."""
-    port = init_model(sd_version, weight_dtype="fp32", device="cpu")
-    for mod, tree, comp in ((port.unet, bundle.unet_params, "unet"),
-                            (port.vae, bundle.vae_params, "vae"),
-                            (port.text_encoder, bundle.text_params, "text")):
+    """A CPU fp32 port bundle carrying the JAX bundle's weights (its
+    ControlNet's too, where it holds one)."""
+    has_cn = bundle.controlnet_params is not None
+    port = init_model(sd_version, weight_dtype="fp32", device="cpu",
+                      control="canny" if has_cn else "none")
+    mods = [(port.unet, bundle.unet_params, "unet"),
+            (port.vae, bundle.vae_params, "vae"),
+            (port.text_encoder, bundle.text_params, "text")]
+    if has_cn:
+        mods.append((port.controlnet, bundle.controlnet_params, "controlnet"))
+    for mod, tree, comp in mods:
         tree = jax.tree.map(np.asarray, jax.device_get(tree))
         mod.load_state_dict(convert.from_jax_params(tree, comp), strict=True)
     return port
+
+
+def perturb_zero_convs(params, seed: int = 0):
+    """A JAX ControlNet parameter tree with its zero-initialised convs (the
+    zero convs and the hint encoder's ``conv_out``) moved by 0.05 N(0, 1),
+    as trained ControlNets have them (``tests/test_pipeline_control.py``
+    perturbs the zero convs): at zero the ControlNet adds nothing."""
+    params = dict(params)
+    rng = np.random.default_rng(seed)
+
+    def move(a):
+        a = np.asarray(a)
+        return a + (0.05 * rng.standard_normal(a.shape)).astype(a.dtype)
+
+    def moved(tree):
+        return jax.tree.map(move, tree)
+
+    for name in sorted(params):
+        if name.startswith("zero_convs") or name == "mid_zero_conv":
+            params[name] = moved(params[name])
+    emb = dict(params["cond_embedding"])
+    emb["conv_out"] = moved(emb["conv_out"])
+    params["cond_embedding"] = emb
+    return params
 
 
 def module_state(tree) -> dict[str, torch.Tensor]:

@@ -4,7 +4,11 @@
 
 Takes the same YAML as ``python -m vidtome_tpu.cli``, read by the port's
 own config loader (``vidtome_torch.config``), with the port's own video and
-latent-cache I/O (``vidtome_torch.io``).
+artifact I/O (``vidtome_torch.io``).  A ControlNet control (for example
+``configs/demo-canny.yaml``) loads the ControlNet named by
+``generation.control`` from the top-level ``controlnet_root`` (random,
+warned, without one), and generation reads the clip's frames to make their
+control images, cached under ``<work_dir>/<control>_image/``.
 """
 
 from __future__ import annotations
@@ -74,8 +78,15 @@ def run_generation(config, bundle):
     table = torch.from_numpy(np.stack([
         artifacts.load_latent(latents_dir, t, frame_ids=frame_ids)
         for t in ts]))
+    control = None
+    if generator.use_controlnet:
+        frames = load_video(config["input_path"], int(config["height"]),
+                            int(config["width"]), frame_ids=frame_ids)
+        control = generator.load_control(frames, frame_ids,
+                                         config["work_dir"])
     outputs = generator(table[0],
-                        src_table=table if generator.use_pnp else None)
+                        src_table=table if generator.use_pnp else None,
+                        control=control)
     for name, frames in outputs.items():
         out_dir = os.path.join(gene["output_path"], name)
         save_config(config, out_dir, gene=True)
@@ -92,7 +103,10 @@ def main(argv=None):
     bundle = init_model(sd_version=str(config.get("sd_version", "1.5")),
                         model_key=config.get("model_key", None),
                         weight_dtype=str(config.get("float_precision", "bf16")),
-                        device="cuda", seed=int(config.get("seed", 123)))
+                        device="cuda", seed=int(config.get("seed", 123)),
+                        control=str(config["generation"].get("control",
+                                                             "none")),
+                        controlnet_root=config.get("controlnet_root", None))
     config["model_key"] = bundle.model_key
     run_inversion(config, bundle)
     run_generation(config, bundle)

@@ -1,12 +1,11 @@
-"""The inverted-latent cache on disk.
+"""Artifact caches on disk: inverted latents, depth maps, control images.
 
-Counterpart of the latent half of ``vidtome_tpu/io/artifacts.py``, with the
-same layout, so either package reads what the other wrote:
+Counterpart of ``vidtome_tpu/io/artifacts.py``, with the same layout, so
+either package reads what the other wrote:
 
   <latents_path>/<model name>/noisy_latents_<t>.npy   one per saved timestep
-
-The depth and control-image caches of the JAX package belong to the
-ControlNet / depth paths, which the port does not run yet.
+  <work_dir>/depth/<frame:04>.npy (+ .png preview)
+  <work_dir>/<control>_image/<frame:04>.png
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+from PIL import Image
 
 
 def get_latents_dir(latents_path: str, model_key: str) -> str:
@@ -45,3 +45,54 @@ def load_latent(latents_dir: str, t: int,
 
 def check_latents_exist(latents_dir: str, timesteps) -> bool:
     return all(os.path.exists(latent_path(latents_dir, t)) for t in timesteps)
+
+
+def depth_cache_dir(work_dir: str) -> str:
+    return os.path.join(work_dir, "depth")
+
+
+def load_or_compute_depth(work_dir: str, frames: np.ndarray,
+                          frame_ids: list[int], compute_fn) -> np.ndarray:
+    """Per-frame depth maps through the disk cache (reference
+    utils/utils.py:186-213).  ``compute_fn(frame[H,W,3]) -> [h,w]``."""
+    ddir = depth_cache_dir(work_dir)
+    os.makedirs(ddir, exist_ok=True)
+    out = []
+    for frame, fid in zip(frames, frame_ids):
+        path = os.path.join(ddir, f"{fid:04}.npy")
+        if os.path.exists(path):
+            depth = np.load(path)
+        else:
+            depth = np.asarray(compute_fn(frame), dtype=np.float32)
+            np.save(path, depth)
+            preview = ((depth - depth.min())
+                       / max(depth.max() - depth.min(), 1e-8) * 255)
+            Image.fromarray(preview.astype(np.uint8)).save(
+                path.replace(".npy", ".png"))
+        out.append(depth)
+    return np.stack(out)
+
+
+def control_image_dir(work_dir: str, control: str) -> str:
+    return os.path.join(work_dir, f"{control}_image")
+
+
+def load_or_compute_control(work_dir: str, control: str, frames: np.ndarray,
+                            frame_ids: list[int], compute_fn) -> np.ndarray:
+    """Control images through the png cache (reference
+    utils/utils.py:312-343): read back when every frame's png exists, else
+    ``compute_fn(frames[T,H,W,3]) -> [T,H,W,3]`` in [0,1], written out and
+    returned as computed."""
+    cdir = control_image_dir(work_dir, control)
+    paths = [os.path.join(cdir, f"{fid:04}.png") for fid in frame_ids]
+    if os.path.exists(cdir) and all(os.path.exists(p) for p in paths):
+        print(f"[INFO] load control image from {cdir}.")
+        return np.concatenate([
+            np.asarray(Image.open(p).convert("RGB"), np.float32)[None] / 255.0
+            for p in paths])
+    print("[INFO] preprocessing control images...")
+    images = np.asarray(compute_fn(frames))
+    os.makedirs(cdir, exist_ok=True)
+    for img, p in zip(images, paths):
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(p)
+    return images

@@ -61,7 +61,17 @@ _TEXT_RULES = [
     (r"^final_layer_norm/", "text_model/final_layer_norm/"),
 ]
 
-_RULES = {"unet": _UNET_RULES, "vae": _VAE_RULES, "text": _TEXT_RULES}
+# the ControlNet's trunk carries the UNet's names; its own modules are the
+# inverse of JAX ``convert.py:214-222``
+_CONTROLNET_RULES = [
+    (r"^cond_embedding/blocks_(\d+)/", r"controlnet_cond_embedding/blocks.\1/"),
+    (r"^cond_embedding/", "controlnet_cond_embedding/"),
+    (r"^zero_convs_(\d+)/", r"controlnet_down_blocks.\1/"),
+    (r"^mid_zero_conv/", "controlnet_mid_block/"),
+] + _UNET_RULES
+
+_RULES = {"unet": _UNET_RULES, "vae": _VAE_RULES, "text": _TEXT_RULES,
+          "controlnet": _CONTROLNET_RULES}
 
 # legacy diffusers VAE attention names -> the modern ones the port uses
 _LEGACY_VAE = {"query": "to_q", "key": "to_k", "value": "to_v",
@@ -91,8 +101,8 @@ def _leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
 
 def from_jax_params(tree: Mapping[str, Any],
                     component: str) -> dict[str, torch.Tensor]:
-    """Flax parameter tree of ``component`` ('unet', 'vae' or 'text'),
-    numpy leaves -> the port's state dict (fp32 tensors)."""
+    """Flax parameter tree of ``component`` ('unet', 'vae', 'text' or
+    'controlnet'), numpy leaves -> the port's state dict (fp32 tensors)."""
     rules = _RULES[component]
     state = {}
     for path, value in _flatten(tree).items():
@@ -104,16 +114,18 @@ def from_jax_params(tree: Mapping[str, Any],
     return state
 
 
-def from_jax_qparams(qtree: Mapping[str, Any], unet: torch.nn.Module):
-    """A JAX ``quantize_params`` qparams tree of the UNet (numpy leaves
-    ``kernel_q`` / ``scale`` / ``act_scale`` under each module) -> the
-    port's :class:`~vidtome_torch.ops.quant.QuantTable` of ``unet``.  Module
+def from_jax_qparams(qtree: Mapping[str, Any], unet: torch.nn.Module,
+                     component: str = "unet"):
+    """A JAX ``quantize_params`` qparams tree of the UNet or the ControlNet
+    (``component``; numpy leaves ``kernel_q`` / ``scale`` / ``act_scale``
+    under each module) -> the port's
+    :class:`~vidtome_torch.ops.quant.QuantTable` of ``unet``.  Module
     paths take the :func:`from_jax_params` names; an HWIO ``kernel_q``
     becomes OIHW (packed, as ``quantize_unet`` stores it), a dense [K, N]
     one [N, K]; the scales carry over unchanged."""
     modules: dict[str, dict] = {}
     for path, value in _flatten(qtree).items():
-        for pattern, repl in _UNET_RULES:
+        for pattern, repl in _RULES[component]:
             path = re.sub(pattern, repl, path)
         module, _, leaf = path.rpartition("/")
         modules.setdefault(module.replace("/", "."), {})[leaf] = np.asarray(
@@ -136,7 +148,8 @@ def from_jax_qparams(qtree: Mapping[str, Any], unet: torch.nn.Module):
 
 def from_diffusers(state: Mapping[str, Any],
                    component: str) -> dict[str, torch.Tensor]:
-    """A diffusers / transformers state dict -> the port's state dict."""
+    """A diffusers / transformers state dict -> the port's state dict
+    (``component`` 'unet', 'vae', 'text' or 'controlnet')."""
     out = {}
     for key, value in state.items():
         t = torch.as_tensor(np.asarray(value) if not isinstance(

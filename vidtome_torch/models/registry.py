@@ -10,6 +10,11 @@ with the flax initializer families the JAX package uses: truncated
 scale / bias, ``normal(1/sqrt(width))`` token and ``normal(0.01)``
 position embeddings.  The UNet and the VAE take the serving dtype; the text
 encoder stays fp32, as in the JAX package.
+
+A ``control`` naming a ControlNet (``CONTROLNET_DICT``) adds
+``ModelBundle.controlnet``, loaded from ``<controlnet_root>/<name>`` when
+that directory exists, else random (warned) with its zero convolutions at
+zero, as the JAX package initialises them: a no-op until trained.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch import nn
 from vidtome_torch.models import convert
 from vidtome_torch.models.clip_text import (SD15_TEXT, SD21_TEXT,
                                             TINY_TEXT, CLIPTextModel)
+from vidtome_torch.models.controlnet import ControlNetModel
 from vidtome_torch.models.layers import GroupNorm
 from vidtome_torch.models.tokenizer import load_tokenizer
 from vidtome_torch.models.unet import (SD15_UNET, SD21_UNET, TINY_UNET,
@@ -43,6 +49,18 @@ SD_CONFIGS = {
 # versions the JAX package runs that the port does not yet
 _UNPORTED_VERSIONS = ("depth", "xl", "xl-refiner", "tiny-refiner")
 
+# ControlNet checkpoints by control type (reference
+# utils/controlnet_utils.py:17-25), under <controlnet_root>/<name>
+CONTROLNET_DICT = {
+    "tile": "control_v11f1e_sd15_tile",
+    "ip2p": "control_v11e_sd15_ip2p",
+    "openpose": "control_v11p_sd15_openpose",
+    "softedge": "control_v11p_sd15_softedge",
+    "depth": "control_v11f1p_sd15_depth",
+    "lineart_anime": "control_v11p_sd15s2_lineart_anime",
+    "canny": "control_v11p_sd15_canny",
+}
+
 
 @dataclasses.dataclass
 class ModelBundle:
@@ -56,6 +74,7 @@ class ModelBundle:
     tokenizer: object
     dtype: torch.dtype
     device: torch.device
+    controlnet: ControlNetModel | None = None
 
 
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -86,9 +105,14 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
 
 def init_model(sd_version: str = "1.5", model_key: str | None = None,
                weight_dtype: str = "bf16", device: str | torch.device = "cuda",
-               seed: int = 0) -> ModelBundle:
+               seed: int = 0, control: str = "none",
+               controlnet_root: str | None = None) -> ModelBundle:
     """Build the SD stack on ``device`` (reference utils/utils.py:19-67).
-    ``weight_dtype``: 'bf16' (or 'fp16', which means bf16 here) or 'fp32'."""
+    ``weight_dtype``: 'bf16' (or 'fp16', which means bf16 here) or 'fp32'.
+    ``control``: a key of ``CONTROLNET_DICT`` adds its ControlNet."""
+    if control not in ("none", "pnp") and control not in CONTROLNET_DICT:
+        raise ValueError(f"unknown control type {control!r} (choices: none, "
+                         f"pnp, {', '.join(CONTROLNET_DICT)})")
     if sd_version in _UNPORTED_VERSIONS:
         raise NotImplementedError(f"sd_version {sd_version!r} is not ported "
                                   f"to vidtome_torch yet (ROADMAP.md, queue 1)")
@@ -123,7 +147,38 @@ def init_model(sd_version: str = "1.5", model_key: str | None = None,
     tokenizer = load_tokenizer(model_key if have_weights else None,
                                vocab_size=text_cfg.vocab_size,
                                max_length=text_cfg.max_positions)
+    controlnet = None
+    if control in CONTROLNET_DICT:
+        # every reference ControlNet is SD1.5's; the tiny stack gets a tiny
+        # one (JAX registry.py:289-311)
+        controlnet = init_controlnet(
+            control, unet_cfg if sd_version == "tiny" else SD15_UNET,
+            controlnet_root, device, seed + 3).to(dtype).eval()
     return ModelBundle(
         model_key=name, sd_version=sd_version, unet=unet.to(dtype).eval(),
         vae=vae.to(dtype).eval(), text_encoder=text.float().eval(),
-        tokenizer=tokenizer, dtype=dtype, device=device)
+        tokenizer=tokenizer, dtype=dtype, device=device,
+        controlnet=controlnet)
+
+
+def init_controlnet(control: str, config, controlnet_root: str | None,
+                    device: torch.device, seed: int) -> ControlNetModel:
+    """The ControlNet of ``control`` (fp32): the checkpoint under
+    ``<controlnet_root>/<CONTROLNET_DICT[control]>`` if that directory
+    exists, else random (warned), its zero convolutions at zero."""
+    with torch.device(device):
+        model = ControlNetModel(config)
+    cn_dir = (os.path.join(controlnet_root, CONTROLNET_DICT[control])
+              if controlnet_root else None)
+    if cn_dir and os.path.isdir(cn_dir):
+        print(f"[INFO] loading controlnet from: {cn_dir}")
+        model.load_state_dict(convert.from_diffusers(
+            convert.load_component_state(cn_dir, "."), "controlnet"),
+            strict=True)
+        return model
+    print("[WARNING] ControlNet weights not found — random init")
+    init_random_(model, torch.Generator(device=device).manual_seed(seed))
+    with torch.no_grad():
+        for mod in model.zero_init_modules():
+            mod.weight.zero_()
+    return model

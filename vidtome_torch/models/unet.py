@@ -1,9 +1,9 @@
 """Conditional UNet of Stable Diffusion 1.x / 2.x, NHWC.
 
 Counterpart of ``vidtome_tpu/models/unet.py``: the exact path, the
-deep-feature cache split (``cache_mode``), the PnP injection flags and the
-int8 (W8A8) layers of a per-call table; no
-ControlNet residuals, no SDXL embeddings.  Module names follow diffusers'
+deep-feature cache split (``cache_mode``), the PnP injection flags, the
+int8 (W8A8) layers of a per-call table and the ControlNet residuals; no
+SDXL embeddings.  Module names follow diffusers'
 ``UNet2DConditionModel`` (``down_blocks.0.resnets.1`` ...), so its state
 dict is the diffusers one.  Token merging enters through ``tome_call``
 (``models/tome.py``) in every transformer block at downsample <=
@@ -132,7 +132,8 @@ class UNet2DConditionModel(nn.Module):
                 resnet_mode: str = "off", sublayer_mode: str = "off",
                 attn_inject: bool | None = None,
                 conv_inject: bool | None = None, num_lanes: int = 1,
-                qt=None):
+                qt=None, down_residuals: Sequence[torch.Tensor] | None = None,
+                mid_residual: torch.Tensor | None = None):
         """x [B, H, W, Cin], t scalar timestep, context [B, S, Dctx]
         -> eps [B, H, W, Cout] in the weights' dtype.
 
@@ -152,7 +153,13 @@ class UNet2DConditionModel(nn.Module):
         lane-major blocks, lane 0 the source.  ``conv_inject`` goes to up
         block 1, resnet 1 only; ``attn_inject`` to up block 1's attentions
         1 and up and to every attention of the later up blocks.  None means
-        no PnP (the injected resnet may then take the fused kernel)."""
+        no PnP (the injected resnet may then take the fused kernel).
+
+        ControlNet (JAX ``unet.py:255-267``): a full call adds
+        ``mid_residual`` after the mid block and one of ``down_residuals``
+        to every skip (their count must match); a shallow call adds them to
+        the level-0 skips it recomputes, pairing the leading residuals with
+        them (the deep residuals' effect rides the cache)."""
         if cache_mode not in ("off", "full", "shallow"):
             raise ValueError(f"cache_mode {cache_mode!r}")
         n_up = len(self.up_blocks)
@@ -187,8 +194,16 @@ class UNet2DConditionModel(nn.Module):
             h = mid.resnets[0](h, temb, resnet_mode, qt=qt)
             h = mid.attentions[0](h, context, tome_call, **blk_kw)
             h = mid.resnets[1](h, temb, resnet_mode, qt=qt)
+            if mid_residual is not None:
+                h = h + mid_residual
+            if down_residuals is not None and len(down_residuals) != len(
+                    skips):
+                raise ValueError(f"expected {len(skips)} down residuals, "
+                                 f"got {len(down_residuals)}")
         else:
             h = deep_cache.to(dtype)
+        if down_residuals is not None:
+            skips = [s + r for s, r in zip(skips, down_residuals)]
 
         deep = None
         for i, blk in enumerate(self.up_blocks):

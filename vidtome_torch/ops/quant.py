@@ -53,6 +53,11 @@ DEFAULT_EXCLUDE = (
     r"(^|\.)conv_in$|(^|\.)conv_out$|\.ff\.net\.2$|"
     r"attentions\.\d+\.proj_out$|"
     r"downsamplers|upsamplers|conv_shortcut")
+# the ControlNet's policy (JAX ``generator.py:361-374``: DEFAULT_EXCLUDE plus
+# "zero_conv|cond_embedding"): its residual-producing zero convs and the
+# image-space hint encoder stay in the serving dtype as well
+CONTROLNET_EXCLUDE = (DEFAULT_EXCLUDE + r"|controlnet_down_blocks|"
+                      r"controlnet_mid_block|controlnet_cond_embedding")
 # a module whose input is its sibling norm's output: the static scale
 _STATIC_PAIRS = {"conv1": "norm1", "conv2": "norm2", "proj_in": "norm"}
 

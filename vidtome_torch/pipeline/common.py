@@ -1,5 +1,5 @@
 """Shared pipeline pieces: text embedding, batched VAE coding, frame ids,
-stage precision and int8 serving.  Counterpart of
+stage precision, int8 serving and a stage's ControlNet.  Counterpart of
 ``vidtome_tpu/pipeline/common.py``."""
 
 from __future__ import annotations
@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vidtome_torch.models.registry import ModelBundle
+from vidtome_torch.control.preprocess import validate_control_available
+from vidtome_torch.models.registry import CONTROLNET_DICT, ModelBundle
 from vidtome_torch.ops import quant as quant_ops
 
 
@@ -66,10 +67,12 @@ class VAECoder:
 
 # Options of the JAX package that the port does not run yet, with the
 # values it does run: a config that turns one on is refused rather than run
-# without it.  Every ControlNet control is unported; "pnp" is not a
-# ControlNet and runs.
+# without it.  Every control runs but openpose, whose preprocessor needs a
+# pose model that is not ported.
 _UNPORTED = {
-    "control": ("none", "pnp"), "chunk_batch": (False,),
+    "control": ("none", "pnp") + tuple(k for k in CONTROLNET_DICT
+                                       if k != "openpose"),
+    "chunk_batch": (False,),
     "chunk_boundaries": ("rotate",), "merge_crossattn": (False,),
     "merge_ff": (False,), "refiner": (None,), "use_lora": (False,),
 }
@@ -101,8 +104,8 @@ def resolve_precision(config, stage_cfg, bundle: ModelBundle) -> torch.dtype:
     """The stage's ``float_precision`` (falling back to the global one),
     read as the JAX package and the registry read it: "bf16" and "fp16"
     mean bf16, every other value fp32.  When it differs from the weights',
-    the bundle's UNet and VAE are cast in place; the text encoder stays
-    fp32."""
+    the bundle's UNet, VAE and ControlNet are cast in place; the text
+    encoder stays fp32."""
     prec = stage_cfg.get("float_precision",
                          config.get("float_precision", "bf16"))
     want = torch.bfloat16 if prec in ("bf16", "fp16") else torch.float32
@@ -111,6 +114,8 @@ def resolve_precision(config, stage_cfg, bundle: ModelBundle) -> torch.dtype:
               f"{bundle.dtype} -> {want} for this stage")
         bundle.unet.to(want)
         bundle.vae.to(want)
+        if bundle.controlnet is not None:
+            bundle.controlnet.to(want)
         bundle.dtype = want
     return want
 
@@ -138,3 +143,29 @@ def stage_quant_table(quant: str, bundle: ModelBundle, stage: str):
     print(f"[INFO] int8 serving ({stage}): quantized "
           f"{quant_ops.count_quantized(table)} UNet weight tensors")
     return table
+
+
+def stage_controlnet(control: str, bundle: ModelBundle, stage: str) -> bool:
+    """Whether a stage with this ``control`` runs the bundle's ControlNet;
+    raises where the control's preprocessor is not ported or the bundle
+    holds no ControlNet (JAX ``registry.make_controlnet`` asserts)."""
+    if control not in CONTROLNET_DICT:
+        return False
+    validate_control_available(control)
+    if bundle.controlnet is None:
+        raise ValueError(f"{stage}.control={control!r} needs a ControlNet in "
+                         f"the bundle: init_model(..., control={control!r})")
+    return True
+
+
+def stage_controlnet_table(quant: str, bundle: ModelBundle, stage: str):
+    """The stage's int8 ControlNet table (None for ``quant: none``), under
+    the ControlNet policy (``ops/quant.CONTROLNET_EXCLUDE``)."""
+    if quant == "none":
+        return None
+    table = quant_ops.quantize_unet(bundle.controlnet,
+                                    exclude=quant_ops.CONTROLNET_EXCLUDE)
+    print(f"[INFO] int8 serving ({stage}): quantized "
+          f"{quant_ops.count_quantized(table)} ControlNet weight tensors")
+    return table
+

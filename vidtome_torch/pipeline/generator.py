@@ -30,6 +30,15 @@ and k, while ``step < pnp_conv_steps`` up block 1's resnet 1 takes its conv
 features.  Merging aligns its matchings over the three lanes.  CFG-skip
 steps keep the source lane and drop only the uncond one.
 
+ControlNet (``control`` a key of ``CONTROLNET_DICT`` but openpose, JAX
+``generator.py:530-538``): before every UNet call the bundle's ControlNet
+runs on the same input, timestep and lane contexts, with the control
+images of the chunk's frames tiled over the lanes that run, and its
+residuals, scaled by ``control_scale``, go into the UNet.  It runs unmerged
+and on shallow steps too; eps-skip steps run neither network.  The control
+images come from :meth:`Generator.load_control` (the png cache under
+``work_dir``).
+
 Randomness: the chunk schedule comes from ``np.random.default_rng(seed)`` as
 in the JAX package; the merge draws (dst frame per local round, global
 coin) come from a :class:`~vidtome_torch.models.tome.DrawSource`, by default
@@ -40,19 +49,24 @@ every prompt, so every edit sees the same schedule and draws.
 from __future__ import annotations
 
 import collections
+import functools
 import sys
 
 import numpy as np
 import torch
 
+from vidtome_torch.control.preprocess import control_preprocess
 from vidtome_torch.core import chunk as chunking
 from vidtome_torch.core.scheduler import DDIMScheduler, ddim_step
+from vidtome_torch.io import artifacts
 from vidtome_torch.models.layers import RESNET_MODES, SUBLAYER_MODES
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
                                            resolve_precision,
+                                           stage_controlnet,
+                                           stage_controlnet_table,
                                            stage_quant_table)
 
 
@@ -229,6 +243,10 @@ class Generator:
                 "disable the deep-feature cache.")
         self.sublayer_mode = parse_sublayer_mode(gene, config)
         reject_unported("generation", gene, config)
+        self.control = str(gene.get("control", "none"))
+        self.control_scale = float(gene.get("control_scale", 1.0))
+        self.use_controlnet = stage_controlnet(self.control, bundle,
+                                               "generation")
         self.resnet_mode = parse_resnet_mode(gene, config)
         self.quant = parse_quant(gene, config)
         self.bundle = bundle
@@ -257,6 +275,8 @@ class Generator:
         resolve_precision(config, gene, bundle)
         # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
         self.qt = stage_quant_table(self.quant, bundle, "generation")
+        self.cn_qt = (stage_controlnet_table(self.quant, bundle, "generation")
+                      if self.use_controlnet else None)
         self.scheduler = DDIMScheduler.create(self.n_timesteps)
         # steps with source attention / conv injection (JAX
         # generator.py:295-299); 0 without PnP
@@ -333,6 +353,17 @@ class Generator:
                 cfgm = cfgm | deep
         return np.stack([deep, cfgm, epsm], axis=1)
 
+    def load_control(self, frames, frame_ids: list[int],
+                     work_dir: str) -> torch.Tensor:
+        """The control images of ``frames`` [T, H, W, 3] in [0, 1] through
+        the png cache ``<work_dir>/<control>_image/<frame:04>.png`` (JAX
+        ``generator.py:957-964``), on the bundle's device and dtype."""
+        images = artifacts.load_or_compute_control(
+            work_dir, self.control, np.asarray(frames), frame_ids,
+            functools.partial(control_preprocess, control_type=self.control))
+        return torch.from_numpy(np.asarray(images, np.float32)).to(
+            self.bundle.device, self.bundle.dtype)
+
     def context(self, prompt: str) -> torch.Tensor:
         """The lane contexts of one edit: [uncond; cond], with the empty
         source prompt first under PnP."""
@@ -343,16 +374,22 @@ class Generator:
     def ddim_sample(self, x: torch.Tensor, context: torch.Tensor,
                     fidx_table: np.ndarray | None = None,
                     draws: DrawSource | None = None,
-                    src_table: torch.Tensor | None = None) -> torch.Tensor:
+                    src_table: torch.Tensor | None = None,
+                    control: torch.Tensor | None = None) -> torch.Tensor:
         """Denoise padded latents x [n_padded, h, w, 4] under the lane
         contexts (:meth:`context`).  PnP needs ``src_table``
         [steps, n_padded, h, w, 4], the inversion's latents at each
-        generation timestep."""
+        generation timestep; a ControlNet ``control``, the padded control
+        images [n_padded, 8h, 8w, 3]."""
         sch = self.scheduler
         if self.use_pnp and (src_table is None
                              or src_table.shape[0] != sch.num_steps):
             raise ValueError(f"PnP needs src_table [{sch.num_steps}, "
                              f"n_padded, h, w, 4]")
+        if self.use_controlnet and (control is None
+                                    or control.shape[0] != x.shape[0]):
+            raise ValueError(f"control {self.control!r} needs the padded "
+                             f"control images [{x.shape[0]}, H, W, 3]")
         if context.shape[0] != self.num_lanes:
             raise ValueError(f"expected {self.num_lanes} lane contexts, got "
                              f"{context.shape[0]}")
@@ -413,11 +450,20 @@ class Generator:
                 x_lanes = [x_chunk] * (len(lanes) - self.use_pnp)
                 if self.use_pnp:
                     x_lanes.insert(0, src_table[i][gather].to(x.dtype))
-                out = unet(torch.cat(x_lanes), t, ctx, tome_call=call,
+                x_in = torch.cat(x_lanes)
+                residuals = {}
+                if self.use_controlnet:
+                    down, mid = self.bundle.controlnet(
+                        x_in, t, ctx, control[gather].repeat(len(lanes), 1,
+                                                             1, 1),
+                        conditioning_scale=self.control_scale, qt=self.cn_qt)
+                    residuals = dict(down_residuals=down, mid_residual=mid)
+                out = unet(x_in, t, ctx, tome_call=call,
                            cache_mode=cache_mode, deep_cache=deep_in,
                            resnet_mode=self.resnet_mode,
                            sublayer_mode=self.sublayer_mode,
-                           num_lanes=len(lanes), qt=self.qt, **pnp)
+                           num_lanes=len(lanes), qt=self.qt, **pnp,
+                           **residuals)
                 calls["shallow" if cache_mode == "shallow" else "full"] += 1
                 if cfg_skip:
                     calls["cfg_skip"] += 1
@@ -443,22 +489,26 @@ class Generator:
         return x
 
     def __call__(self, init_latents: torch.Tensor,
-                 src_table: torch.Tensor | None = None
+                 src_table: torch.Tensor | None = None,
+                 control: torch.Tensor | None = None
                  ) -> dict[str, torch.Tensor]:
         """Edit every prompt from the inverted latents [n, h, w, 4] (and,
         for PnP, the inversion latents at every generation timestep,
-        [steps, n, h, w, 4]); returns {edit name: frames [n, H, W, 3] in
-        [0, 1]}."""
+        [steps, n, h, w, 4]; for a ControlNet, the control images
+        [n, H, W, 3] of :meth:`load_control`); returns {edit name: frames
+        [n, H, W, 3] in [0, 1]}."""
         self.configure_frames(init_latents.shape[0])
         dev = self.bundle.device
         pad = torch.as_tensor(self.pad_src, device=dev)
         x0 = init_latents.to(dev, self.bundle.dtype)[pad]
         if src_table is not None:
             src_table = src_table.to(dev, self.bundle.dtype)[:, pad]
+        if control is not None:
+            control = control.to(dev, self.bundle.dtype)[pad]
         outputs = {}
         for name, prompt in self.prompt.items():
             print(f"[INFO] current prompt: {prompt}")
             clean = self.ddim_sample(x0, self.context(prompt),
-                                     src_table=src_table)
+                                     src_table=src_table, control=control)
             outputs[name] = self.vae.decode(clean[:self.n_frames])
         return outputs

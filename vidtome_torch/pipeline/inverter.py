@@ -3,7 +3,11 @@
 Counterpart of ``vidtome_tpu/pipeline/inverter.py`` (``_run`` /
 ``ddim_inversion``): VAE-encode the clip, walk the DDIM schedule upward
 predicting noise with the UNet (no merging: merging applies during
-generation only), frames in fixed micro-batches.  No ControlNet.  With
+generation only), frames in fixed micro-batches.  With
+``inversion.control`` naming a ControlNet (JAX ``inverter.py:130-146``,
+``:186-194``), the bundle's ControlNet runs before every UNet call on the
+same micro-batch, fed the control images of its frames (computed from the
+frames, padded as the latents are), and its residuals go into the UNet.  With
 ``save_intermediate`` the latents of every save timestep are kept: in
 memory (``Inverter.saved``, the source table PnP generation reads) and
 through the caller's ``save_latent`` hook (``cli.py`` writes them to disk).
@@ -22,7 +26,10 @@ from __future__ import annotations
 import collections
 from typing import Callable
 
+import numpy as np
 import torch
+
+from vidtome_torch.control.preprocess import control_preprocess
 
 from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
                                           ddim_step)
@@ -30,6 +37,8 @@ from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
                                            resolve_precision,
+                                           stage_controlnet,
+                                           stage_controlnet_table,
                                            stage_quant_table)
 from vidtome_torch.pipeline.generator import (EpsHistory,
                                               parse_eps_extrapolate,
@@ -48,6 +57,10 @@ class Inverter:
         inv = config["inversion"]
         self.sublayer_mode = parse_sublayer_mode(inv, config)
         reject_unported("inversion", inv, config)
+        self.control = str(inv.get("control", "none"))
+        self.control_scale = float(inv.get("control_scale", 1.0))
+        self.use_controlnet = stage_controlnet(self.control, bundle,
+                                               "inversion")
         self.cache_interval = int(inv.get("cache_interval", 0) or 0)
         self.cache_schedule = inv.get("cache_schedule") or None
         self.cache_reverse = bool(inv.get("cache_reverse", False))
@@ -69,6 +82,8 @@ class Inverter:
         resolve_precision(config, inv, bundle)
         # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
         self.qt = stage_quant_table(self.quant, bundle, "inversion")
+        self.cn_qt = (stage_controlnet_table(self.quant, bundle, "inversion")
+                      if self.use_controlnet else None)
         self.scheduler = DDIMScheduler.create(self.steps)
         self.timesteps_to_save = set(
             int(t) for t in DDIMScheduler.create(self.save_steps).timesteps)
@@ -115,16 +130,35 @@ class Inverter:
                                  "first step: the eps cache starts empty")
         return mask, eps_mask
 
+    def control_images(self, frames) -> torch.Tensor | None:
+        """The control images of ``frames`` [T, H, W, 3] in [0, 1] for a
+        ControlNet stage (JAX ``inverter.py:438-441``: preprocessed, not
+        cached), on the bundle's device and dtype; None without one."""
+        if not self.use_controlnet:
+            return None
+        if isinstance(frames, torch.Tensor):
+            frames = frames.float().cpu().numpy()
+        images = control_preprocess(np.asarray(frames), self.control)
+        return torch.from_numpy(np.asarray(images, np.float32)).to(
+            self.bundle.device, self.bundle.dtype)
+
     @torch.inference_mode()
     def _run(self, latents: torch.Tensor, conds: torch.Tensor,
-             inversion: bool, on_step: Callable | None = None) -> torch.Tensor:
-        """One UNet call per micro-batch of frames and timestep, then the
-        DDIM (inverse) update of all frames (reference invert.py:122-131);
-        eps-skip steps run only the update on the predicted eps."""
+             inversion: bool, on_step: Callable | None = None,
+             control: torch.Tensor | None = None) -> torch.Tensor:
+        """One UNet call (after the ControlNet's, with ``control``) per
+        micro-batch of frames and timestep, then the DDIM (inverse) update
+        of all frames (reference invert.py:122-131); eps-skip steps run
+        only the update on the predicted eps."""
         n, bs = latents.shape[0], self.batch_size
+        if self.use_controlnet and (control is None or control.shape[0] != n):
+            raise ValueError(f"inversion.control {self.control!r} needs the "
+                             f"control images of the {n} frames")
         n_p = -(-n // bs) * bs
         x = _pad_frames(latents, n_p).clone()
         conds = _pad_frames(conds, n_p)
+        if control is not None:
+            control = _pad_frames(control, n_p)
         sch = self.scheduler
         ts = sch.timesteps[::-1] if inversion else sch.timesteps
         unet = self.bundle.unet
@@ -147,12 +181,22 @@ class Inverter:
                     "full" if mask[i] else "shallow")
                 parts = []
                 for b in range(0, n_p, bs):
+                    residuals = {}
+                    if self.use_controlnet:
+                        down, mid = self.bundle.controlnet(
+                            x[b:b + bs], t, conds[b:b + bs],
+                            control[b:b + bs],
+                            conditioning_scale=self.control_scale,
+                            qt=self.cn_qt)
+                        residuals = dict(down_residuals=down,
+                                         mid_residual=mid)
                     out = unet(x[b:b + bs], t, conds[b:b + bs],
                                cache_mode=mode,
                                deep_cache=(deep[b:b + bs]
                                            if mode == "shallow" else None),
                                resnet_mode=self.resnet_mode,
-                               sublayer_mode=self.sublayer_mode, qt=self.qt)
+                               sublayer_mode=self.sublayer_mode, qt=self.qt,
+                               **residuals)
                     calls["shallow" if mode == "shallow" else "full"] += 1
                     if mode == "full":
                         out, deep[b:b + bs] = out
@@ -166,11 +210,13 @@ class Inverter:
         return x[:n]
 
     def ddim_inversion(self, latents: torch.Tensor, conds: torch.Tensor,
-                       save_latent: Callable | None = None) -> torch.Tensor:
+                       save_latent: Callable | None = None,
+                       control: torch.Tensor | None = None) -> torch.Tensor:
         """Invert clean latents [T, h, w, 4] to the noisiest timestep.
         With ``save_intermediate``, the latents at the save timesteps are
         kept in :attr:`saved` and handed to ``save_latent(t, latents)`` if
-        given (JAX ``inverter.py:384-392``)."""
+        given (JAX ``inverter.py:384-392``).  A ControlNet stage takes the
+        frames' ``control`` images (:meth:`control_images`)."""
         ts_up = self.scheduler.timesteps[::-1]
         self.saved = {}
 
@@ -181,7 +227,8 @@ class Inverter:
                 if save_latent is not None:
                     save_latent(t, x)
 
-        return self._run(latents, conds, inversion=True, on_step=hook)
+        return self._run(latents, conds, inversion=True, on_step=hook,
+                         control=control)
 
     def source_table(self, timesteps) -> torch.Tensor:
         """PnP's source latents [len(timesteps), T, h, w, 4] from the last
@@ -193,10 +240,10 @@ class Inverter:
                              "every generation timestep saved")
         return torch.stack([self.saved[int(t)] for t in timesteps])
 
-    def ddim_sample(self, latents: torch.Tensor,
-                    conds: torch.Tensor) -> torch.Tensor:
+    def ddim_sample(self, latents: torch.Tensor, conds: torch.Tensor,
+                    control: torch.Tensor | None = None) -> torch.Tensor:
         """Reconstruct clean latents from inverted ones (fidelity check)."""
-        return self._run(latents, conds, inversion=False)
+        return self._run(latents, conds, inversion=False, control=control)
 
     def encode(self, frames) -> tuple[torch.Tensor, torch.Tensor]:
         """Frames [T, H, W, 3] in [0, 1] -> (clean latents, per-frame
@@ -209,8 +256,10 @@ class Inverter:
         """Invert ``frames``; returns (inverted latents, reconstructed
         frames or None)."""
         latents, conds = self.encode(frames)
-        inverted = self.ddim_inversion(latents, conds, save_latent)
+        control = self.control_images(frames)
+        inverted = self.ddim_inversion(latents, conds, save_latent, control)
         recon = None
         if self.recon:
-            recon = self.vae.decode(self.ddim_sample(inverted, conds))
+            recon = self.vae.decode(self.ddim_sample(inverted, conds,
+                                                     control))
         return inverted, recon
