@@ -99,9 +99,42 @@ Phases (any failure exits non-zero before the last line):
   12. SD2.1 reference check: one UNet call at an 8x8 latent with 3 lanes,
      both injections on and sublayer_mode="fused", card (bf16 kernels) vs
      CPU (fp32 plain); the same call with the injections off must differ
-     from it by more than the tolerance.
+     from it by more than the tolerance;
+  13. control models: random HED, lineart and pose nets (seeded, in their
+     checkpoint layouts; the pose net's last layers set so that its peaks
+     connect into a bounded number of people, write_control_nets) saved
+     with torch.save and named by VIDTOME_HED_MODEL / VIDTOME_LINEART_MODEL
+     / VIDTOME_POSE_MODEL; control_preprocess for softedge, lineart_anime
+     and openpose on the 8 frames at 512x512 on the card (fp32, TF32 off)
+     against the CPU: HED_SHARE_TOL of the safe_step pixels, lineart to
+     LINEART_CARD_TOL, the pose detector's same peaks and people (scores
+     to POSE_SCORE_RTOL) and drawn images; prints each net's ms a frame;
+  14. LoRA path: a fresh SD1.5 bundle with a softedge ControlNet (random,
+     zero convs moved), a synthetic kohya LoRA (rank LORA_RANK, alpha
+     LORA_ALPHA, on every attention projection, resnet conv and
+     time_emb_proj and the text encoder's q/k/v/out, seeded) written with
+     the port's safetensors writer; configs/breakdance.yaml's keys at
+     50+50 DDIM steps (the softedge images through the HED net of phase
+     13): the generation without the LoRA, then a Generator with use_lora
+     merges it (the merged weights must be W + delta within two bf16
+     roundings, a UNet call's launches must not change) and generates from
+     the same latents (the frames must differ); then, the weights restored,
+     a LoRA generator in int8 must quantize the merged weights (LORA_PROBE);
+  15. SD2-depth path: the SD2.1 bundle freed, SD2-depth at full width with
+     random weights (seeded), configs/flamingo.yaml's keys at 50+50 DDIM
+     steps, the proxy depth through the depth cache of a temporary
+     work_dir concatenated as the fifth channel in both stages: every UNet
+     call must launch flash, small-KV and the full GroupNorm entry as its
+     topology says, best match 2 or 4 times a generation call;
+  16. SD2-depth reference check: one UNet call at an 8x8 latent, card
+     (bf16 kernels) vs CPU (fp32 plain); the depth channel zeroed must
+     differ by more than the tolerance.
+``python3 chip_smoke.py --cli-inputs DIR`` instead writes the inputs of the
+CLI runs of configs/flamingo.yaml and configs/breakdance.yaml on
+data/demo.mp4 (write_cli_inputs) and exits.
 Then one JSON line with the kernels' numbers (launches: summed over the
-exact, serving, int8, ControlNet and PnP paths, each counted from 0; ms,
+exact, serving, int8, ControlNet, PnP, LoRA and SD2-depth paths, each
+counted from 0; ms,
 plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes, for
 group_norm (the stats, apply and finalize entries) stats + apply a
@@ -125,6 +158,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -161,6 +195,20 @@ SUBLAYER_TOL = 5e-2  # absolute on x3, y3: x3 up to |6| rounds by 2^-6, and
 PNP_STEPS = 50
 INT8_STEPS = 50
 CONTROLNET_STEPS = 50
+DEPTH_STEPS = 50
+LORA_STEPS = 50
+LORA_RANK, LORA_ALPHA = 8, 4.0
+# the merged module whose int8 weight is held against W and W + delta
+LORA_PROBE = "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_k"
+# the control nets on the card (fp32, TF32 off) vs the CPU (fp32): cuDNN
+# sums in another order, so a value may cross a threshold.  HED: the share
+# of its safe_step pixels (three levels) that may differ; lineart: its maps
+# in [0, 1], through fourteen instance norms, absolute; the pose scores
+# (peaks, limbs, people), relative, with the peaks and people themselves
+# required to be the same
+HED_SHARE_TOL = 1e-3
+LINEART_CARD_TOL = 1e-3
+POSE_SCORE_RTOL = 1e-3
 # launches of one SD1.5 ControlNet call (batch 8, unmerged; its 7
 # transformer blocks and 10 resnet blocks): flash for the self-attentions at
 # 64x64 and 32x32, small-KV for the 7 cross-attentions and the
@@ -337,6 +385,10 @@ FLASH_SHAPES = [  # (B, H, Sq, Skv, D)
     (3, 5, 6144, 6144, 64),   # SD2.1 PnP: L0 merged (+ global merge)
     (3, 10, 1536, 1536, 64),  # SD2.1 PnP: L1 merged (+ global merge)
     (8, 5, 4096, 4096, 64),   # SD2.1 inversion: L0 per frame
+    (2, 5, 5120, 5120, 64),   # SD2-depth (flamingo.yaml): L0 local merge
+    (2, 5, 5632, 5632, 64),   # SD2-depth: L0 after global merge at 0.9
+    (2, 10, 1408, 1408, 64),  # SD2-depth: L1 after global merge at 0.9
+    (2, 8, 7168, 7168, 40),   # SD1.5 + LoRA (breakdance.yaml): L0, global 0.6
 ]
 SMALL_KV_SHAPES = [  # (B, H, Sq, Skv, D)
     (8, 5, 4096, 77, 64),     # SD2.1 inversion: L0 cross-attention
@@ -349,18 +401,21 @@ SMALL_KV_SHAPES = [  # (B, H, Sq, Skv, D)
     (8, 8, 256, 256, 160),    # SD1.5 16x16 self-attention: widest tile
     (8, 8, 64, 77, 160),      # SD1.5 mid block cross-attention
     (8, 8, 64, 64, 160),      # SD1.5 mid block self-attention
+    (8, 20, 256, 256, 64),    # SD2-depth inversion: 16x16 self-attention
 ]
 # launches of each SMALL_KV_SHAPES row per UNet call: SD1.5 (batch 8: every
 # SD1.5 path; the 22 are all of its small-KV launches), an SD1.5 ControlNet
 # call (its 7 cross-attentions and 3 self-attentions), SD2.1 inversion
-# (batch 8) and SD2.1 PnP generation (batch 12, sublayer_mode off, the
-# default; under "fused" the sublayer kernel takes the cross-attentions).
+# (batch 8), SD2.1 PnP generation (batch 12, sublayer_mode off, the
+# default; under "fused" the sublayer kernel takes the cross-attentions)
+# and SD2-depth (batch 8: inversion, and generation's 2 lanes x 4 frames).
 # Each of the 16 transformer blocks runs one cross-attention: 5 at each of
 # the 64x64, 32x32 and 16x16 levels, 1 in the mid block; the self-attention
-# takes the kernel at 16x16 (5) and 8x8 (1).  The SD2.1 columns cover the
-# rows listed only (5 and 11 of their 22)
+# takes the kernel at 16x16 (5) and 8x8 (1).  The SD2.x columns cover the
+# rows listed only (5, 11 and 10 of their 22)
 SMALL_KV_LAUNCHES = {
-    (8, 5, 4096, 77, 64): {"SD2.1 inversion": 5},
+    (8, 5, 4096, 77, 64): {"SD2.1 inversion": 5, "SD2-depth": 5},
+    (8, 20, 256, 256, 64): {"SD2-depth": 5},
     (12, 5, 4096, 77, 64): {"SD2.1 PnP": 5},
     (12, 20, 256, 256, 64): {"SD2.1 PnP": 5},
     (12, 20, 64, 77, 64): {"SD2.1 PnP": 1},
@@ -1865,10 +1920,588 @@ def phase_reference_sd21(dev, bundle) -> None:
     del cpu
 
 
-def main() -> int:
+def load_yaml(name: str) -> dict:
+    import yaml
+
+    with open(ROOT / "configs" / name) as f:
+        return yaml.safe_load(f)
+
+
+def stage_chain(names, steps: int) -> dict:
+    """The inversion and generation keys of ``names`` (a base_config chain,
+    base first) merged in order, the first edit prompt only, at ``steps``
+    DDIM steps."""
+    chain = [load_yaml(n) for n in names]
+    cfg = {"seed": next(c["seed"] for c in chain[::-1] if "seed" in c),
+           "float_precision": "bf16"}
+    for stage in ("inversion", "generation"):
+        cfg[stage] = {k: v for layer in chain
+                      for k, v in (layer.get(stage) or {}).items()}
+    name, prompt = next(iter(cfg["generation"]["prompt"].items()))
+    cfg["generation"].update(prompt={name: prompt}, n_timesteps=steps)
+    cfg["inversion"].update(steps=steps, save_steps=steps)
+    return cfg
+
+
+def flamingo_config() -> dict:
+    """configs/flamingo.yaml's keys over default.yaml's (its base_config):
+    chunk_ord rand, local 0.9 / global 0.9 merging, an empty negative
+    prompt, seed 142857, at DEPTH_STEPS DDIM steps."""
+    return stage_chain(("default.yaml", "flamingo.yaml"), DEPTH_STEPS)
+
+
+def breakdance_config(lora_path: str | None) -> dict:
+    """configs/breakdance.yaml's keys over default.yaml's: the softedge
+    ControlNet at control_scale 0.4, global 0.6 / global_rand 0.5 merging,
+    at LORA_STEPS DDIM steps; use_lora with the adapter at ``lora_path``
+    (None: without it)."""
+    cfg = stage_chain(("default.yaml", "breakdance.yaml"), LORA_STEPS)
+    gene = cfg["generation"]
+    gene["use_lora"] = lora_path is not None
+    gene["lora"] = {"path": lora_path, "weight": 1.0} if lora_path else {}
+    return cfg
+
+
+def he_init(module, seed: int):
+    """He-normal convolution weights and zero biases, from a torch seed (a
+    random control net in its checkpoint layout)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.ndim == 4:
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * (2.0 / p[0].numel()) ** 0.5)
+            else:
+                p.zero_()
+    return module
+
+
+def write_control_nets(out_dir: str) -> dict:
+    """Random HED, lineart and pose nets (seeded) as .pth checkpoints under
+    ``out_dir``; {control: (variable, path)}.  A random pose net's heatmaps
+    put about a thousand peaks a 512x512 frame on unrelated parts, so its
+    last heatmap layer gives every part channel 0's weights, with the bias
+    that puts the peak threshold (0.1) at the 99th percentile of the first
+    smoke frame's map, and its last PAF layer a field pointing down and
+    right (weights x 0.1, bias 0.6): the peaks then connect into a bounded
+    number of people."""
+    from vidtome_torch.control import pose as pose_mod
+    from vidtome_torch.control.edge_hed import HEDNetwork
+    from vidtome_torch.control.lineart import UnetGenerator
+    from vidtome_torch.control.pose import BodyPoseModel
+
+    hed = he_init(HEDNetwork(), 11)
+    pose = he_init(BodyPoseModel(), 13).eval()
+    with torch.no_grad():
+        hed.norm.copy_(torch.tensor([104.0, 117.0, 123.0]).reshape(1, 3, 1, 1))
+        heat, paf = pose.Mconv7_stage6_L2, pose.Mconv7_stage6_L1
+        heat.weight.copy_(heat.weight[:1].expand_as(heat.weight))
+        heat.bias.zero_()
+        paf.weight.mul_(0.1)
+        paf.bias.fill_(0.6)
+
+        def fwd(x):
+            p, h = pose(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+            return (p.permute(0, 2, 3, 1).numpy(),
+                    h.permute(0, 2, 3, 1).numpy())
+
+        frame = make_frames()[0]
+        bgr = (np.clip(frame, 0, 1) * 255).astype(np.uint8)[:, :, ::-1]
+        heat_map, _ = pose_mod.infer_maps(bgr, fwd)
+        heat.bias.fill_(float(0.1 - np.quantile(heat_map[..., 0], 0.99)))
+    nets = {"softedge": ("VIDTOME_HED_MODEL", hed, "ControlNetHED.pth"),
+            "lineart_anime": ("VIDTOME_LINEART_MODEL",
+                              he_init(UnetGenerator(), 12), "netG.pth"),
+            "openpose": ("VIDTOME_POSE_MODEL", pose, "body_pose_model.pth")}
+    out = {}
+    for control, (env, net, name) in nets.items():
+        path = os.path.join(out_dir, name)
+        torch.save(net.state_dict(), path)
+        out[control] = (env, path)
+    return out
+
+
+def pose_lists(img: np.ndarray, fwd) -> tuple:
+    """(peaks, connections, candidates, subsets) of the pose detector on
+    one [H, W, 3] frame in [0, 1], through ``fwd``."""
+    from vidtome_torch.control import pose
+
+    bgr = (np.clip(img, 0, 1) * 255).astype(np.uint8)[:, :, ::-1]
+    heat, paf = pose.infer_maps(bgr, fwd)
+    peaks = pose.find_peaks(heat)
+    conns, special = pose.score_connections(peaks, paf, bgr.shape[0])
+    cand, subset = pose.assemble_subsets(peaks, conns, special)
+    return peaks, conns, np.asarray(cand, float), subset
+
+
+def same_pose_lists(a: tuple, b: tuple) -> bool:
+    """The same peaks (positions, ids), connections and subsets (members,
+    counts); the scores to POSE_SCORE_RTOL."""
+    (pa, ca, cand_a, sa), (pb, cb, cand_b, sb) = a, b
+    if [len(p) for p in pa] != [len(p) for p in pb]:
+        return False
+    if cand_a.shape != cand_b.shape or sa.shape != sb.shape:
+        return False
+    if cand_a.size and not (
+            np.array_equal(cand_a[:, [0, 1, 3]], cand_b[:, [0, 1, 3]])
+            and np.allclose(cand_a[:, 2], cand_b[:, 2], rtol=POSE_SCORE_RTOL,
+                            atol=0)):
+        return False
+    for x, y in zip(ca, cb):
+        x, y = np.asarray(x, float), np.asarray(y, float)
+        if x.shape != y.shape or (x.size and not (
+                np.array_equal(x[:, [0, 1, 3, 4]], y[:, [0, 1, 3, 4]])
+                and np.allclose(x[:, 2], y[:, 2], rtol=POSE_SCORE_RTOL,
+                                atol=0))):
+            return False
+    return not sa.size or (
+        np.array_equal(sa[:, :-2], sb[:, :-2])
+        and np.array_equal(sa[:, -1], sb[:, -1])
+        and np.allclose(sa[:, -2], sb[:, -2], rtol=POSE_SCORE_RTOL, atol=0))
+
+
+def phase_control_models(dev, nets: dict) -> None:
+    """control_preprocess for softedge, lineart_anime and openpose through
+    the random nets of ``nets`` (write_control_nets), the 8 smoke frames at
+    512x512 on the card against the same on the CPU: HED's safe_step
+    pixels may differ on HED_SHARE_TOL of them, lineart's maps by
+    LINEART_CARD_TOL, the pose detector must find the same peaks and people
+    (scores to POSE_SCORE_RTOL) and draw the same images.  Prints each net's
+    ms per frame on the card (its forward alone, CUDA events) and the whole
+    preprocess's wall per frame on both."""
+    from vidtome_torch.control import edge_hed, lineart, loading, pose
+    from vidtome_torch.control.preprocess import control_preprocess
+
+    frames = make_frames()
+    loaders = {"softedge": ("hed", edge_hed.load_hed),
+               "lineart_anime": ("lineart", lineart.load_lineart),
+               "openpose": ("pose", pose.load_pose)}
+    inputs = {  # one forward's input on the card, as the preprocessor feeds
+        "softedge": (N_FRAMES, 3, SIZE, SIZE),
+        "lineart_anime": (1, 3, SIZE, SIZE),
+        "openpose": (1, 3, 184, 184)}
+    tf32 = torch.backends.cudnn.allow_tf32
+    for control, (env, path) in nets.items():
+        os.environ[env] = path
+        wall = {}
+        out = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            out[where] = control_preprocess(frames, control, device=where)
+            wall[str(where)] = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        kind, loader = loaders[control]
+        model = loading.cached_model(kind, path, dev, loader)
+        x = torch.rand(inputs[control], device=dev)
+        with torch.inference_mode(), loading.exact_fp32():
+            net_ms = cuda_time(lambda: model(x), 3) / inputs[control][0]
+        card, cpu = out[dev], out["cpu"]
+        if card.shape != (N_FRAMES, SIZE, SIZE, 3) or card.shape != cpu.shape:
+            raise AssertionError(f"{control}: control images {card.shape}")
+        if control == "softedge":
+            share = float((card != cpu).mean())
+            what = (f"safe_step pixels that differ {share:.2e} (tol "
+                    f"{HED_SHARE_TOL}); levels "
+                    f"{sorted(float(v) for v in np.unique(card))}")
+            ok = share <= HED_SHARE_TOL and len(np.unique(card)) > 1
+        elif control == "lineart_anime":
+            err = float(np.abs(card - cpu).max())
+            what = (f"max |card - CPU| {err:.2e} (tol {LINEART_CARD_TOL}); "
+                    f"mean {card.mean():.4f} std {card.std():.4f}")
+            ok = err < LINEART_CARD_TOL and card.std() > 0.01
+        else:
+            fwd = {w: pose.pose_forward(path, w) for w in (dev, "cpu")}
+            lists = [[pose_lists(f, fwd[w]) for f in frames]
+                     for w in (dev, "cpu")]
+            same = all(same_pose_lists(a, b) for a, b in zip(*lists))
+            peaks = [sum(len(p) for p in pl[0]) for pl in lists[0]]
+            people = [len(pl[3]) for pl in lists[0]]
+            what = (f"peaks a frame {peaks}, people {people}; same peaks "
+                    f"and people on both {same}; drawn images equal "
+                    f"{np.array_equal(card, cpu)}")
+            ok = (same and np.array_equal(card, cpu) and sum(people) > 0
+                  and max(peaks) < 1000)
+        print(f"[control] {control} ({kind} net, random, {N_FRAMES} frames "
+              f"{SIZE}x{SIZE}): {what}; net forward {net_ms:.3f} ms a frame "
+              f"on the card; preprocess wall {wall[str(dev)]:.1f} ms a frame "
+              f"(card), {wall['cpu']:.1f} (CPU)")
+        if not ok:
+            raise AssertionError(f"{control}: the card's control images "
+                                 f"disagree with the CPU's")
+    if torch.backends.cudnn.allow_tf32 != tf32:
+        raise AssertionError("the control nets left TF32 switched")
+
+
+def lora_targets(bundle) -> list[tuple[str, str, torch.nn.Module]]:
+    """(kohya prefix, module name, module) of every attention projection,
+    resnet conv and time_emb_proj of the UNet, and the text encoder's
+    q/k/v/out projections."""
+    import re
+
+    from torch import nn
+
+    unet_re = re.compile(r"(attn[12]\.(to_q|to_k|to_v|to_out\.0)|resnets\.\d+"
+                         r"\.(conv1|conv2|conv_shortcut|time_emb_proj))$")
+    text_re = re.compile(r"self_attn\.(q_proj|k_proj|v_proj|out_proj)$")
+    out = []
+    for prefix, root, pat in (("lora_unet_", bundle.unet, unet_re),
+                              ("lora_te_", bundle.text_encoder, text_re)):
+        for name, mod in root.named_modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)) and pat.search(name):
+                out.append((prefix, name, mod))
+    return out
+
+
+def write_lora(bundle, path: str, seed: int = 7) -> dict:
+    """A kohya LoRA of rank LORA_RANK, alpha LORA_ALPHA over
+    lora_targets(bundle), from a torch seed, written with the port's
+    safetensors writer; returns {module: fp32 delta on the card} with the
+    delta alpha / rank * up @ down in the module's layout."""
+    from vidtome_torch.io.safetensors import save_file
+
+    gen = torch.Generator().manual_seed(seed)
+    state, deltas = {}, {}
+    for prefix, name, mod in lora_targets(bundle):
+        w = mod.weight
+        fan_in = w[0].numel()
+        down = torch.randn((LORA_RANK,) + tuple(w.shape[1:]),
+                           generator=gen) / fan_in ** 0.5
+        up = torch.randn((w.shape[0], LORA_RANK) + (1, 1) * (w.ndim == 4),
+                         generator=gen) * 0.25
+        base = prefix + name.replace(".", "_")
+        state[f"{base}.lora_down.weight"] = down
+        state[f"{base}.lora_up.weight"] = up
+        state[f"{base}.alpha"] = torch.tensor(LORA_ALPHA)
+        delta = (up.reshape(w.shape[0], LORA_RANK)
+                 @ down.reshape(LORA_RANK, -1)).reshape(w.shape)
+        deltas[mod] = (delta * (LORA_ALPHA / LORA_RANK)).to(w.device)
+    save_file(state, path)
+    return deltas
+
+
+def unet_call_launches(bundle) -> dict:
+    """The kernel launches of one UNet call at [8, 64, 64, 4] (random,
+    seeded, 77 context tokens)."""
+    g = torch.Generator().manual_seed(9)
+    width = bundle.unet.config.cross_attention_dim
+    x = torch.randn((N_FRAMES, SIZE // 8, SIZE // 8, 4), generator=g)
+    ctx = torch.randn((N_FRAMES, 77, width), generator=g)
+    with torch.inference_mode():
+        before = read_launches()
+        bundle.unet(x.to(bundle.device, bundle.dtype), 501,
+                    ctx.to(bundle.device, bundle.dtype))
+        return {k: v - before[k] for k, v in read_launches().items()}
+
+
+def phase_lora(dev, bundle) -> dict:
+    """configs/breakdance.yaml on SD1.5 with a synthetic kohya LoRA (random
+    softedge ControlNet, its zero convs moved, the softedge images through
+    the random HED net when VIDTOME_HED_MODEL is set): the generation
+    without the adapter, then with it merged on load by the Generator; the
+    merged weights must be W + delta within two bf16 roundings, a UNet
+    call's launches must not change, and the edit must; then the int8
+    table of a LoRA generator must quantize the merged weights."""
+    from vidtome_torch.ops.quant import quantize_weight
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    perturb_controlnet(bundle.controlnet)
+    frames = make_frames()
+    frame_ids = list(range(N_FRAMES))
+    times = {}
+    stage = functools.partial(timed, times)
+    with tempfile.TemporaryDirectory() as work_dir:
+        lora_path = os.path.join(work_dir, "pixelart.safetensors")
+        deltas = write_lora(bundle, lora_path)
+        cfg_plain, cfg_lora = (breakdance_config(None),
+                               breakdance_config(lora_path))
+        inverter = Inverter(bundle, cfg_plain)
+        plain = Generator(bundle, cfg_plain)
+        # the weights as the stages run them, before the merge
+        saved = {m: m.weight.detach().clone() for m in deltas}
+        plain_launches = unet_call_launches(bundle)
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        inverted = stage("invert", lambda: inverter.ddim_inversion(latents,
+                                                                   conds))
+        plain.configure_frames(N_FRAMES)
+        pad = torch.as_tensor(plain.pad_src, device=dev)
+        control = stage("control", lambda: plain.load_control(
+            frames, frame_ids, work_dir))
+        name, prompt = next(iter(plain.prompt.items()))
+        table = plain.fidx_table()
+        out_plain = stage("generate_plain", lambda: plain.vae.decode(
+            plain.ddim_sample(inverted[pad], plain.context(prompt),
+                              fidx_table=table,
+                              control=control[pad])[:N_FRAMES]))
+        generator = stage("merge", lambda: Generator(bundle, cfg_lora))
+        errs = []
+        for mod, delta in deltas.items():
+            want = saved[mod].float() + delta
+            got = mod.weight.detach().float()
+            # the delta rounded to bf16, then the sum: two bf16 roundings
+            # (2^-9 relative each), bounded here by twice their sum
+            tol = 2.0 ** -8 * (delta.abs() + want.abs())
+            errs.append(((got - want).abs() - tol).max())
+        excess = torch.stack(errs).max().item()
+        lora_launches = unet_call_launches(bundle)
+        generator.configure_frames(N_FRAMES)
+        gen_before = read_launches()
+        out = stage("generate", lambda: generator.vae.decode(
+            generator.ddim_sample(inverted[pad], generator.context(prompt),
+                                  fidx_table=table,
+                                  control=control[pad])[:N_FRAMES]))
+        gen_launches = {k: v - gen_before[k]
+                        for k, v in read_launches().items()}
+        launches = read_launches()
+        gen_calls = sum(generator.unet_calls.values())
+
+        # int8: the unmerged weights back, then a LoRA generator in int8
+        with torch.no_grad():
+            for mod, w in saved.items():
+                mod.weight.copy_(w)
+        int8 = Generator(bundle, {**cfg_lora, "generation": {
+            **cfg_lora["generation"], "quant": "int8"}})
+        probe = bundle.unet.get_submodule(LORA_PROBE)
+        entry = int8.qt.get(probe)
+        q, scale = quantize_weight(probe.weight)
+        deq = entry.weight.float() * entry.scale.reshape(-1, 1)
+        w0, merged = saved[probe].float(), saved[probe].float() + deltas[probe]
+        d_merged = (deq - merged).abs().mean().item()
+        d_plain = (deq - w0).abs().mean().item()
+        int8_ok = (torch.equal(entry.weight, q)
+                   and torch.equal(entry.scale, scale) and d_merged < d_plain)
+
+    diff = (out.float() - out_plain.float()).abs()
+    mse = (diff ** 2).mean().item()
+    psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
+    n_text = sum(1 for p, _, _ in lora_targets(bundle) if p == "lora_te_")
+    print(f"[lora] SD1.5 + softedge ControlNet (random, zero convs moved) + "
+          f"a synthetic kohya LoRA (rank {LORA_RANK}, alpha {LORA_ALPHA}: "
+          f"{len(deltas) - n_text} UNet and {n_text} text-encoder modules), "
+          f"{N_FRAMES} frames {SIZE}x{SIZE}, {LORA_STEPS}+{LORA_STEPS} DDIM "
+          f"steps, configs/breakdance.yaml keys (global "
+          f"{generator.tome.global_merge_ratio}, global_rand "
+          f"{generator.tome.global_rand}, control_scale "
+          f"{generator.control_scale}); UNet calls {dict(generator.unet_calls)}")
+    print(f"[lora] merged weights - (W + delta): largest excess over two bf16 "
+          f"roundings {excess:.3e} (must be <= 0); a UNet call's launches "
+          f"without the LoRA {plain_launches}, with it {lora_launches}")
+    print(f"[lora] frames with vs without the LoRA: max |diff| "
+          f"{diff.max().item():.4f}, PSNR {psnr:.2f} dB (must differ); "
+          f"stage seconds " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in times.items()))
+    print(f"[lora] int8 table of a LoRA generator at {LORA_PROBE} "
+          f"{tuple(probe.weight.shape)}: equals the quantized merged weight "
+          f"{torch.equal(entry.weight, q)}; mean |dequantized - (W + delta)| "
+          f"{d_merged:.3e}, |dequantized - W| {d_plain:.3e}")
+    if not excess <= 0:
+        raise AssertionError(f"LoRA merge off W + delta by {excess}")
+    if lora_launches != plain_launches:
+        raise AssertionError("the merged LoRA changed a UNet call's launches")
+    if not diff.max().item() > 0.05:
+        raise AssertionError("the LoRA does not change the edit")
+    if not int8_ok:
+        raise AssertionError("the int8 table was not built from the merged "
+                             "weights")
+    if gen_launches["best_match"] != 3 * gen_calls or any(
+            gen_launches[k] <= 0 for k in ("flash_attention",
+                                           "small_kv_attention",
+                                           "full_group_norm")):
+        raise AssertionError(f"LoRA generation launches {gen_launches}")
+    if tuple(out.shape) != (N_FRAMES, SIZE, SIZE, 3) or not (
+            torch.isfinite(out).all() and 0 <= out.min() and out.max() <= 1):
+        raise AssertionError("LoRA frames not finite or outside [0, 1]")
+    print(f"[lora] kernel launches in this run: {launches}")
+    return launches
+
+
+def phase_depth(dev, bundle) -> dict:
+    """configs/flamingo.yaml on SD2-depth, 50+50 DDIM steps, the proxy
+    depth through the depth cache in a temporary work_dir: every UNet call
+    of each kind must launch flash, small-KV and the full GroupNorm entry
+    as the topology says (and best match 2 or 4 times a generation call,
+    3 on average)."""
+    from vidtome_torch.models.layers import TransformerBlock
+    from vidtome_torch.ops.attention import SMALL_KV
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = flamingo_config()
+    frames = make_frames()
+    frame_ids = list(range(N_FRAMES))
+    times = {}
+    stage = functools.partial(timed, times)
+    per_call = LaunchesPerCall(bundle.unet)
+    try:
+        with tempfile.TemporaryDirectory() as work_dir:
+            cfg["work_dir"] = work_dir
+            inverter = Inverter(bundle, cfg)
+            generator = Generator(bundle, cfg)
+            reset_launches()
+            latents, conds = stage("encode", lambda: inverter.encode(frames))
+            depth = stage("depth", lambda: inverter.depth_latents(frames))
+            cached = sorted(os.listdir(os.path.join(work_dir, "depth")))
+            inverted = stage("invert", lambda: inverter.ddim_inversion(
+                latents, conds, depth=depth))
+            n_inv = len(per_call.calls)
+            generator.configure_frames(N_FRAMES)
+            pad = torch.as_tensor(generator.pad_src, device=dev)
+            depth_gen = generator.load_depth(frames, frame_ids, work_dir)
+            name, prompt = next(iter(generator.prompt.items()))
+            context = stage("text", lambda: generator.context(prompt))
+            table = generator.fidx_table()
+            clean = stage("generate", lambda: generator.ddim_sample(
+                inverted[pad], context, fidx_table=table,
+                depth=depth_gen[pad]))
+            out = stage("decode",
+                        lambda: generator.vae.decode(clean[:N_FRAMES]))
+            launches = read_launches()
+    finally:
+        per_call.close()
+
+    blocks = [m for m in bundle.unet.modules()
+              if isinstance(m, TransformerBlock)]
+    latent = SIZE // 8
+    n_flash = sum((latent // b.downsample) ** 2 > SMALL_KV for b in blocks)
+    want = {k: 0 for k in KERNELS}
+    want.update(flash_attention=n_flash, full_group_norm=61,
+                small_kv_attention=small_kv_blocks(bundle.unet, latent))
+    inv_calls, gen_calls = per_call.calls[:n_inv], per_call.calls[n_inv:]
+    odd_inv = [c for c in inv_calls if c != want]
+    odd_gen = [c for c in gen_calls
+               if {**c, "best_match": 0} != want or c["best_match"] not in (2, 4)]
+    best = sum(c["best_match"] for c in gen_calls)
+    kinds = {"inversion": inv_calls[0] if inv_calls else None}
+    for c in gen_calls:
+        kinds.setdefault(f"generation, best_match {c['best_match']}", c)
+    print(f"[depth] SD2-depth (random), {N_FRAMES} frames {SIZE}x{SIZE}, "
+          f"{DEPTH_STEPS}+{DEPTH_STEPS} DDIM steps, {table.shape[1]} chunks, "
+          f"configs/flamingo.yaml keys (chunk_ord {generator.chunk_ord}, "
+          f"local {generator.tome.local_merge_ratio}, global "
+          f"{generator.tome.global_merge_ratio}, seed {generator.seed}); "
+          f"depth latents {tuple(depth.shape)} in [{depth.min().item():.2f}, "
+          f"{depth.max().item():.2f}], {len(cached)} cache files; UNet calls "
+          f"inversion {dict(inverter.unet_calls)}, generation "
+          f"{dict(generator.unet_calls)}")
+    print(f"[depth] launches per UNet call by kind: {kinds} (want {want} "
+          f"besides best_match; {len(odd_inv)} inversion and {len(odd_gen)} "
+          f"generation calls differ); best_match {best} over {len(gen_calls)} "
+          f"generation calls")
+    if not (inverter.bundle.use_depth and generator.use_depth):
+        raise AssertionError("a stage runs without the depth channel")
+    if bundle.unet.conv_in.in_channels != 5 or table.shape[1] != 2:
+        raise AssertionError("expected a 5-channel UNet and 2 chunks")
+    if cached != sorted(f"{i:04}.{e}" for i in frame_ids
+                        for e in ("npy", "png")):
+        raise AssertionError(f"depth cache files {cached}")
+    if not torch.equal(depth_gen, depth):
+        raise AssertionError("the generation's depth differs from the cache")
+    if odd_inv or odd_gen or best != 3 * len(gen_calls):
+        raise AssertionError(f"SD2-depth launches per UNet call differ from "
+                             f"{want}: {(odd_inv or odd_gen or [None])[0]}")
+    if len(inv_calls) != sum(inverter.unet_calls.values()) or len(
+            gen_calls) != sum(generator.unet_calls.values()):
+        raise AssertionError("UNet calls counted twice or missed")
+    if tuple(out.shape) != (N_FRAMES, SIZE, SIZE, 3):
+        raise AssertionError(f"frames shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("SD2-depth frames not finite or outside [0, 1]")
+    if not torch.isfinite(inverted).all():
+        raise AssertionError("SD2-depth inverted latents not finite")
+    print(f"[depth] frames mean {out.mean().item():.4f} std "
+          f"{out.std().item():.4f}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"[depth] kernel launches in this run: {launches}")
+    return launches
+
+
+def phase_depth_reference(dev, bundle) -> None:
+    """One SD2-depth UNet call at an 8x8 latent (4 latent channels and a
+    depth channel in [-1, 1]): card bf16 kernels vs CPU fp32 plain versions
+    to REF_TOL; the same call with the depth channel zeroed must differ by
+    more than REF_TOL."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 8, 8, 5)).astype(np.float32)
+    x[..., 4] = rng.uniform(-1, 1, (2, 8, 8))
+    flat = x.copy()
+    flat[..., 4] = 0.0
+    ctx = rng.standard_normal((2, 77, 1024)).astype(np.float32)
+    cpu = copy.deepcopy(bundle.unet).to("cpu", torch.float32)
+    with torch.inference_mode():
+        def run(m, d, inp):
+            return m(torch.from_numpy(inp).to(d), 501,
+                     torch.from_numpy(ctx).to(d)).float().cpu()
+
+        before = read_launches()
+        got = run(bundle.unet, dev, x)
+        ran = {k: v - before[k] for k, v in read_launches().items()}
+        want = run(cpu, "cpu", x)
+        zero = run(cpu, "cpu", flat)
+    scale = want.abs().max()
+    err = ((got - want).abs().max() / scale).item()
+    gap = ((zero - want).abs().max() / scale).item()
+    print(f"[reference] SD2-depth weights, 64x64 input, 5 channels: card bf16 "
+          f"kernels vs CPU fp32 plain max rel err {err:.2e} (tol {REF_TOL}); "
+          f"depth channel zeroed vs not {gap:.2e} (must exceed {REF_TOL}); "
+          f"kernels launched on the card {ran}")
+    if not err < REF_TOL:
+        raise AssertionError(f"SD2-depth card vs CPU reference rel err {err}")
+    if not gap > REF_TOL:
+        raise AssertionError(f"the depth channel changes the output by only "
+                             f"{gap}")
+    if not (ran["full_group_norm"] and ran["small_kv_attention"]):
+        raise AssertionError("the reference call ran no GroupNorm or small-KV "
+                             "kernel")
+    del cpu
+
+
+def write_cli_inputs(out_dir: str) -> None:
+    """Inputs of the CLI runs of this slice's configs on data/demo.mp4
+    (neither data/flamingo.mp4 nor data/breakdance.mp4 is shipped):
+    <out_dir>/flamingo.yaml and breakdance.yaml (base_config the shipped
+    config, 16 frames, outputs under out_dir), the breakdance LoRA
+    (a synthetic kohya file over the SD1.5 stack, seeded) and random
+    control nets (write_control_nets; VIDTOME_HED_MODEL=<out_dir>/
+    ControlNetHED.pth runs breakdance's softedge through HED)."""
+    import types
+
+    import yaml
+
+    from vidtome_torch.models.clip_text import SD15_TEXT, CLIPTextModel
+    from vidtome_torch.models.unet import SD15_UNET, UNet2DConditionModel
+
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.abspath(out_dir)
+    with torch.device("meta"):  # the LoRA needs the modules' shapes only
+        stack = types.SimpleNamespace(unet=UNet2DConditionModel(SD15_UNET),
+                                      text_encoder=CLIPTextModel(SD15_TEXT))
+    lora = os.path.join(out, "pixelart.safetensors")
+    write_lora(stack, lora)
+    write_control_nets(out)
+    for name, extra in (("flamingo", {}),
+                        ("breakdance", {"lora": {"path": lora,
+                                                 "weight": 1.0}})):
+        cfg = {"base_config": f"configs/{name}.yaml",
+               "input_path": "data/demo.mp4",
+               "work_dir": os.path.join(out, name),
+               "generation": {"frame_range": [16], "save_frame": True,
+                              **extra}}
+        with open(os.path.join(out, f"{name}.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+    print(f"[cli] configs, LoRA and control nets written to {out}")
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if argv[:1] == ["--cli-inputs"] and len(argv) == 2:
+        write_cli_inputs(argv[1])
+        return 0
+    if argv:
+        print("usage: python3 chip_smoke.py [--cli-inputs DIR]",
+              file=sys.stderr)
+        return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1915,7 +2548,38 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_reference_sd21(dev, bundle)
     torch.cuda.synchronize()
-    for path in (exact, int8, controlnet, pnp):
+
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as nets_dir:
+        nets = write_control_nets(nets_dir)
+        phase_control_models(dev, nets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle = init_model("1.5", weight_dtype="bf16", device=dev, seed=0,
+                            control="softedge")
+        torch.cuda.synchronize()
+        print(f"[lora] SD1.5 and a softedge ControlNet, random weights, on "
+              f"the card in {time.perf_counter() - t0:.1f} s")
+        lora = phase_lora(dev, bundle)
+        torch.cuda.synchronize()
+        for env, _ in nets.values():
+            os.environ.pop(env, None)
+
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bundle = init_model("depth", weight_dtype="bf16", device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[depth] SD2-depth random weights on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    depth = phase_depth(dev, bundle)
+    torch.cuda.synchronize()
+    phase_depth_reference(dev, bundle)
+    torch.cuda.synchronize()
+    for path in (exact, int8, controlnet, lora, pnp, depth):
         launches = {k: launches[k] + path[k] for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:
@@ -1957,4 +2621,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -3,8 +3,10 @@
 ``vidtome_torch.control`` and the cache half of ``vidtome_torch.io.
 artifacts`` are copies written in the port of ``vidtome_tpu.control``
 (preprocess, depth) and ``vidtome_tpu.io.artifacts``: the same frames give
-identical images and byte-identical cache files through both.  The model
-preprocessors the port does not run are refused.
+identical images and byte-identical cache files through both.  Where a
+model preprocessor cannot run (openpose without a pose model, a model
+variable naming no checkpoint), the port fails as the JAX package does;
+``tests/test_torch_control_models.py`` holds the nets themselves.
 """
 
 from __future__ import annotations
@@ -121,11 +123,15 @@ def test_depth_cache_is_byte_identical(tmp_path, no_models):
                 [f"{i:04}.{ext}" for i in ids for ext in ("npy", "png")])
 
 
-def test_openpose_is_not_ported():
-    with pytest.raises(NotImplementedError, match="openpose"):
-        t_pre.control_preprocess(_frames(1), "openpose")
-    with pytest.raises(NotImplementedError, match="openpose"):
-        t_pre.validate_control_available("openpose")
+def test_openpose_is_not_ported(no_models):
+    """Without a pose model (no VIDTOME_POSE_MODEL, no controlnet_aux),
+    openpose has no preprocessor: both packages raise the same
+    RuntimeError, from the preprocessor and at validation."""
+    for pre in (t_pre, j_pre):
+        with pytest.raises(RuntimeError, match="needs a pose model"):
+            pre.control_preprocess(_frames(1), "openpose")
+        with pytest.raises(RuntimeError, match="VIDTOME_POSE_MODEL"):
+            pre.validate_control_available("openpose")
 
 
 @pytest.mark.parametrize("control,env", [
@@ -133,11 +139,12 @@ def test_openpose_is_not_ported():
     ("lineart_anime", "VIDTOME_LINEART_MODEL")])
 def test_model_preprocessors_are_refused(monkeypatch, tmp_path, control,
                                          env):
-    """With the model variable set the JAX package runs the model; the port
-    refuses instead of giving the Sobel image."""
+    """With the model variable set, both packages run the model and never
+    the Sobel fallback: a variable naming a directory that holds no
+    checkpoint fails in both alike.  Validation passes, as in JAX."""
     monkeypatch.setenv(env, str(tmp_path))
-    with pytest.raises(NotImplementedError, match=env):
-        t_pre.control_preprocess(_frames(1), control)
-    with pytest.raises(NotImplementedError, match=env):
-        t_pre.validate_control_available(control)
+    for pre in (t_pre, j_pre):
+        with pytest.raises(FileNotFoundError, match="no checkpoint file"):
+            pre.control_preprocess(_frames(1), control)
+        pre.validate_control_available(control)
     t_pre.validate_control_available("canny")

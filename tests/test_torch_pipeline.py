@@ -94,10 +94,10 @@ def test_invert_generate_matches_jax(tmp_path):
     assert score >= PSNR_FLOOR
 
 
-def test_cli_stages_on_cpu(tmp_path):
+def test_cli_stages_on_cpu(tmp_path, monkeypatch):
     """The CLI's stages on a tiny CPU bundle: invert a frame folder, cache
-    the latents, edit, write the video; an unported option (the openpose
-    control) is refused."""
+    the latents, edit, write the video; the openpose control without a pose
+    model fails at construction, as in the JAX package."""
     from tests.helpers import make_tiny_video
     from vidtome_torch import cli
     from vidtome_torch.models.registry import init_model
@@ -116,5 +116,6 @@ def test_cli_stages_on_cpu(tmp_path):
     assert out["edit"].shape == (8, 64, 64, 3)
     assert (tmp_path / "out" / "edit" / "frames" / "0007.png").exists()
     cfg.generation["control"] = "openpose"
-    with pytest.raises(NotImplementedError):
+    monkeypatch.delenv("VIDTOME_POSE_MODEL", raising=False)
+    with pytest.raises(RuntimeError, match="VIDTOME_POSE_MODEL"):
         cli.run_generation(cfg, bundle)

@@ -202,12 +202,35 @@ def test_serve_yaml_builds_both_stages():
     ("inversion", "control", "openpose"),
     ("top", "use_lora", True),
 ])
-def test_serve_yaml_still_refuses_unported(stage, key, value):
+def test_serve_yaml_still_refuses_unported(stage, key, value, monkeypatch,
+                                          capsys):
+    """merge_ff, chunk_batch and ragged chunk boundaries are refused.  What
+    the port now runs behaves as in the JAX package: ``use_lora`` in
+    generation merges the adapter it names (none here: a warning, and the
+    weights stay), the top-level key is not read at all, and
+    ``inversion.control: openpose`` without a pose model fails at
+    construction."""
     bundle = init_model("tiny", weight_dtype="fp32", device="cpu")
     cfg = _serve_config()
     (cfg if stage == "top" else cfg[stage])[key] = value
+    cls = TInv if stage == "inversion" else TGen
+    if key == "use_lora":
+        before = {k: v.clone() for k, v in bundle.unet.state_dict().items()}
+        cls(bundle, cfg)
+        out = capsys.readouterr().out
+        assert ("no lora.path given" in out) == (stage == "generation")
+        assert "LoRA[" not in out
+        after = bundle.unet.state_dict()  # cast to the stage's precision
+        assert all(torch.equal(v.to(after[k].dtype), after[k])
+                   for k, v in before.items())
+        return
+    if key == "control":
+        monkeypatch.delenv("VIDTOME_POSE_MODEL", raising=False)
+        with pytest.raises(RuntimeError, match="VIDTOME_POSE_MODEL"):
+            cls(bundle, cfg)
+        return
     with pytest.raises(NotImplementedError, match=key):
-        (TInv if stage == "inversion" else TGen)(bundle, cfg)
+        cls(bundle, cfg)
 
 
 @pytest.mark.parametrize("key", ["cache_interval", "eps_schedule"])

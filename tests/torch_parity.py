@@ -17,6 +17,7 @@ from vidtome_torch.core.merge import local_merge_rounds, round_stride
 from vidtome_torch.models import convert
 from vidtome_torch.models.registry import init_model
 from vidtome_torch.models.tome import ToMeConfig
+from vidtome_torch.models.unet import UNet2DConditionModel, UNetConfig
 
 
 def jax_local_draws(key, F: int, target_stride: int) -> list[int]:
@@ -60,12 +61,25 @@ def port_tome(cfg) -> ToMeConfig:
     return ToMeConfig(**{k: getattr(cfg, k) for k in fields})
 
 
+def port_unet_config(cfg) -> UNetConfig:
+    """The port's UNetConfig with the JAX one's values."""
+    return UNetConfig(**{k: getattr(cfg, k)
+                         for k in UNetConfig.__dataclass_fields__})
+
+
 def port_bundle_from_jax(bundle, sd_version: str = "tiny"):
     """A CPU fp32 port bundle carrying the JAX bundle's weights (its
-    ControlNet's too, where it holds one)."""
+    ControlNet's too, where it holds one).  A JAX bundle of sd_version
+    "depth" (a tiny UNet with 5 input channels, as
+    ``tests/test_pipeline_control.py`` builds it) gives a port bundle of
+    that version, with a UNet of the JAX one's config."""
     has_cn = bundle.controlnet_params is not None
     port = init_model(sd_version, weight_dtype="fp32", device="cpu",
                       control="canny" if has_cn else "none")
+    if bundle.sd_version == "depth" and sd_version != "depth":
+        port.unet = UNet2DConditionModel(
+            port_unet_config(bundle.unet_config)).eval()
+        port.sd_version = "depth"
     mods = [(port.unet, bundle.unet_params, "unet"),
             (port.vae, bundle.vae_params, "vae"),
             (port.text_encoder, bundle.text_params, "text")]

@@ -8,7 +8,11 @@ artifact I/O (``vidtome_torch.io``).  A ControlNet control (for example
 ``configs/demo-canny.yaml``) loads the ControlNet named by
 ``generation.control`` from the top-level ``controlnet_root`` (random,
 warned, without one), and generation reads the clip's frames to make their
-control images, cached under ``<work_dir>/<control>_image/``.
+control images, cached under ``<work_dir>/<control>_image/``.  On
+SD2-depth (``sd_version: depth``, for example ``configs/flamingo.yaml``)
+both stages read the clip's depth latents through ``<work_dir>/depth/``;
+``generation.use_lora`` merges ``generation.lora.path`` into the model when
+the generation stage is built (``configs/breakdance.yaml``).
 """
 
 from __future__ import annotations
@@ -78,15 +82,19 @@ def run_generation(config, bundle):
     table = torch.from_numpy(np.stack([
         artifacts.load_latent(latents_dir, t, frame_ids=frame_ids)
         for t in ts]))
-    control = None
-    if generator.use_controlnet:
+    control = depth = None
+    if generator.use_controlnet or generator.use_depth:
         frames = load_video(config["input_path"], int(config["height"]),
                             int(config["width"]), frame_ids=frame_ids)
-        control = generator.load_control(frames, frame_ids,
+        if generator.use_controlnet:
+            control = generator.load_control(frames, frame_ids,
+                                             config["work_dir"])
+        if generator.use_depth:
+            depth = generator.load_depth(frames, frame_ids,
                                          config["work_dir"])
     outputs = generator(table[0],
                         src_table=table if generator.use_pnp else None,
-                        control=control)
+                        control=control, depth=depth)
     for name, frames in outputs.items():
         out_dir = os.path.join(gene["output_path"], name)
         save_config(config, out_dir, gene=True)

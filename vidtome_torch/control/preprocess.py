@@ -1,34 +1,31 @@
 """Control-image preprocessors (reference utils/controlnet_utils.py:28-99).
 
-Counterpart of ``vidtome_tpu/control/preprocess.py`` (numpy + cv2, run on
-the host once per clip; the pipelines cache the results on disk):
+Counterpart of ``vidtome_tpu/control/preprocess.py`` (numpy + cv2 on the
+host, plus the control nets on a device; the pipelines cache the results on
+disk):
 
   canny          cv2.Canny edges
   tile           down/up resample blur
   ip2p           identity
   depth          3-channel depth via control/depth.py (DPT from a local
                  VIDTOME_DEPTH_MODEL directory, else the warned proxy)
-  softedge       controlnet_aux if importable, else a Sobel-magnitude
-                 fallback (warned)
-  lineart_anime  controlnet_aux if importable, else inverted Sobel edges
-                 (warned)
+  softedge       the HED net (control/edge_hed.py, VIDTOME_HED_MODEL) >
+                 controlnet_aux if importable > Sobel magnitude (warned)
+  lineart_anime  the Anime2Sketch net (control/lineart.py,
+                 VIDTOME_LINEART_MODEL) > controlnet_aux > inverted Sobel
+                 edges (warned)
+  openpose       the OpenPose body net (control/pose.py, VIDTOME_POSE_MODEL)
+                 > controlnet_aux; no classical fallback:
+                 :func:`validate_control_available` fails at construction,
+                 before the expensive stages
 
-The model-backed preprocessors of the JAX package (HED for softedge, the
-Anime2Sketch lineart net, the pose net) are not ported: where
-``VIDTOME_HED_MODEL`` or ``VIDTOME_LINEART_MODEL`` is set, the JAX package
-would run that model, so the port refuses rather than give another image;
-``openpose`` is refused always.
+The nets run on ``device``: the pipelines pass their bundle's (the card),
+tests the CPU.  No net runs on a device chosen by what is found.
 """
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
-
-# preprocessors whose model the JAX package runs when this variable is set
-_MODEL_ENV = {"softedge": "VIDTOME_HED_MODEL",
-              "lineart_anime": "VIDTOME_LINEART_MODEL"}
 
 
 def _to_uint8(img: np.ndarray) -> np.ndarray:
@@ -99,24 +96,18 @@ def _try_aux(processor_id: str, images: np.ndarray) -> np.ndarray | None:
     return np.stack(out)
 
 
-def validate_control_available(control_type: str) -> None:
-    """Fail at construction, before minutes of inversion, for a control
-    whose preprocessor the port cannot run: openpose, and softedge /
-    lineart_anime with their model variable set."""
-    if control_type == "openpose":
-        raise NotImplementedError("control: openpose is not ported to "
-                                  "vidtome_torch yet (ROADMAP.md, queue 1)")
-    env = _MODEL_ENV.get(control_type)
-    if env and os.environ.get(env):
-        raise NotImplementedError(
-            f"{env} is set: the {control_type} model preprocessor is not "
-            f"ported to vidtome_torch yet (ROADMAP.md, queue 1); unset it "
-            f"to run the Sobel fallback")
-
-
 def softedge_preprocess(images: np.ndarray, proc: str = "pidsafe",
-                        **_) -> np.ndarray:
-    validate_control_available("softedge")
+                        device="cuda", **_) -> np.ndarray:
+    from vidtome_torch.control import edge_hed
+
+    hed = edge_hed.hed_model_path()
+    if hed is not None:
+        # the HED net (as in the JAX package: the reference's default
+        # softedge processor is PiDiNet via controlnet_aux; HED is the
+        # classic softedge model and feeds the same ControlNet).  The *safe
+        # variants quantize the edge map to coarse steps.
+        return edge_hed.hed_edges(images, hed, device,
+                                  safe=proc.endswith("safe"))
     aux = _try_aux(f"softedge_{proc}", images)
     if aux is not None:
         return aux
@@ -129,8 +120,12 @@ def softedge_preprocess(images: np.ndarray, proc: str = "pidsafe",
 
 
 def lineart_anime_preprocess(images: np.ndarray, proc: str = "anime",
-                             **_) -> np.ndarray:
-    validate_control_available("lineart_anime")
+                             device="cuda", **_) -> np.ndarray:
+    from vidtome_torch.control import lineart
+
+    model = lineart.lineart_model_path()
+    if model is not None:
+        return lineart.lineart_edges(images, model, device)
     aux = _try_aux(f"lineart_{proc}", images)
     if aux is not None:
         return aux
@@ -143,8 +138,21 @@ def lineart_anime_preprocess(images: np.ndarray, proc: str = "anime",
         np.stack([1.0 - _sobel_edges(i)] * 3, -1) for i in images])
 
 
-def openpose_preprocess(images: np.ndarray, **_) -> np.ndarray:
-    validate_control_available("openpose")  # raises: no pose model ported
+def openpose_preprocess(images: np.ndarray, device="cuda",
+                        **_) -> np.ndarray:
+    from vidtome_torch.control.pose import pose_images, pose_model_path
+
+    path = pose_model_path()
+    if path is not None:
+        return pose_images(images, path, device)
+    aux = _try_aux("openpose", images)
+    if aux is None:
+        raise RuntimeError(
+            "openpose preprocessing needs a pose model: set "
+            "VIDTOME_POSE_MODEL to a body_pose_model.pth checkpoint "
+            "(control/pose.py) or install controlnet_aux; no cv2 fallback "
+            "exists")
+    return aux
 
 
 PREPROCESS_DICT = {
@@ -165,3 +173,30 @@ def control_preprocess(images: np.ndarray, control_type: str,
         raise KeyError(f"unknown control type {control_type!r}; "
                        f"choices: {sorted(PREPROCESS_DICT)}")
     return PREPROCESS_DICT[control_type](np.asarray(images), **kwargs)
+
+
+def validate_control_available(control_type: str) -> None:
+    """Fail FAST for control types whose preprocessor cannot run, instead
+    of raising mid-pipeline after minutes of inversion (the pipelines call
+    this at construction).  Only openpose is hard-gated: it needs a pose
+    model (VIDTOME_POSE_MODEL or controlnet_aux) and has no meaningful
+    classical fallback; the other types always produce something (exact or
+    warned-approximate)."""
+    if control_type != "openpose":
+        return
+    from vidtome_torch.control.pose import pose_model_path
+
+    if pose_model_path() is not None:
+        return
+    try:
+        import controlnet_aux  # noqa: F401
+        return
+    except ImportError:
+        pass
+    raise RuntimeError(
+        "control: openpose needs a pose model and none is available: set "
+        "VIDTOME_POSE_MODEL to a body_pose_model.pth checkpoint "
+        "(control/pose.py) or install controlnet_aux.  There is no "
+        "classical fallback for pose estimation — choose another control "
+        "type (canny/softedge/depth/tile/ip2p/lineart_anime) instead.  "
+        "Failing now, before inversion, so no compute is wasted.")

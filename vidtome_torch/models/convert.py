@@ -22,6 +22,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from vidtome_torch.io.safetensors import load_file
 from vidtome_torch.ops.quant import QuantTable, QWeight, packed_conv_weight
 
 _UNET_RULES = [
@@ -169,9 +170,8 @@ def from_diffusers(state: Mapping[str, Any],
 
 
 def load_component_state(model_dir: str, component: str) -> dict:
-    """All safetensors shards under ``<model_dir>/<component>/``."""
-    from safetensors.torch import load_file
-
+    """All safetensors shards under ``<model_dir>/<component>/``, read by
+    the port's own reader (``io/safetensors.py``)."""
     comp_dir = os.path.join(model_dir, component)
     names = sorted(f for f in os.listdir(comp_dir)
                    if f.endswith(".safetensors"))

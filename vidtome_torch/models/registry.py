@@ -1,7 +1,9 @@
 """Model factory: SD version -> modules with weights on a device.
 
 Counterpart of ``vidtome_tpu/models/registry.py`` for ``"1.5"``,
-``"2.1"`` / ``"2.0"`` (one architecture) and ``"tiny"``.  ``model_key``
+``"2.1"`` / ``"2.0"`` (one architecture), ``"depth"`` (SD2-depth: SD2.1's
+text encoder and VAE, a UNet with a fifth input channel for the depth
+latents) and ``"tiny"``.  ``model_key``
 names a local checkpoint directory in the standard layout (unet/ vae/
 text_encoder/ tokenizer/, safetensors); without
 one, weights are random (warned), drawn from a seeded ``torch.Generator``
@@ -32,22 +34,24 @@ from vidtome_torch.models.clip_text import (SD15_TEXT, SD21_TEXT,
 from vidtome_torch.models.controlnet import ControlNetModel
 from vidtome_torch.models.layers import GroupNorm
 from vidtome_torch.models.tokenizer import load_tokenizer
-from vidtome_torch.models.unet import (SD15_UNET, SD21_UNET, TINY_UNET,
-                                       UNet2DConditionModel)
+from vidtome_torch.models.unet import (SD2_DEPTH_UNET, SD15_UNET, SD21_UNET,
+                                       TINY_UNET, UNet2DConditionModel)
 from vidtome_torch.models.vae import AutoencoderKL
 
 SD_MODEL_KEYS = {"2.1": "stable-diffusion-2-1-base",
                  "2.0": "stable-diffusion-2-base",
-                 "1.5": "stable-diffusion-v1-5", "tiny": "sd-tiny"}
+                 "1.5": "stable-diffusion-v1-5",
+                 "depth": "stable-diffusion-2-depth", "tiny": "sd-tiny"}
 _SD_VAE = ((128, 256, 512, 512), 2)
 SD_CONFIGS = {
     "1.5": (SD15_UNET, SD15_TEXT, _SD_VAE),
     "2.0": (SD21_UNET, SD21_TEXT, _SD_VAE),
     "2.1": (SD21_UNET, SD21_TEXT, _SD_VAE),
+    "depth": (SD2_DEPTH_UNET, SD21_TEXT, _SD_VAE),
     "tiny": (TINY_UNET, TINY_TEXT, ((8, 8, 8, 8), 1)),
 }
 # versions the JAX package runs that the port does not yet
-_UNPORTED_VERSIONS = ("depth", "xl", "xl-refiner", "tiny-refiner")
+_UNPORTED_VERSIONS = ("xl", "xl-refiner", "tiny-refiner")
 
 # ControlNet checkpoints by control type (reference
 # utils/controlnet_utils.py:17-25), under <controlnet_root>/<name>
@@ -75,6 +79,11 @@ class ModelBundle:
     dtype: torch.dtype
     device: torch.device
     controlnet: ControlNetModel | None = None
+
+    @property
+    def use_depth(self) -> bool:
+        """SD2-depth: the UNet takes the depth latents as a fifth channel."""
+        return self.sd_version == "depth"
 
 
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:

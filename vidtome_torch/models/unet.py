@@ -52,6 +52,8 @@ class UNetConfig:
 SD15_UNET = UNetConfig()
 SD21_UNET = UNetConfig(cross_attention_dim=1024, num_heads=None, head_dim=64,
                        use_linear_projection=True)
+# SD2-depth: SD2.1 with the depth map concatenated as a fifth input channel
+SD2_DEPTH_UNET = dataclasses.replace(SD21_UNET, in_channels=5)
 TINY_UNET = UNetConfig(
     block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=32,
     num_heads=2,

@@ -67,14 +67,12 @@ class VAECoder:
 
 # Options of the JAX package that the port does not run yet, with the
 # values it does run: a config that turns one on is refused rather than run
-# without it.  Every control runs but openpose, whose preprocessor needs a
-# pose model that is not ported.
+# without it.
 _UNPORTED = {
-    "control": ("none", "pnp") + tuple(k for k in CONTROLNET_DICT
-                                       if k != "openpose"),
+    "control": ("none", "pnp") + tuple(CONTROLNET_DICT),
     "chunk_batch": (False,),
     "chunk_boundaries": ("rotate",), "merge_crossattn": (False,),
-    "merge_ff": (False,), "refiner": (None,), "use_lora": (False,),
+    "merge_ff": (False,), "refiner": (None,),
 }
 
 
@@ -147,14 +145,27 @@ def stage_quant_table(quant: str, bundle: ModelBundle, stage: str):
 
 def stage_controlnet(control: str, bundle: ModelBundle, stage: str) -> bool:
     """Whether a stage with this ``control`` runs the bundle's ControlNet;
-    raises where the control's preprocessor is not ported or the bundle
-    holds no ControlNet (JAX ``registry.make_controlnet`` asserts)."""
+    raises where the control's preprocessor cannot run (openpose without a
+    pose model, as JAX's ``validate_control_available``), where the bundle
+    holds no ControlNet (JAX ``registry.make_controlnet`` asserts), and
+    where the ControlNet cannot take the UNet's input and context, as on
+    SD2-depth: 5 input channels and 1024-wide contexts against an SD1.5
+    ControlNet's 4 and 768, a call the JAX package fails too."""
     if control not in CONTROLNET_DICT:
         return False
     validate_control_available(control)
     if bundle.controlnet is None:
         raise ValueError(f"{stage}.control={control!r} needs a ControlNet in "
                          f"the bundle: init_model(..., control={control!r})")
+    ucfg, ccfg = bundle.unet.config, bundle.controlnet.config
+    if (ucfg.in_channels, ucfg.cross_attention_dim) != (
+            ccfg.in_channels, ccfg.cross_attention_dim):
+        raise ValueError(
+            f"{stage}.control={control!r}: the bundle's ControlNet takes "
+            f"{ccfg.in_channels} input channels and {ccfg.cross_attention_dim}"
+            f"-wide contexts, its UNet (sd_version {bundle.sd_version!r}) "
+            f"{ucfg.in_channels} and {ucfg.cross_attention_dim}; the JAX "
+            f"package cannot run this combination either")
     return True
 
 

@@ -30,7 +30,7 @@ and k, while ``step < pnp_conv_steps`` up block 1's resnet 1 takes its conv
 features.  Merging aligns its matchings over the three lanes.  CFG-skip
 steps keep the source lane and drop only the uncond one.
 
-ControlNet (``control`` a key of ``CONTROLNET_DICT`` but openpose, JAX
+ControlNet (``control`` a key of ``CONTROLNET_DICT``, JAX
 ``generator.py:530-538``): before every UNet call the bundle's ControlNet
 runs on the same input, timestep and lane contexts, with the control
 images of the chunk's frames tiled over the lanes that run, and its
@@ -38,6 +38,19 @@ residuals, scaled by ``control_scale``, go into the UNet.  It runs unmerged
 and on shallow steps too; eps-skip steps run neither network.  The control
 images come from :meth:`Generator.load_control` (the png cache under
 ``work_dir``).
+
+SD2-depth (``sd_version: depth``, JAX ``generator.py:526-528``): the
+chunk's frames' depth latents (:meth:`Generator.load_depth`, through the
+depth cache under ``work_dir``) are tiled over the lanes that run (the PnP
+source lane included, the uncond lane not on CFG-skip steps) and
+concatenated as a fifth channel after the lanes are built; a ControlNet
+takes that input too.
+
+LoRA (``use_lora: true``, JAX ``generator.py:301-307``): the adapter named
+by ``generation.lora`` is merged into the bundle's UNet and text encoder
+when the Generator is built (``models/lora.py``), before the stage's int8
+table and its text encoder: each Generator merges once into its bundle.
+The inversion never reads it.
 
 Randomness: the chunk schedule comes from ``np.random.default_rng(seed)`` as
 in the JAX package; the merge draws (dst frame per local round, global
@@ -55,11 +68,13 @@ import sys
 import numpy as np
 import torch
 
+from vidtome_torch.control.depth import prepare_depth_latents
 from vidtome_torch.control.preprocess import control_preprocess
 from vidtome_torch.core import chunk as chunking
 from vidtome_torch.core.scheduler import DDIMScheduler, ddim_step
 from vidtome_torch.io import artifacts
 from vidtome_torch.models.layers import RESNET_MODES, SUBLAYER_MODES
+from vidtome_torch.models.lora import apply_lora_bundle
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
@@ -272,7 +287,12 @@ class Generator:
             align_batch=use_pnp or bool(gene.get("align_batch", False)),
             share_match=bool(gene.get("share_match", True)),
             len_quantum=gene.get("len_quantum", 1024))
+        self.use_depth = bundle.use_depth
         resolve_precision(config, gene, bundle)
+        if bool(gene.get("use_lora", False)):
+            # merged before the int8 table is quantized and before the text
+            # encoder runs, so that both see the adapted weights
+            apply_lora_bundle(bundle, gene.get("lora", {}) or {})
         # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
         self.qt = stage_quant_table(self.quant, bundle, "generation")
         self.cn_qt = (stage_controlnet_table(self.quant, bundle, "generation")
@@ -360,9 +380,20 @@ class Generator:
         ``generator.py:957-964``), on the bundle's device and dtype."""
         images = artifacts.load_or_compute_control(
             work_dir, self.control, np.asarray(frames), frame_ids,
-            functools.partial(control_preprocess, control_type=self.control))
+            functools.partial(control_preprocess, control_type=self.control,
+                              device=self.bundle.device))
         return torch.from_numpy(np.asarray(images, np.float32)).to(
             self.bundle.device, self.bundle.dtype)
+
+    def load_depth(self, frames, frame_ids: list[int],
+                   work_dir: str) -> torch.Tensor:
+        """The depth latents [T, h, w, 1] (fp32, in [-1, 1]) of ``frames``
+        [T, H, W, 3] in [0, 1] through the depth cache
+        ``<work_dir>/depth/<frame:04>.npy`` (JAX ``generator.py:951-955``),
+        on the bundle's device."""
+        depth = prepare_depth_latents(np.asarray(frames), frame_ids, work_dir)
+        return torch.from_numpy(np.asarray(depth, np.float32)).to(
+            self.bundle.device)
 
     def context(self, prompt: str) -> torch.Tensor:
         """The lane contexts of one edit: [uncond; cond], with the empty
@@ -375,12 +406,14 @@ class Generator:
                     fidx_table: np.ndarray | None = None,
                     draws: DrawSource | None = None,
                     src_table: torch.Tensor | None = None,
-                    control: torch.Tensor | None = None) -> torch.Tensor:
+                    control: torch.Tensor | None = None,
+                    depth: torch.Tensor | None = None) -> torch.Tensor:
         """Denoise padded latents x [n_padded, h, w, 4] under the lane
         contexts (:meth:`context`).  PnP needs ``src_table``
         [steps, n_padded, h, w, 4], the inversion's latents at each
         generation timestep; a ControlNet ``control``, the padded control
-        images [n_padded, 8h, 8w, 3]."""
+        images [n_padded, 8h, 8w, 3]; SD2-depth ``depth``, the padded depth
+        latents [n_padded, h, w, 1]."""
         sch = self.scheduler
         if self.use_pnp and (src_table is None
                              or src_table.shape[0] != sch.num_steps):
@@ -390,6 +423,9 @@ class Generator:
                                     or control.shape[0] != x.shape[0]):
             raise ValueError(f"control {self.control!r} needs the padded "
                              f"control images [{x.shape[0]}, H, W, 3]")
+        if self.use_depth and (depth is None or depth.shape[0] != x.shape[0]):
+            raise ValueError(f"sd_version depth needs the padded depth "
+                             f"latents [{x.shape[0]}, h, w, 1]")
         if context.shape[0] != self.num_lanes:
             raise ValueError(f"expected {self.num_lanes} lane contexts, got "
                              f"{context.shape[0]}")
@@ -451,6 +487,9 @@ class Generator:
                 if self.use_pnp:
                     x_lanes.insert(0, src_table[i][gather].to(x.dtype))
                 x_in = torch.cat(x_lanes)
+                if self.use_depth:
+                    x_in = torch.cat([x_in, depth[gather].repeat(
+                        len(lanes), 1, 1, 1).to(x_in.dtype)], -1)
                 residuals = {}
                 if self.use_controlnet:
                     down, mid = self.bundle.controlnet(
@@ -490,13 +529,15 @@ class Generator:
 
     def __call__(self, init_latents: torch.Tensor,
                  src_table: torch.Tensor | None = None,
-                 control: torch.Tensor | None = None
+                 control: torch.Tensor | None = None,
+                 depth: torch.Tensor | None = None
                  ) -> dict[str, torch.Tensor]:
         """Edit every prompt from the inverted latents [n, h, w, 4] (and,
         for PnP, the inversion latents at every generation timestep,
         [steps, n, h, w, 4]; for a ControlNet, the control images
-        [n, H, W, 3] of :meth:`load_control`); returns {edit name: frames
-        [n, H, W, 3] in [0, 1]}."""
+        [n, H, W, 3] of :meth:`load_control`; on SD2-depth, the depth
+        latents [n, h, w, 1] of :meth:`load_depth`); returns {edit name:
+        frames [n, H, W, 3] in [0, 1]}."""
         self.configure_frames(init_latents.shape[0])
         dev = self.bundle.device
         pad = torch.as_tensor(self.pad_src, device=dev)
@@ -505,10 +546,13 @@ class Generator:
             src_table = src_table.to(dev, self.bundle.dtype)[:, pad]
         if control is not None:
             control = control.to(dev, self.bundle.dtype)[pad]
+        if depth is not None:
+            depth = depth.to(dev, torch.float32)[pad]
         outputs = {}
         for name, prompt in self.prompt.items():
             print(f"[INFO] current prompt: {prompt}")
             clean = self.ddim_sample(x0, self.context(prompt),
-                                     src_table=src_table, control=control)
+                                     src_table=src_table, control=control,
+                                     depth=depth)
             outputs[name] = self.vae.decode(clean[:self.n_frames])
         return outputs

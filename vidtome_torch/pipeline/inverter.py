@@ -7,7 +7,11 @@ generation only), frames in fixed micro-batches.  With
 ``inversion.control`` naming a ControlNet (JAX ``inverter.py:130-146``,
 ``:186-194``), the bundle's ControlNet runs before every UNet call on the
 same micro-batch, fed the control images of its frames (computed from the
-frames, padded as the latents are), and its residuals go into the UNet.  With
+frames, padded as the latents are), and its residuals go into the UNet.  On
+SD2-depth (``sd_version: depth``, JAX ``inverter.py:186-187``, ``:427-430``)
+the frames' depth latents (:meth:`Inverter.depth_latents`, through the depth
+cache under ``work_dir``) are concatenated as a fifth channel before every
+UNet call, full and shallow.  With
 ``save_intermediate`` the latents of every save timestep are kept: in
 memory (``Inverter.saved``, the source table PnP generation reads) and
 through the caller's ``save_latent`` hook (``cli.py`` writes them to disk).
@@ -29,8 +33,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from vidtome_torch.control.depth import prepare_depth_latents
 from vidtome_torch.control.preprocess import control_preprocess
-
 from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
                                           ddim_step)
 from vidtome_torch.models.registry import ModelBundle
@@ -79,6 +83,7 @@ class Inverter:
         self.n_frames = inv.get("n_frames", None)
         self.recon = bool(inv.get("recon", False))
         self.prompt = inv["prompt"]
+        self.work_dir = config.get("work_dir")
         resolve_precision(config, inv, bundle)
         # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
         self.qt = stage_quant_table(self.quant, bundle, "inversion")
@@ -138,27 +143,52 @@ class Inverter:
             return None
         if isinstance(frames, torch.Tensor):
             frames = frames.float().cpu().numpy()
-        images = control_preprocess(np.asarray(frames), self.control)
+        images = control_preprocess(np.asarray(frames), self.control,
+                                    device=self.bundle.device)
         return torch.from_numpy(np.asarray(images, np.float32)).to(
             self.bundle.device, self.bundle.dtype)
+
+    def depth_latents(self, frames) -> torch.Tensor | None:
+        """The depth latents [T, h, w, 1] (fp32, in [-1, 1]) of the clip's
+        first T frames [T, H, W, 3] in [0, 1] on SD2-depth, through the
+        depth cache under the config's ``work_dir`` (JAX
+        ``inverter.py:427-430``), on the bundle's device; None on any
+        other model."""
+        if not self.bundle.use_depth:
+            return None
+        if isinstance(frames, torch.Tensor):
+            frames = frames.float().cpu().numpy()
+        frames = np.asarray(frames)
+        depth = prepare_depth_latents(frames, list(range(len(frames))),
+                                      self.work_dir)
+        return torch.from_numpy(np.asarray(depth, np.float32)).to(
+            self.bundle.device)
 
     @torch.inference_mode()
     def _run(self, latents: torch.Tensor, conds: torch.Tensor,
              inversion: bool, on_step: Callable | None = None,
-             control: torch.Tensor | None = None) -> torch.Tensor:
+             control: torch.Tensor | None = None,
+             depth: torch.Tensor | None = None) -> torch.Tensor:
         """One UNet call (after the ControlNet's, with ``control``) per
         micro-batch of frames and timestep, then the DDIM (inverse) update
         of all frames (reference invert.py:122-131); eps-skip steps run
-        only the update on the predicted eps."""
+        only the update on the predicted eps.  On SD2-depth both networks
+        take the micro-batch with its ``depth`` latents as a fifth
+        channel."""
         n, bs = latents.shape[0], self.batch_size
         if self.use_controlnet and (control is None or control.shape[0] != n):
             raise ValueError(f"inversion.control {self.control!r} needs the "
                              f"control images of the {n} frames")
+        if self.bundle.use_depth and (depth is None or depth.shape[0] != n):
+            raise ValueError(f"sd_version depth needs the depth latents of "
+                             f"the {n} frames")
         n_p = -(-n // bs) * bs
         x = _pad_frames(latents, n_p).clone()
         conds = _pad_frames(conds, n_p)
         if control is not None:
             control = _pad_frames(control, n_p)
+        if depth is not None:
+            depth = _pad_frames(depth, n_p)
         sch = self.scheduler
         ts = sch.timesteps[::-1] if inversion else sch.timesteps
         unet = self.bundle.unet
@@ -181,16 +211,20 @@ class Inverter:
                     "full" if mask[i] else "shallow")
                 parts = []
                 for b in range(0, n_p, bs):
+                    x_in = x[b:b + bs]
+                    if depth is not None:
+                        x_in = torch.cat([x_in, depth[b:b + bs].to(x.dtype)],
+                                         -1)
                     residuals = {}
                     if self.use_controlnet:
                         down, mid = self.bundle.controlnet(
-                            x[b:b + bs], t, conds[b:b + bs],
+                            x_in, t, conds[b:b + bs],
                             control[b:b + bs],
                             conditioning_scale=self.control_scale,
                             qt=self.cn_qt)
                         residuals = dict(down_residuals=down,
                                          mid_residual=mid)
-                    out = unet(x[b:b + bs], t, conds[b:b + bs],
+                    out = unet(x_in, t, conds[b:b + bs],
                                cache_mode=mode,
                                deep_cache=(deep[b:b + bs]
                                            if mode == "shallow" else None),
@@ -211,12 +245,14 @@ class Inverter:
 
     def ddim_inversion(self, latents: torch.Tensor, conds: torch.Tensor,
                        save_latent: Callable | None = None,
-                       control: torch.Tensor | None = None) -> torch.Tensor:
+                       control: torch.Tensor | None = None,
+                       depth: torch.Tensor | None = None) -> torch.Tensor:
         """Invert clean latents [T, h, w, 4] to the noisiest timestep.
         With ``save_intermediate``, the latents at the save timesteps are
         kept in :attr:`saved` and handed to ``save_latent(t, latents)`` if
         given (JAX ``inverter.py:384-392``).  A ControlNet stage takes the
-        frames' ``control`` images (:meth:`control_images`)."""
+        frames' ``control`` images (:meth:`control_images`), SD2-depth their
+        ``depth`` latents (:meth:`depth_latents`)."""
         ts_up = self.scheduler.timesteps[::-1]
         self.saved = {}
 
@@ -228,7 +264,7 @@ class Inverter:
                     save_latent(t, x)
 
         return self._run(latents, conds, inversion=True, on_step=hook,
-                         control=control)
+                         control=control, depth=depth)
 
     def source_table(self, timesteps) -> torch.Tensor:
         """PnP's source latents [len(timesteps), T, h, w, 4] from the last
@@ -241,9 +277,11 @@ class Inverter:
         return torch.stack([self.saved[int(t)] for t in timesteps])
 
     def ddim_sample(self, latents: torch.Tensor, conds: torch.Tensor,
-                    control: torch.Tensor | None = None) -> torch.Tensor:
+                    control: torch.Tensor | None = None,
+                    depth: torch.Tensor | None = None) -> torch.Tensor:
         """Reconstruct clean latents from inverted ones (fidelity check)."""
-        return self._run(latents, conds, inversion=False, control=control)
+        return self._run(latents, conds, inversion=False, control=control,
+                         depth=depth)
 
     def encode(self, frames) -> tuple[torch.Tensor, torch.Tensor]:
         """Frames [T, H, W, 3] in [0, 1] -> (clean latents, per-frame
@@ -257,9 +295,11 @@ class Inverter:
         frames or None)."""
         latents, conds = self.encode(frames)
         control = self.control_images(frames)
-        inverted = self.ddim_inversion(latents, conds, save_latent, control)
+        depth = self.depth_latents(frames)
+        inverted = self.ddim_inversion(latents, conds, save_latent, control,
+                                       depth)
         recon = None
         if self.recon:
             recon = self.vae.decode(self.ddim_sample(inverted, conds,
-                                                     control))
+                                                     control, depth))
         return inverted, recon
