@@ -117,8 +117,12 @@ Phases (any failure exits non-zero before the last line):
      50+50 DDIM steps (the softedge images through the HED net of phase
      13): the generation without the LoRA, then a Generator with use_lora
      merges it (the merged weights must be W + delta within two bf16
-     roundings, a UNet call's launches must not change) and generates from
-     the same latents (the frames must differ); then, the weights restored,
+     roundings) and generates from the same latents (the frames must
+     differ); each UNet and ControlNet call of the LoRA generation, read
+     from forward hooks, must launch what the plain generation's call at
+     the same index did and what the topology says (flash 10, small-KV 22,
+     full GroupNorm 61 a UNet call; flash 4, small-KV 10, full GroupNorm 27
+     a ControlNet call); then, the weights restored,
      a LoRA generator in int8 must quantize the merged weights (LORA_PROBE);
   15. SD2-depth path: the SD2.1 bundle freed, SD2-depth at full width with
      random weights (seeded), configs/flamingo.yaml's keys at 50+50 DDIM
@@ -2021,45 +2025,6 @@ def write_control_nets(out_dir: str) -> dict:
     return out
 
 
-def pose_lists(img: np.ndarray, fwd) -> tuple:
-    """(peaks, connections, candidates, subsets) of the pose detector on
-    one [H, W, 3] frame in [0, 1], through ``fwd``."""
-    from vidtome_torch.control import pose
-
-    bgr = (np.clip(img, 0, 1) * 255).astype(np.uint8)[:, :, ::-1]
-    heat, paf = pose.infer_maps(bgr, fwd)
-    peaks = pose.find_peaks(heat)
-    conns, special = pose.score_connections(peaks, paf, bgr.shape[0])
-    cand, subset = pose.assemble_subsets(peaks, conns, special)
-    return peaks, conns, np.asarray(cand, float), subset
-
-
-def same_pose_lists(a: tuple, b: tuple) -> bool:
-    """The same peaks (positions, ids), connections and subsets (members,
-    counts); the scores to POSE_SCORE_RTOL."""
-    (pa, ca, cand_a, sa), (pb, cb, cand_b, sb) = a, b
-    if [len(p) for p in pa] != [len(p) for p in pb]:
-        return False
-    if cand_a.shape != cand_b.shape or sa.shape != sb.shape:
-        return False
-    if cand_a.size and not (
-            np.array_equal(cand_a[:, [0, 1, 3]], cand_b[:, [0, 1, 3]])
-            and np.allclose(cand_a[:, 2], cand_b[:, 2], rtol=POSE_SCORE_RTOL,
-                            atol=0)):
-        return False
-    for x, y in zip(ca, cb):
-        x, y = np.asarray(x, float), np.asarray(y, float)
-        if x.shape != y.shape or (x.size and not (
-                np.array_equal(x[:, [0, 1, 3, 4]], y[:, [0, 1, 3, 4]])
-                and np.allclose(x[:, 2], y[:, 2], rtol=POSE_SCORE_RTOL,
-                                atol=0))):
-            return False
-    return not sa.size or (
-        np.array_equal(sa[:, :-2], sb[:, :-2])
-        and np.array_equal(sa[:, -1], sb[:, -1])
-        and np.allclose(sa[:, -2], sb[:, -2], rtol=POSE_SCORE_RTOL, atol=0))
-
-
 def phase_control_models(dev, nets: dict) -> None:
     """control_preprocess for softedge, lineart_anime and openpose through
     the random nets of ``nets`` (write_control_nets), the 8 smoke frames at
@@ -2110,11 +2075,13 @@ def phase_control_models(dev, nets: dict) -> None:
             ok = err < LINEART_CARD_TOL and card.std() > 0.01
         else:
             fwd = {w: pose.pose_forward(path, w) for w in (dev, "cpu")}
-            lists = [[pose_lists(f, fwd[w]) for f in frames]
+            bgr = (np.clip(frames, 0, 1) * 255).astype(np.uint8)[..., ::-1]
+            lists = [[pose.detect(f, fwd[w]) for f in bgr]
                      for w in (dev, "cpu")]
-            same = all(same_pose_lists(a, b) for a, b in zip(*lists))
+            same = all(pose.pose_difference(a, b, POSE_SCORE_RTOL) is None
+                       for a, b in zip(*lists))
             peaks = [sum(len(p) for p in pl[0]) for pl in lists[0]]
-            people = [len(pl[3]) for pl in lists[0]]
+            people = [len(pl[4]) for pl in lists[0]]
             what = (f"peaks a frame {peaks}, people {people}; same peaks "
                     f"and people on both {same}; drawn images equal "
                     f"{np.array_equal(card, cpu)}")
@@ -2178,18 +2145,23 @@ def write_lora(bundle, path: str, seed: int = 7) -> dict:
     return deltas
 
 
-def unet_call_launches(bundle) -> dict:
-    """The kernel launches of one UNet call at [8, 64, 64, 4] (random,
-    seeded, 77 context tokens)."""
-    g = torch.Generator().manual_seed(9)
-    width = bundle.unet.config.cross_attention_dim
-    x = torch.randn((N_FRAMES, SIZE // 8, SIZE // 8, 4), generator=g)
-    ctx = torch.randn((N_FRAMES, 77, width), generator=g)
-    with torch.inference_mode():
-        before = read_launches()
-        bundle.unet(x.to(bundle.device, bundle.dtype), 501,
-                    ctx.to(bundle.device, bundle.dtype))
-        return {k: v - before[k] for k, v in read_launches().items()}
+def unet_call_want(unet) -> dict:
+    """The launches of one UNet call at the smoke frames' latent, by the
+    topology: flash for the self-attentions over more than SMALL_KV tokens,
+    small-KV for the rest and every cross-attention, the full GroupNorm
+    entry for all 61 GroupNorms; best match (2 or 4 a generation call) is
+    left at 0."""
+    from vidtome_torch.models.layers import TransformerBlock
+    from vidtome_torch.ops.attention import SMALL_KV
+
+    blocks = [m for m in unet.modules() if isinstance(m, TransformerBlock)]
+    latent = SIZE // 8
+    want = {k: 0 for k in KERNELS}
+    want.update(flash_attention=sum((latent // b.downsample) ** 2 > SMALL_KV
+                                    for b in blocks),
+                full_group_norm=61,
+                small_kv_attention=small_kv_blocks(unet, latent))
+    return want
 
 
 def phase_lora(dev, bundle) -> dict:
@@ -2197,9 +2169,11 @@ def phase_lora(dev, bundle) -> dict:
     softedge ControlNet, its zero convs moved, the softedge images through
     the random HED net when VIDTOME_HED_MODEL is set): the generation
     without the adapter, then with it merged on load by the Generator; the
-    merged weights must be W + delta within two bf16 roundings, a UNet
-    call's launches must not change, and the edit must; then the int8
-    table of a LoRA generator must quantize the merged weights."""
+    merged weights must be W + delta within two bf16 roundings, each UNet
+    and ControlNet call of the LoRA generation must launch what the same
+    call of the plain one did (``LaunchesPerCall``), which the topology
+    gives, and the edit must change; then the int8 table of a LoRA
+    generator must quantize the merged weights."""
     from vidtome_torch.ops.quant import quantize_weight
     from vidtome_torch.pipeline.generator import Generator
     from vidtome_torch.pipeline.inverter import Inverter
@@ -2209,68 +2183,92 @@ def phase_lora(dev, bundle) -> dict:
     frame_ids = list(range(N_FRAMES))
     times = {}
     stage = functools.partial(timed, times)
-    with tempfile.TemporaryDirectory() as work_dir:
-        lora_path = os.path.join(work_dir, "pixelart.safetensors")
-        deltas = write_lora(bundle, lora_path)
-        cfg_plain, cfg_lora = (breakdance_config(None),
-                               breakdance_config(lora_path))
-        inverter = Inverter(bundle, cfg_plain)
-        plain = Generator(bundle, cfg_plain)
-        # the weights as the stages run them, before the merge
-        saved = {m: m.weight.detach().clone() for m in deltas}
-        plain_launches = unet_call_launches(bundle)
-        reset_launches()
-        latents, conds = stage("encode", lambda: inverter.encode(frames))
-        inverted = stage("invert", lambda: inverter.ddim_inversion(latents,
-                                                                   conds))
-        plain.configure_frames(N_FRAMES)
-        pad = torch.as_tensor(plain.pad_src, device=dev)
-        control = stage("control", lambda: plain.load_control(
-            frames, frame_ids, work_dir))
-        name, prompt = next(iter(plain.prompt.items()))
-        table = plain.fidx_table()
-        out_plain = stage("generate_plain", lambda: plain.vae.decode(
-            plain.ddim_sample(inverted[pad], plain.context(prompt),
-                              fidx_table=table,
-                              control=control[pad])[:N_FRAMES]))
-        generator = stage("merge", lambda: Generator(bundle, cfg_lora))
-        errs = []
-        for mod, delta in deltas.items():
-            want = saved[mod].float() + delta
-            got = mod.weight.detach().float()
-            # the delta rounded to bf16, then the sum: two bf16 roundings
-            # (2^-9 relative each), bounded here by twice their sum
-            tol = 2.0 ** -8 * (delta.abs() + want.abs())
-            errs.append(((got - want).abs() - tol).max())
-        excess = torch.stack(errs).max().item()
-        lora_launches = unet_call_launches(bundle)
-        generator.configure_frames(N_FRAMES)
-        gen_before = read_launches()
-        out = stage("generate", lambda: generator.vae.decode(
-            generator.ddim_sample(inverted[pad], generator.context(prompt),
+    unet_calls = LaunchesPerCall(bundle.unet)
+    cn_calls = LaunchesPerCall(bundle.controlnet)
+    try:
+        with tempfile.TemporaryDirectory() as work_dir:
+            lora_path = os.path.join(work_dir, "pixelart.safetensors")
+            deltas = write_lora(bundle, lora_path)
+            cfg_plain, cfg_lora = (breakdance_config(None),
+                                   breakdance_config(lora_path))
+            inverter = Inverter(bundle, cfg_plain)
+            plain = Generator(bundle, cfg_plain)
+            # the weights as the stages run them, before the merge
+            saved = {m: m.weight.detach().clone() for m in deltas}
+            reset_launches()
+            latents, conds = stage("encode", lambda: inverter.encode(frames))
+            inverted = stage("invert", lambda: inverter.ddim_inversion(
+                latents, conds))
+            plain.configure_frames(N_FRAMES)
+            pad = torch.as_tensor(plain.pad_src, device=dev)
+            control = stage("control", lambda: plain.load_control(
+                frames, frame_ids, work_dir))
+            name, prompt = next(iter(plain.prompt.items()))
+            table = plain.fidx_table()
+            marks = [(len(unet_calls.calls), len(cn_calls.calls))]
+            out_plain = stage("generate_plain", lambda: plain.vae.decode(
+                plain.ddim_sample(inverted[pad], plain.context(prompt),
                                   fidx_table=table,
                                   control=control[pad])[:N_FRAMES]))
-        gen_launches = {k: v - gen_before[k]
-                        for k, v in read_launches().items()}
-        launches = read_launches()
-        gen_calls = sum(generator.unet_calls.values())
+            marks.append((len(unet_calls.calls), len(cn_calls.calls)))
+            generator = stage("merge", lambda: Generator(bundle, cfg_lora))
+            errs = []
+            for mod, delta in deltas.items():
+                want = saved[mod].float() + delta
+                got = mod.weight.detach().float()
+                # the delta rounded to bf16, then the sum: two bf16
+                # roundings (2^-9 relative each), bounded here by twice
+                # their sum
+                tol = 2.0 ** -8 * (delta.abs() + want.abs())
+                errs.append(((got - want).abs() - tol).max())
+            excess = torch.stack(errs).max().item()
+            generator.configure_frames(N_FRAMES)
+            marks.append((len(unet_calls.calls), len(cn_calls.calls)))
+            out = stage("generate", lambda: generator.vae.decode(
+                generator.ddim_sample(inverted[pad], generator.context(prompt),
+                                      fidx_table=table,
+                                      control=control[pad])[:N_FRAMES]))
+            marks.append((len(unet_calls.calls), len(cn_calls.calls)))
+            launches = read_launches()
 
-        # int8: the unmerged weights back, then a LoRA generator in int8
-        with torch.no_grad():
-            for mod, w in saved.items():
-                mod.weight.copy_(w)
-        int8 = Generator(bundle, {**cfg_lora, "generation": {
-            **cfg_lora["generation"], "quant": "int8"}})
-        probe = bundle.unet.get_submodule(LORA_PROBE)
-        entry = int8.qt.get(probe)
-        q, scale = quantize_weight(probe.weight)
-        deq = entry.weight.float() * entry.scale.reshape(-1, 1)
-        w0, merged = saved[probe].float(), saved[probe].float() + deltas[probe]
-        d_merged = (deq - merged).abs().mean().item()
-        d_plain = (deq - w0).abs().mean().item()
-        int8_ok = (torch.equal(entry.weight, q)
-                   and torch.equal(entry.scale, scale) and d_merged < d_plain)
+            # int8: the unmerged weights back (the bundle then holds no
+            # LoRA), then a LoRA generator in int8
+            with torch.no_grad():
+                for mod, w in saved.items():
+                    mod.weight.copy_(w)
+            bundle.lora = None
+            int8 = Generator(bundle, {**cfg_lora, "generation": {
+                **cfg_lora["generation"], "quant": "int8"}})
+            probe = bundle.unet.get_submodule(LORA_PROBE)
+            entry = int8.qt.get(probe)
+            q, scale = quantize_weight(probe.weight)
+            deq = entry.weight.float() * entry.scale.reshape(-1, 1)
+            w0 = saved[probe].float()
+            merged = w0 + deltas[probe]
+            d_merged = (deq - merged).abs().mean().item()
+            d_plain = (deq - w0).abs().mean().item()
+            int8_ok = (torch.equal(entry.weight, q)
+                       and torch.equal(entry.scale, scale)
+                       and d_merged < d_plain)
+    finally:
+        unet_calls.close()
+        cn_calls.close()
 
+    # each generation's own UNet and ControlNet calls, by the marks
+    (u0, c0), (u1, c1), (u2, c2), (u3, c3) = marks
+    plain_unet, lora_unet = unet_calls.calls[u0:u1], unet_calls.calls[u2:u3]
+    plain_cn, lora_cn = cn_calls.calls[c0:c1], cn_calls.calls[c2:c3]
+    n_calls = sum(generator.unet_calls.values())
+    want = unet_call_want(bundle.unet)
+    want_cn = {k: CONTROLNET_LAUNCHES.get(k, 0) for k in KERNELS}
+    odd_unet = [i for i, c in enumerate(lora_unet)
+                if c != plain_unet[i] or {**c, "best_match": 0} != want]
+    odd_cn = [i for i, c in enumerate(lora_cn)
+              if c != plain_cn[i] or c != want_cn]
+    best = sum(c["best_match"] for c in lora_unet)
+    kinds = {}
+    for c in lora_unet:
+        kinds.setdefault(f"best_match {c['best_match']}", c)
     diff = (out.float() - out_plain.float()).abs()
     mse = (diff ** 2).mean().item()
     psnr = float("inf") if mse == 0 else 10 * np.log10(1.0 / mse)
@@ -2284,8 +2282,15 @@ def phase_lora(dev, bundle) -> dict:
           f"{generator.tome.global_rand}, control_scale "
           f"{generator.control_scale}); UNet calls {dict(generator.unet_calls)}")
     print(f"[lora] merged weights - (W + delta): largest excess over two bf16 "
-          f"roundings {excess:.3e} (must be <= 0); a UNet call's launches "
-          f"without the LoRA {plain_launches}, with it {lora_launches}")
+          f"roundings {excess:.3e} (must be <= 0)")
+    print(f"[lora] launches per UNet call of the LoRA generation by kind: "
+          f"{kinds} (want {want} besides best_match); per ControlNet call "
+          f"{lora_cn[0] if lora_cn else None} (want {CONTROLNET_LAUNCHES}); "
+          f"{len(lora_unet)} UNet and {len(lora_cn)} ControlNet calls with "
+          f"the LoRA, {len(plain_unet)} and {len(plain_cn)} without; calls "
+          f"that differ from the plain generation's call at the same index "
+          f"or from the topology: {len(odd_unet)} UNet, {len(odd_cn)} "
+          f"ControlNet; best_match {best} over {len(lora_unet)} calls")
     print(f"[lora] frames with vs without the LoRA: max |diff| "
           f"{diff.max().item():.4f}, PSNR {psnr:.2f} dB (must differ); "
           f"stage seconds " + ", ".join(f"{k} {v:.3f}"
@@ -2296,18 +2301,20 @@ def phase_lora(dev, bundle) -> dict:
           f"{d_merged:.3e}, |dequantized - W| {d_plain:.3e}")
     if not excess <= 0:
         raise AssertionError(f"LoRA merge off W + delta by {excess}")
-    if lora_launches != plain_launches:
-        raise AssertionError("the merged LoRA changed a UNet call's launches")
+    if not (len(lora_unet) == len(plain_unet) == n_calls
+            and len(lora_cn) == len(plain_cn) == n_calls):
+        raise AssertionError("the generations' UNet and ControlNet calls "
+                             "differ in number")
+    if odd_unet or odd_cn or best != 3 * n_calls:
+        raise AssertionError(
+            f"LoRA generation launches per call differ from the plain "
+            f"generation's or the topology's: UNet calls {odd_unet[:3]}, "
+            f"ControlNet calls {odd_cn[:3]}, best_match {best}")
     if not diff.max().item() > 0.05:
         raise AssertionError("the LoRA does not change the edit")
     if not int8_ok:
         raise AssertionError("the int8 table was not built from the merged "
                              "weights")
-    if gen_launches["best_match"] != 3 * gen_calls or any(
-            gen_launches[k] <= 0 for k in ("flash_attention",
-                                           "small_kv_attention",
-                                           "full_group_norm")):
-        raise AssertionError(f"LoRA generation launches {gen_launches}")
     if tuple(out.shape) != (N_FRAMES, SIZE, SIZE, 3) or not (
             torch.isfinite(out).all() and 0 <= out.min() and out.max() <= 1):
         raise AssertionError("LoRA frames not finite or outside [0, 1]")
@@ -2321,8 +2328,7 @@ def phase_depth(dev, bundle) -> dict:
     of each kind must launch flash, small-KV and the full GroupNorm entry
     as the topology says (and best match 2 or 4 times a generation call,
     3 on average)."""
-    from vidtome_torch.models.layers import TransformerBlock
-    from vidtome_torch.ops.attention import SMALL_KV
+    from vidtome_torch.pipeline.common import stage_depth
     from vidtome_torch.pipeline.generator import Generator
     from vidtome_torch.pipeline.inverter import Inverter
 
@@ -2339,14 +2345,15 @@ def phase_depth(dev, bundle) -> dict:
             generator = Generator(bundle, cfg)
             reset_launches()
             latents, conds = stage("encode", lambda: inverter.encode(frames))
-            depth = stage("depth", lambda: inverter.depth_latents(frames))
+            depth = stage("depth", lambda: stage_depth(
+                bundle, frames, frame_ids, work_dir))
             cached = sorted(os.listdir(os.path.join(work_dir, "depth")))
             inverted = stage("invert", lambda: inverter.ddim_inversion(
                 latents, conds, depth=depth))
             n_inv = len(per_call.calls)
             generator.configure_frames(N_FRAMES)
             pad = torch.as_tensor(generator.pad_src, device=dev)
-            depth_gen = generator.load_depth(frames, frame_ids, work_dir)
+            depth_gen = stage_depth(bundle, frames, frame_ids, work_dir)
             name, prompt = next(iter(generator.prompt.items()))
             context = stage("text", lambda: generator.context(prompt))
             table = generator.fidx_table()
@@ -2359,13 +2366,7 @@ def phase_depth(dev, bundle) -> dict:
     finally:
         per_call.close()
 
-    blocks = [m for m in bundle.unet.modules()
-              if isinstance(m, TransformerBlock)]
-    latent = SIZE // 8
-    n_flash = sum((latent // b.downsample) ** 2 > SMALL_KV for b in blocks)
-    want = {k: 0 for k in KERNELS}
-    want.update(flash_attention=n_flash, full_group_norm=61,
-                small_kv_attention=small_kv_blocks(bundle.unet, latent))
+    want = unet_call_want(bundle.unet)
     inv_calls, gen_calls = per_call.calls[:n_inv], per_call.calls[n_inv:]
     odd_inv = [c for c in inv_calls if c != want]
     odd_gen = [c for c in gen_calls

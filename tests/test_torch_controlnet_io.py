@@ -136,15 +136,24 @@ def test_openpose_is_not_ported(no_models):
 
 @pytest.mark.parametrize("control,env", [
     ("softedge", "VIDTOME_HED_MODEL"),
-    ("lineart_anime", "VIDTOME_LINEART_MODEL")])
+    ("lineart_anime", "VIDTOME_LINEART_MODEL"),
+    ("openpose", "VIDTOME_POSE_MODEL")])
 def test_model_preprocessors_are_refused(monkeypatch, tmp_path, control,
                                          env):
     """With the model variable set, both packages run the model and never
     the Sobel fallback: a variable naming a directory that holds no
-    checkpoint fails in both alike.  Validation passes, as in JAX."""
+    checkpoint fails in both alike.  Validation passes, as in JAX.  A
+    variable naming a path that does not exist fails in the port, from
+    the preprocessor and at validation, where the JAX package would fall
+    back to another preprocessor."""
     monkeypatch.setenv(env, str(tmp_path))
     for pre in (t_pre, j_pre):
         with pytest.raises(FileNotFoundError, match="no checkpoint file"):
             pre.control_preprocess(_frames(1), control)
         pre.validate_control_available(control)
     t_pre.validate_control_available("canny")
+    monkeypatch.setenv(env, str(tmp_path / "missing.pth"))
+    with pytest.raises(FileNotFoundError, match=env):
+        t_pre.control_preprocess(_frames(1), control)
+    with pytest.raises(FileNotFoundError, match=env):
+        t_pre.validate_control_available(control)

@@ -34,6 +34,7 @@ from vidtome_torch.control.depth import \
 from vidtome_torch.models.registry import SD_CONFIGS, SD_MODEL_KEYS
 from vidtome_torch.models.tome import DrawSource
 from vidtome_torch.models.unet import SD2_DEPTH_UNET, SD21_UNET
+from vidtome_torch.pipeline.common import stage_depth
 from vidtome_torch.pipeline.generator import Generator as TGen
 from vidtome_torch.pipeline.inverter import Inverter as TInv
 from vidtome_tpu.config import Config
@@ -132,7 +133,7 @@ def port_edit(tb, cfg, saved: dict, clip, work_dir):
     table = gen.fidx_table()
     assert table.shape[1] == 2
     pad = torch.as_tensor(gen.pad_src)
-    depth = gen.load_depth(clip, list(range(N_FRAMES)), work_dir)
+    depth = stage_depth(tb, clip, range(N_FRAMES), work_dir)
     src = None
     if gen.use_pnp:
         src = torch.stack([saved[int(t)]

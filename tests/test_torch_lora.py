@@ -20,6 +20,7 @@ port, against the JAX package and the ``safetensors`` package, on the CPU.
 from __future__ import annotations
 
 import copy
+import os
 
 import jax
 import numpy as np
@@ -401,3 +402,25 @@ def test_int8_table_is_built_after_the_merge(bundles, lora_file):
     fresh = copy.deepcopy(tb)
     TInv(fresh, config(use_lora=True, lora={"path": lora_file}))
     assert torch.equal(fresh.unet.get_submodule(name).weight, w0)
+
+
+def test_second_generator_merges_nothing(bundles, lora_file, capsys):
+    """A bundle records its LoRA: a second Generator with the same adapter
+    leaves the weights as the first merge made them, and one with another
+    scale raises instead of merging a second adapter on top."""
+    _, tb = bundles
+    bundle = copy.deepcopy(tb)
+    name = "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q"
+    cfg = config(use_lora=True, lora={"path": lora_file, "weight": 0.8})
+    TGen(bundle, cfg)
+    merged = bundle.unet.get_submodule(name).weight.detach().clone()
+    assert not torch.equal(merged, tb.unet.get_submodule(name).weight)
+    assert bundle.lora == (os.path.abspath(lora_file), 0.8)
+    capsys.readouterr()
+    TGen(bundle, cfg)
+    assert "already merged" in capsys.readouterr().out
+    assert torch.equal(bundle.unet.get_submodule(name).weight, merged)
+    with pytest.raises(ValueError, match="needs a fresh bundle"):
+        TGen(bundle, config(use_lora=True,
+                            lora={"path": lora_file, "weight": 0.5}))
+    assert torch.equal(bundle.unet.get_submodule(name).weight, merged)

@@ -27,7 +27,7 @@ from vidtome_torch.config import load_config, save_config
 from vidtome_torch.io import artifacts
 from vidtome_torch.io.video import load_video, save_frames, save_video
 from vidtome_torch.models.registry import init_model
-from vidtome_torch.pipeline.common import get_frame_ids
+from vidtome_torch.pipeline.common import get_frame_ids, stage_depth
 from vidtome_torch.pipeline.generator import Generator
 from vidtome_torch.pipeline.inverter import Inverter
 
@@ -90,8 +90,8 @@ def run_generation(config, bundle):
             control = generator.load_control(frames, frame_ids,
                                              config["work_dir"])
         if generator.use_depth:
-            depth = generator.load_depth(frames, frame_ids,
-                                         config["work_dir"])
+            depth = stage_depth(generator.bundle, frames, frame_ids,
+                                config["work_dir"])
     outputs = generator(table[0],
                         src_table=table if generator.use_pnp else None,
                         control=control, depth=depth)

@@ -23,14 +23,13 @@ TF32 off.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vidtome_torch.control.loading import cached_model, exact_fp32
+from vidtome_torch.control.loading import (cached_model, exact_fp32,
+                                            model_path)
 
 _BLOCKS = (("block1", 64, 2), ("block2", 128, 2), ("block3", 256, 3),
            ("block4", 512, 3), ("block5", 512, 3))
@@ -124,5 +123,4 @@ def hed_edges(images: np.ndarray, model_path: str, device="cuda",
 
 
 def hed_model_path() -> str | None:
-    p = os.environ.get("VIDTOME_HED_MODEL")
-    return p if p and os.path.exists(p) else None
+    return model_path("VIDTOME_HED_MODEL")

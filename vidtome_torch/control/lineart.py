@@ -22,13 +22,12 @@ package's, in cv2.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 from torch import nn
 
-from vidtome_torch.control.loading import cached_model, exact_fp32
+from vidtome_torch.control.loading import (cached_model, exact_fp32,
+                                            model_path)
 
 NGF = 64
 NUM_DOWNS = 8
@@ -118,5 +117,4 @@ def lineart_edges(images: np.ndarray, model_path: str,
 
 
 def lineart_model_path() -> str | None:
-    p = os.environ.get("VIDTOME_LINEART_MODEL")
-    return p if p and os.path.exists(p) else None
+    return model_path("VIDTOME_LINEART_MODEL")

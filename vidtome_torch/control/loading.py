@@ -21,6 +21,18 @@ from torch import nn
 from vidtome_torch.io.safetensors import load_file
 
 
+def model_path(env: str) -> str | None:
+    """The checkpoint named by the variable ``env``, None when it is unset
+    or empty.  A set variable whose path does not exist fails here, naming
+    the variable: it never falls back to another preprocessor."""
+    path = os.environ.get(env)
+    if not path:
+        return None
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{env}={path}: no such file or directory")
+    return path
+
+
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
     """torch/safetensors state dict from a file or a directory containing
     one (first matching checkpoint file wins), on the CPU."""

@@ -28,14 +28,14 @@ no meaningful classical fallback.
 from __future__ import annotations
 
 import math
-import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vidtome_torch.control.loading import cached_model, exact_fp32
+from vidtome_torch.control.loading import (cached_model, exact_fp32,
+                                            model_path)
 
 # (name, out_channels, kernel) per backbone layer; 'P' = 2x2 maxpool
 _BACKBONE = (
@@ -372,13 +372,51 @@ def draw_bodypose(canvas: np.ndarray, candidate, subset) -> np.ndarray:
     return canvas
 
 
-def detect_and_draw(image01: np.ndarray, fwd) -> np.ndarray:
-    """[H, W, 3] RGB in [0,1] -> pose rendering [H, W, 3] in [0,1]."""
-    bgr = (np.clip(image01, 0, 1) * 255).astype(np.uint8)[:, :, ::-1]
+def detect(bgr: np.ndarray, fwd) -> tuple:
+    """(peaks, connections, special_k, candidates, subsets) of the body
+    net ``fwd`` on one [H, W, 3] uint8 BGR frame."""
     heat, paf = infer_maps(bgr, fwd)
     all_peaks = find_peaks(heat)
     conns, special = score_connections(all_peaks, paf, bgr.shape[0])
     candidate, subset = assemble_subsets(all_peaks, conns, special)
+    return all_peaks, conns, special, candidate, subset
+
+
+def pose_difference(a: tuple, b: tuple, rtol: float) -> str | None:
+    """What differs between two detections (:func:`detect`'s tuples): the
+    peaks (positions and ids), connections and subsets (members and counts)
+    must be equal, their scores equal to ``rtol``; None where they agree."""
+    peaks_a, conns_a, special_a, cand_a, sub_a = a
+    peaks_b, conns_b, special_b, cand_b, sub_b = b
+
+    def same(x, y, score: int) -> bool:
+        x, y = np.asarray(x, float), np.asarray(y, float)
+        if x.shape != y.shape:
+            return False
+        if not x.size:
+            return True
+        rest = np.arange(x.shape[1]) != score % x.shape[1]
+        return (np.array_equal(x[:, rest], y[:, rest])
+                and np.allclose(x[:, score], y[:, score], rtol=rtol, atol=0))
+
+    if list(special_a) != list(special_b):
+        return "special_k"
+    if [len(p) for p in peaks_a] != [len(p) for p in peaks_b]:
+        return "peak counts"
+    if not same(cand_a, cand_b, 2):
+        return "candidates"
+    if len(conns_a) != len(conns_b) or not all(
+            same(x, y, 2) for x, y in zip(conns_a, conns_b)):
+        return "connections"
+    if not same(sub_a, sub_b, -2):
+        return "subsets"
+    return None
+
+
+def detect_and_draw(image01: np.ndarray, fwd) -> np.ndarray:
+    """[H, W, 3] RGB in [0,1] -> pose rendering [H, W, 3] in [0,1]."""
+    bgr = (np.clip(image01, 0, 1) * 255).astype(np.uint8)[:, :, ::-1]
+    _, _, _, candidate, subset = detect(bgr, fwd)
     canvas = np.zeros_like(bgr)
     canvas = draw_bodypose(canvas, candidate, subset)
     return canvas[:, :, ::-1].astype(np.float32) / 255.0
@@ -393,5 +431,4 @@ def pose_images(images: np.ndarray, model_path: str,
 
 
 def pose_model_path() -> str | None:
-    p = os.environ.get("VIDTOME_POSE_MODEL")
-    return p if p and os.path.exists(p) else None
+    return model_path("VIDTOME_POSE_MODEL")

@@ -178,14 +178,20 @@ def control_preprocess(images: np.ndarray, control_type: str,
 def validate_control_available(control_type: str) -> None:
     """Fail FAST for control types whose preprocessor cannot run, instead
     of raising mid-pipeline after minutes of inversion (the pipelines call
-    this at construction).  Only openpose is hard-gated: it needs a pose
-    model (VIDTOME_POSE_MODEL or controlnet_aux) and has no meaningful
-    classical fallback; the other types always produce something (exact or
-    warned-approximate)."""
-    if control_type != "openpose":
-        return
+    this at construction).  A model variable that names no file fails
+    here (:func:`control.loading.model_path`).  Openpose is hard-gated
+    besides: it needs a pose model (VIDTOME_POSE_MODEL or controlnet_aux)
+    and has no meaningful classical fallback; the other types always
+    produce something (exact or warned-approximate)."""
+    from vidtome_torch.control import edge_hed, lineart
     from vidtome_torch.control.pose import pose_model_path
 
+    if control_type == "softedge":
+        edge_hed.hed_model_path()
+    elif control_type == "lineart_anime":
+        lineart.lineart_model_path()
+    if control_type != "openpose":
+        return
     if pose_model_path() is not None:
         return
     try:

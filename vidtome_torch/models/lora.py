@@ -24,6 +24,7 @@ modules carry both, so a name is looked up as it stands.
 
 from __future__ import annotations
 
+import os
 import re
 
 import torch
@@ -167,12 +168,22 @@ def apply_lora_bundle(bundle, lora_cfg: dict) -> None:
     """Merge the LoRA of the config's ``generation.lora`` section
     (``{path: file.safetensors, weight: 1.0}``; a local safetensors file,
     where the reference takes HF-hub arguments) into the bundle's UNet and
-    text encoder, in place."""
+    text encoder, in place, once: the bundle records the adapter
+    (``ModelBundle.lora``), the same adapter again merges nothing, and
+    another one raises."""
     path = lora_cfg.get("path") or lora_cfg.get("weight_name")
     if path is None:
         print("[WARNING] use_lora set but no lora.path given — skipping")
         return
     scale = float(lora_cfg.get("weight", lora_cfg.get("adapter_weights", 1.0)))
+    adapter = (os.path.abspath(path), scale)
+    if bundle.lora == adapter:
+        print(f"[INFO] LoRA {path} (scale {scale}) already merged")
+        return
+    if bundle.lora is not None:
+        raise ValueError(f"the bundle holds the LoRA {bundle.lora[0]} at "
+                         f"scale {bundle.lora[1]}; merging {path} at scale "
+                         f"{scale} needs a fresh bundle (init_model)")
     pairs = _collect_pairs(load_file(path))
     if pairs["unet"]:
         _merge_pairs(bundle.unet, pairs["unet"], scale, "unet")
@@ -181,3 +192,4 @@ def apply_lora_bundle(bundle, lora_cfg: dict) -> None:
     if pairs["te2"]:
         print("[WARNING] LoRA has text_encoder_2 tensors but the model has "
               "a single text encoder — skipped")
+    bundle.lora = adapter

@@ -79,6 +79,9 @@ class ModelBundle:
     dtype: torch.dtype
     device: torch.device
     controlnet: ControlNetModel | None = None
+    # the LoRA merged into the weights, (absolute path, scale), set by
+    # models/lora.apply_lora_bundle
+    lora: tuple[str, float] | None = None
 
     @property
     def use_depth(self) -> bool:

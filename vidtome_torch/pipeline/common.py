@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vidtome_torch.control.depth import prepare_depth_latents
 from vidtome_torch.control.preprocess import validate_control_available
 from vidtome_torch.models.registry import CONTROLNET_DICT, ModelBundle
 from vidtome_torch.ops import quant as quant_ops
@@ -180,3 +181,15 @@ def stage_controlnet_table(quant: str, bundle: ModelBundle, stage: str):
           f"{quant_ops.count_quantized(table)} ControlNet weight tensors")
     return table
 
+
+def stage_depth(bundle: ModelBundle, frames, frame_ids,
+                work_dir: str | None) -> torch.Tensor:
+    """The depth latents [T, h, w, 1] (fp32, in [-1, 1]) of ``frames``
+    [T, H, W, 3] in [0, 1] through the depth cache
+    ``<work_dir>/depth/<frame:04>.npy`` (JAX ``inverter.py:427-430``,
+    ``generator.py:951-955``), on the bundle's device."""
+    if isinstance(frames, torch.Tensor):
+        frames = frames.float().cpu().numpy()
+    depth = prepare_depth_latents(np.asarray(frames), list(frame_ids),
+                                  work_dir)
+    return torch.from_numpy(np.asarray(depth, np.float32)).to(bundle.device)

@@ -40,7 +40,7 @@ images come from :meth:`Generator.load_control` (the png cache under
 ``work_dir``).
 
 SD2-depth (``sd_version: depth``, JAX ``generator.py:526-528``): the
-chunk's frames' depth latents (:meth:`Generator.load_depth`, through the
+chunk's frames' depth latents (``common.stage_depth``, through the
 depth cache under ``work_dir``) are tiled over the lanes that run (the PnP
 source lane included, the uncond lane not on CFG-skip steps) and
 concatenated as a fifth channel after the lanes are built; a ControlNet
@@ -49,8 +49,9 @@ takes that input too.
 LoRA (``use_lora: true``, JAX ``generator.py:301-307``): the adapter named
 by ``generation.lora`` is merged into the bundle's UNet and text encoder
 when the Generator is built (``models/lora.py``), before the stage's int8
-table and its text encoder: each Generator merges once into its bundle.
-The inversion never reads it.
+table and its text encoder, once per bundle (``ModelBundle.lora``: a
+second Generator with the same adapter merges nothing, one with another
+adapter raises).  The inversion never reads it.
 
 Randomness: the chunk schedule comes from ``np.random.default_rng(seed)`` as
 in the JAX package; the merge draws (dst frame per local round, global
@@ -68,7 +69,6 @@ import sys
 import numpy as np
 import torch
 
-from vidtome_torch.control.depth import prepare_depth_latents
 from vidtome_torch.control.preprocess import control_preprocess
 from vidtome_torch.core import chunk as chunking
 from vidtome_torch.core.scheduler import DDIMScheduler, ddim_step
@@ -385,16 +385,6 @@ class Generator:
         return torch.from_numpy(np.asarray(images, np.float32)).to(
             self.bundle.device, self.bundle.dtype)
 
-    def load_depth(self, frames, frame_ids: list[int],
-                   work_dir: str) -> torch.Tensor:
-        """The depth latents [T, h, w, 1] (fp32, in [-1, 1]) of ``frames``
-        [T, H, W, 3] in [0, 1] through the depth cache
-        ``<work_dir>/depth/<frame:04>.npy`` (JAX ``generator.py:951-955``),
-        on the bundle's device."""
-        depth = prepare_depth_latents(np.asarray(frames), frame_ids, work_dir)
-        return torch.from_numpy(np.asarray(depth, np.float32)).to(
-            self.bundle.device)
-
     def context(self, prompt: str) -> torch.Tensor:
         """The lane contexts of one edit: [uncond; cond], with the empty
         source prompt first under PnP."""
@@ -536,7 +526,7 @@ class Generator:
         for PnP, the inversion latents at every generation timestep,
         [steps, n, h, w, 4]; for a ControlNet, the control images
         [n, H, W, 3] of :meth:`load_control`; on SD2-depth, the depth
-        latents [n, h, w, 1] of :meth:`load_depth`); returns {edit name:
+        latents [n, h, w, 1] of ``common.stage_depth``); returns {edit name:
         frames [n, H, W, 3] in [0, 1]}."""
         self.configure_frames(init_latents.shape[0])
         dev = self.bundle.device

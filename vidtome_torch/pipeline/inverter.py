@@ -9,7 +9,7 @@ generation only), frames in fixed micro-batches.  With
 same micro-batch, fed the control images of its frames (computed from the
 frames, padded as the latents are), and its residuals go into the UNet.  On
 SD2-depth (``sd_version: depth``, JAX ``inverter.py:186-187``, ``:427-430``)
-the frames' depth latents (:meth:`Inverter.depth_latents`, through the depth
+the frames' depth latents (``common.stage_depth``, through the depth
 cache under ``work_dir``) are concatenated as a fifth channel before every
 UNet call, full and shallow.  With
 ``save_intermediate`` the latents of every save timestep are kept: in
@@ -33,7 +33,6 @@ from typing import Callable
 import numpy as np
 import torch
 
-from vidtome_torch.control.depth import prepare_depth_latents
 from vidtome_torch.control.preprocess import control_preprocess
 from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
                                           ddim_step)
@@ -43,7 +42,7 @@ from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            resolve_precision,
                                            stage_controlnet,
                                            stage_controlnet_table,
-                                           stage_quant_table)
+                                           stage_depth, stage_quant_table)
 from vidtome_torch.pipeline.generator import (EpsHistory,
                                               parse_eps_extrapolate,
                                               parse_resnet_mode,
@@ -148,22 +147,6 @@ class Inverter:
         return torch.from_numpy(np.asarray(images, np.float32)).to(
             self.bundle.device, self.bundle.dtype)
 
-    def depth_latents(self, frames) -> torch.Tensor | None:
-        """The depth latents [T, h, w, 1] (fp32, in [-1, 1]) of the clip's
-        first T frames [T, H, W, 3] in [0, 1] on SD2-depth, through the
-        depth cache under the config's ``work_dir`` (JAX
-        ``inverter.py:427-430``), on the bundle's device; None on any
-        other model."""
-        if not self.bundle.use_depth:
-            return None
-        if isinstance(frames, torch.Tensor):
-            frames = frames.float().cpu().numpy()
-        frames = np.asarray(frames)
-        depth = prepare_depth_latents(frames, list(range(len(frames))),
-                                      self.work_dir)
-        return torch.from_numpy(np.asarray(depth, np.float32)).to(
-            self.bundle.device)
-
     @torch.inference_mode()
     def _run(self, latents: torch.Tensor, conds: torch.Tensor,
              inversion: bool, on_step: Callable | None = None,
@@ -252,7 +235,7 @@ class Inverter:
         kept in :attr:`saved` and handed to ``save_latent(t, latents)`` if
         given (JAX ``inverter.py:384-392``).  A ControlNet stage takes the
         frames' ``control`` images (:meth:`control_images`), SD2-depth their
-        ``depth`` latents (:meth:`depth_latents`)."""
+        ``depth`` latents (``common.stage_depth``)."""
         ts_up = self.scheduler.timesteps[::-1]
         self.saved = {}
 
@@ -295,7 +278,9 @@ class Inverter:
         frames or None)."""
         latents, conds = self.encode(frames)
         control = self.control_images(frames)
-        depth = self.depth_latents(frames)
+        depth = (stage_depth(self.bundle, frames, range(len(frames)),
+                             self.work_dir)
+                 if self.bundle.use_depth else None)
         inverted = self.ddim_inversion(latents, conds, save_latent, control,
                                        depth)
         recon = None
