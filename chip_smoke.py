@@ -37,7 +37,15 @@ Phases (any failure exits non-zero before the last line):
      cast, the kernel, the lanes' best and the sort, the scatters); the
      fused sublayer at every SUBLAYER_SHAPES row through the call and
      device-only, with its plan (ops/sublayer.plan) and, as a yardstick,
-     the port's unfused bf16 chain for the same work device-only;
+     the port's unfused bf16 chain for the same work device-only.  The
+     SDXL phase's shapes too: flash and small-KV at every attention shape
+     of its UNet calls (sdxl_attention_rows: the merged level 1 at the
+     lengths sdxl_config's merging gives, level 2, the refiner's 96-wide
+     heads, the VAE's mid attention at 16384 tokens), each summed per call
+     of each kind; GroupNorm at every shape of an SDXL and a refiner UNet
+     call and a 1024p VAE decode and encode (sdxl_gn_rows, read from a
+     forward on the meta device), with GN_FP32_ROWS, summed per call; best
+     match at level 1 (sdxl_match_rows: C = 640 and 768);
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
@@ -132,13 +140,30 @@ Phases (any failure exits non-zero before the last line):
      topology says, best match 2 or 4 times a generation call;
   16. SD2-depth reference check: one UNet call at an 8x8 latent, card
      (bf16 kernels) vs CPU (fp32 plain); the depth channel zeroed must
-     differ by more than the tolerance.
+     differ by more than the tolerance;
+  17. SDXL path: the SD2-depth bundle freed, SDXL at full width with random
+     weights (seeded), bench.py's bench_sdxl keys (sdxl_config: 8 frames
+     at 1024x1024, inversion batch 4, chunk 4, local 0.9 / global 0.8, VAE
+     batch 2) at SDXL_STEPS+SDXL_STEPS DDIM steps, with a refiner
+     (xl-refiner, random, built by the Generator) from step SDXL_SPLIT:
+     Generator.sample runs the base, then the refiner.  Every UNet call of
+     the inversion, the base stage and the refiner stage must launch what
+     SDXL_LAUNCHES says (LaunchesPerCall), best match 1 or 2 times a
+     generation call; every attention shape the run gives a kernel must
+     be a phase-3 row; prints the stage seconds (invert, base stage,
+     refiner stage, decode) and the device time of one base and one
+     refiner UNet call at batch 8 (torch.profiler) beside its time through
+     the call;
+  18. SDXL reference check: one SDXL and one refiner UNet call at a 16x16
+     latent with pooled embeds and time ids, card (bf16 kernels) vs CPU
+     (fp32 plain); the pooled embeds zeroed must differ by more than the
+     tolerance.
 ``python3 chip_smoke.py --cli-inputs DIR`` instead writes the inputs of the
 CLI runs of configs/flamingo.yaml and configs/breakdance.yaml on
 data/demo.mp4 (write_cli_inputs) and exits.
 Then one JSON line with the kernels' numbers (launches: summed over the
-exact, serving, int8, ControlNet, PnP, LoRA and SD2-depth paths, each
-counted from 0; ms,
+exact, serving, int8, ControlNet, PnP, LoRA, SD2-depth and SDXL paths,
+each counted from 0; ms,
 plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes, for
 group_norm (the stats, apply and finalize entries) stats + apply a
@@ -154,6 +179,7 @@ last:
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import copy
 import functools
@@ -487,6 +513,144 @@ MATCH_SHAPES = [  # (B, S, D, C); a level: its global merge vs the bank
 ]
 
 
+# SDXL (bench.py's bench_sdxl workload): 1024x1024, the base for the first
+# SDXL_SPLIT of SDXL_STEPS steps and the refiner for the rest
+SDXL_SIZE = 1024
+SDXL_STEPS = 20
+SDXL_SPLIT = 16
+# each SDXL UNet call of the SDXL phase, by the topology at a 128x128
+# latent: flash for the self-attentions of levels 1 and 2 and the mid block
+# (base: 10 + 50 + 10 blocks; refiner: 20 + 20), small-KV for every
+# cross-attention (77 keys) and the refiner mid block's self-attention (16x16
+# = 256 tokens, 4 blocks), the full GroupNorm entry for every GroupNorm
+# (base: 17 resnets x 2 + 11 transformers + conv_norm_out; refiner: 22 x 2
+# + 11 + 1); best match (1 or 2 a generation call: level 1 only) is checked
+# apart
+SDXL_LAUNCHES = {
+    "SDXL": {"flash_attention": 70, "small_kv_attention": 70,
+             "full_group_norm": 46},
+    "refiner": {"flash_attention": 40, "small_kv_attention": 48,
+                "full_group_norm": 56}}
+# the refiner's level-0 resnets in fp32: slices of one 12-channel group (not
+# on a main path; the bf16 rows of gn_rows are)
+GN_FP32_ROWS = [(8, 128 * 128, 384, True, 1e-5, torch.float32)]
+
+
+def sdxl_merged_lens() -> tuple[int, int]:
+    """Tokens of SDXL's merged level-1 self-attention (64x64 a frame at
+    1024p) under sdxl_config's merging: after the local merge of a chunk,
+    and after the global merge against a bank of that length."""
+    from vidtome_torch.core.merge import quantize_r
+    from vidtome_torch.models.tome import ToMeConfig
+
+    gene = sdxl_config()["generation"]
+    tome = ToMeConfig(frames=gene["chunk_size"],
+                      local_merge_ratio=gene["local_merge_ratio"],
+                      len_quantum=1024)
+    n = tome.merged_local_len((SDXL_SIZE // 16) ** 2)
+    r = quantize_r(n, min(n, int(n * gene["global_merge_ratio"])), n, 1024)
+    return n, 2 * n - r
+
+
+def sdxl_attention_rows() -> tuple[dict, dict]:
+    """The flash and small-KV rows of the SDXL phase, (B, H, Sq, Skv, D) ->
+    {path: launches a call}: the inversion's base calls (batch 4), a
+    generation call of the chunk that initialises the bank and of the one
+    that merges against it (2 lanes x 4 frames; levels 1 merged), the
+    refiner's, and the VAE's mid attention at 16384 tokens (encode batch 4,
+    decode batch 2)."""
+    n, g = sdxl_merged_lens()
+    both = {"SDXL init chunk": 60, "SDXL merge chunk": 60}
+    flash = {
+        (4, 10, 4096, 4096, 64): {"SDXL inversion": 10},
+        (4, 20, 1024, 1024, 64): {"SDXL inversion": 60},
+        (2, 10, n, n, 64): {"SDXL init chunk": 10},
+        (2, 10, g, g, 64): {"SDXL merge chunk": 10},
+        (8, 20, 1024, 1024, 64): both,
+        (2, 8, n, n, 96): {"refiner init chunk": 20},
+        (2, 8, g, g, 96): {"refiner merge chunk": 20},
+        (8, 16, 1024, 1024, 96): {"refiner init chunk": 20,
+                                  "refiner merge chunk": 20},
+        (4, 1, 16384, 16384, 512): {"VAE encode": 1},
+        (2, 1, 16384, 16384, 512): {"VAE decode": 1}}
+    small_kv = {
+        (4, 10, 4096, 77, 64): {"SDXL inversion": 10},
+        (4, 20, 1024, 77, 64): {"SDXL inversion": 60},
+        (8, 10, 4096, 77, 64): {"SDXL generation": 10},
+        (8, 20, 1024, 77, 64): {"SDXL generation": 60},
+        (8, 8, 4096, 77, 96): {"refiner": 20},
+        (8, 16, 1024, 77, 96): {"refiner": 20},
+        (8, 16, 256, 77, 96): {"refiner": 4},
+        (8, 16, 256, 256, 96): {"refiner": 4}}
+    return flash, small_kv
+
+
+def sdxl_match_rows() -> list[tuple]:
+    """Best match in the SDXL phase (level 1, C = 640 base, 768 refiner):
+    the local round (3 frames of 4096 tokens against 1) and the global
+    merge (the locally merged chunk against the bank), both lanes."""
+    n, _ = sdxl_merged_lens()
+    return [(2, 3 * 4096, 4096, c) for c in (640, 768)] + [
+        (2, n, n, c) for c in (640, 768)]
+
+
+def sdxl_gn_rows() -> dict:
+    """The GroupNorm inputs of one SDXL base and one refiner UNet call
+    (batch 8 at a 128x128 latent) and of one 1024p VAE decode (batch 2,
+    the generation's VAE batch) and encode (batch 4, the inversion's),
+    (B, rows, C, silu, eps) -> {path: norms a call}, read from a forward of
+    each module on the meta device (shapes only, no memory)."""
+    from vidtome_torch.models.layers import GroupNorm
+    from vidtome_torch.models.unet import (SDXL_REFINER_UNET, SDXL_UNET,
+                                           UNet2DConditionModel)
+    from vidtome_torch.models.vae import AutoencoderKL
+
+    rows = {}
+
+    def record(path, module, fn):
+        def pre(mod, args):
+            x = args[0]
+            key = (x.shape[0], int(np.prod(x.shape[1:-1])), x.shape[-1],
+                   mod.silu, mod.eps)
+            row = rows.setdefault(key, {})
+            row[path] = row.get(path, 0) + 1
+        hooks = [m.register_forward_pre_hook(pre) for m in module.modules()
+                 if isinstance(m, GroupNorm)]
+        with torch.no_grad():
+            fn()
+        for h in hooks:
+            h.remove()
+
+    lat = SDXL_SIZE // 8
+    with torch.device("meta"):
+        x = torch.empty(8, lat, lat, 4)
+        for path, cfg in (("SDXL UNet", SDXL_UNET),
+                          ("refiner UNet", SDXL_REFINER_UNET)):
+            unet = UNet2DConditionModel(cfg)
+            record(path, unet, lambda: unet(
+                x, 1, torch.empty(8, 77, cfg.cross_attention_dim),
+                add_text_embeds=torch.empty(8, cfg.addition_pooled_dim),
+                add_time_ids=torch.empty(8, cfg.addition_num_time_ids)))
+        vae = AutoencoderKL()
+        record("VAE decode", vae, lambda: vae.decode(
+            torch.empty(2, lat, lat, 4)))
+        record("VAE encode", vae, lambda: vae.encode(
+            torch.empty(4, SDXL_SIZE, SDXL_SIZE, 3)))
+    return rows
+
+
+def gn_rows() -> list[tuple]:
+    """Phase 3's GroupNorm rows, ((B, rows, C, silu, eps, dtype), {path:
+    norms a call}): GN_SHAPES (bf16), every SDXL-phase shape (sdxl_gn_rows)
+    and GN_FP32_ROWS."""
+    rows = {(*row[:5], torch.bfloat16): (
+        {"SD1.5 exact UNet": row[5]} if row[5] else {}) for row in GN_SHAPES}
+    for key, paths in sdxl_gn_rows().items():
+        rows.setdefault((*key, torch.bfloat16), {}).update(paths)
+    rows.update({row: {} for row in GN_FP32_ROWS})
+    return list(rows.items())
+
+
 def cuda_time(fn, iters: int) -> float:
     """Mean milliseconds of ``fn`` over ``iters`` launches, after warm-up."""
     fn()
@@ -606,17 +770,31 @@ def bound_ms(nbytes: float, **ops: float) -> tuple[float, float]:
 class KernelStats:
     """Per kernel, over its phase-3 shapes: the largest error, and the
     summed kernel, plain-version, library-call and bound times (attention:
-    also the kernel's and the library call's device-only times)."""
+    also the kernel's and the library call's device-only times); the same
+    over the shapes of a tag (``SDXL``) apart in ``tagged``."""
 
     def __init__(self):
-        self.rows = {k: dict(err=0.0, ms=0.0, plain=0.0, library=None,
-                             bytes_ms=0.0, ops_ms=0.0, bound=0.0,
-                             device=None, library_device=None)
-                     for k in KERNELS}
+        self.rows = {k: self._row() for k in KERNELS}
+        self.tagged = {}  # (tag, kernel) -> a row, and its shape count "n"
+
+    @staticmethod
+    def _row() -> dict:
+        return dict(err=0.0, ms=0.0, plain=0.0, library=None, bytes_ms=0.0,
+                    ops_ms=0.0, bound=0.0, device=None, library_device=None)
 
     def add(self, name, err, ms, plain, library, bound, device=None,
-            library_device=None):
-        r = self.rows[name]
+            library_device=None, tag=None):
+        rows = [self.rows[name]]
+        if tag:
+            rows.append(self.tagged.setdefault((tag, name),
+                                               dict(self._row(), n=0)))
+            rows[-1]["n"] += 1
+        for r in rows:
+            self._add(r, err, ms, plain, library, bound, device,
+                      library_device)
+
+    @staticmethod
+    def _add(r, err, ms, plain, library, bound, device, library_device):
         r["err"] = max(r["err"], err)
         r["ms"] += ms
         r["plain"] += plain
@@ -640,12 +818,13 @@ def phase_group_norm(dev, rng, stats: KernelStats) -> None:
                 / want.abs().clamp_min(1.0)).max().item()
 
     sms = groupnorm._sm_count(0)
-    per_call = [0, 0.0, 0.0, 0.0, 0.0]  # launches x (full, pair, bound, lib)
+    # path -> launches x (full, pair, bound, lib) summed over its rows
+    per_call = {}
     earlier = [0.0, 0.0]  # full, stats + apply over GN_EARLIER_ROWS
-    for B, rows, C, silu, eps, n_call in GN_SHAPES:
-        a = (rng.standard_normal((B, rows, C), np.float32) * 2.0 + 0.5)
-        x = torch.from_numpy(a).to(dev, torch.bfloat16)
-        del a
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for (B, rows, C, silu, eps, dtype), paths in gn_rows():
+        x = (torch.randn((B, rows, C), generator=gen, device=dev) * 2.0
+             + 0.5).to(dtype)
         w = torch.from_numpy(rng.standard_normal(C, np.float32) + 1).to(dev)
         b = torch.from_numpy(rng.standard_normal(C, np.float32)).to(dev)
         xf = x.float()
@@ -679,17 +858,18 @@ def phase_group_norm(dev, rng, stats: KernelStats) -> None:
         # without the SiLU
         side = int(round(rows ** 0.5))
         x4 = x.view(B, side, side, C).permute(0, 3, 1, 2)
-        wb, bb = w.bfloat16(), b.bfloat16()
+        wb, bb = w.to(dtype), b.to(dtype)
 
         def lib_call():
             return F.group_norm(x4, 32, wb, bb, eps)
 
         lib, lib_dev = cuda_time(lib_call, 10), graph_time(lib_call, 10)
-        nbytes = 2 * B * rows * C
+        nbytes = x.element_size() * B * rows * C
         bound = bound_ms(2 * nbytes + 8 * C, fp32=(5 + 4 * silu) * B * rows * C)
         stats_bound = max(bound_ms(nbytes, fp32=3 * B * rows * C))
-        p = groupnorm.plan(B, rows, C, 32, 2, sms)
-        print(f"[kernel] group_norm [{B},{rows},{C}] silu={silu} eps={eps} "
+        p = groupnorm.plan(B, rows, C, 32, x.element_size(), sms)
+        print(f"[kernel] group_norm [{B},{rows},{C}] {str(dtype)[6:]} "
+              f"silu={silu} eps={eps} (norms a call: {paths or 'none'}) "
               f"({p.slices} slices of {p.sc} ch, clusters of {p.cluster}, "
               f"{p.blocks} blocks, {'resident' if p.resident else 'streaming'}"
               f"): max rel err full {err_full:.2e}, apply {err_apply:.2e} "
@@ -703,23 +883,26 @@ def phase_group_norm(dev, rng, stats: KernelStats) -> None:
                 and err_stats < GN_STATS_TOL):
             raise AssertionError(f"GroupNorm kernel disagrees at "
                                  f"{(B, rows, C)}")
+        tag = "SDXL" if any(not p.startswith("SD1.5") for p in paths) else None
         stats.add("full_group_norm", abs_full, ms_full, plain, lib, bound,
-                  dev_full, lib_dev)
+                  dev_full, lib_dev, tag)
         stats.add("group_norm", abs_apply, ms_pair, plain, lib, bound,
-                  dev_pair, lib_dev)
-        for i, v in enumerate((n_call, n_call * dev_full, n_call * dev_pair,
-                               n_call * max(bound), n_call * lib_dev)):
-            per_call[i] += v
+                  dev_pair, lib_dev, tag)
+        for path, n in paths.items():
+            row = per_call.setdefault(path, [0, 0.0, 0.0, 0.0, 0.0])
+            for i, v in enumerate((1, dev_full, dev_pair, max(bound),
+                                   lib_dev)):
+                row[i] += n * v
         if (B, rows, C, silu, eps) in GN_EARLIER_ROWS:
             earlier[0] += ms_full
             earlier[1] += ms_pair
         del x, xf, x4, mean, rstd
         torch.cuda.empty_cache()
-    n, full_ms, pair_ms, bound_sum, lib_sum = per_call
-    print(f"[kernel] group_norm per exact UNet call ({n} norms, device only, "
-          f"at the rows above): full {full_ms:.4f} ms, stats + apply "
-          f"{pair_ms:.4f} ms, F.group_norm {lib_sum:.4f} ms, bound "
-          f"{bound_sum:.4f} ms")
+    for path, (n, full_ms, pair_ms, bound_sum, lib_sum) in per_call.items():
+        print(f"[kernel] group_norm per {path} call ({n} norms, device only, "
+              f"at the rows above): full {full_ms:.4f} ms, stats + apply "
+              f"{pair_ms:.4f} ms, F.group_norm {lib_sum:.4f} ms, bound "
+              f"{bound_sum:.4f} ms")
     print(f"[kernel] group_norm over the earlier runs' four rows, through "
           f"the call: full {earlier[0]:.4f} ms, stats + apply "
           f"{earlier[1]:.4f} ms")
@@ -892,9 +1075,13 @@ def phase_kernels(dev) -> KernelStats:
               f"({'bytes' if bound[0] >= bound[1] else 'operations'}){note}")
 
     stats = KernelStats()
-    per_call = {}  # path -> summed launches x (ms, device ms, bound, SDPA)
-    for name, shapes in (("flash_attention", FLASH_SHAPES),
-                         ("small_kv_attention", SMALL_KV_SHAPES)):
+    # (kernel, path) -> summed launches x (ms, device ms, bound, SDPA)
+    per_call = {}
+    sdxl_flash, sdxl_small = sdxl_attention_rows()
+    for name, shapes, a_call in (
+            ("flash_attention", FLASH_SHAPES + list(sdxl_flash), sdxl_flash),
+            ("small_kv_attention", SMALL_KV_SHAPES + list(sdxl_small),
+             {**SMALL_KV_LAUNCHES, **sdxl_small})):
         fn = getattr(attention, name)
         for B, H, Sq, Skv, D in shapes:
             q, k, v = (bf16((B, H, Sq, D)), bf16((B, H, Skv, D)),
@@ -929,20 +1116,22 @@ def phase_kernels(dev) -> KernelStats:
             if not err < tol or not rel <= rel_tol:
                 raise AssertionError(f"{name} kernel disagrees at "
                                      f"{(B, H, Sq, Skv, D)}")
-            stats.add(name, err, ms, plain, lib, bound, device, lib_device)
-            if not flash:
-                for path, n in SMALL_KV_LAUNCHES[(B, H, Sq, Skv, D)].items():
-                    row = per_call.setdefault(path, [0, 0.0, 0.0, 0.0, 0.0])
-                    for i, x in enumerate((1, ms, device, max(bound),
-                                           lib_device)):
-                        row[i] += n * x
+            stats.add(name, err, ms, plain, lib, bound, device, lib_device,
+                      "SDXL" if (B, H, Sq, Skv, D) in sdxl_flash
+                      or (B, H, Sq, Skv, D) in sdxl_small else None)
+            for path, n in a_call.get((B, H, Sq, Skv, D), {}).items():
+                row = per_call.setdefault((name, path), [0, 0.0, 0.0, 0.0,
+                                                         0.0])
+                for i, x in enumerate((1, ms, device, max(bound),
+                                       lib_device)):
+                    row[i] += n * x
             del q, k, v, qf, kf, vf, got
             torch.cuda.empty_cache()
-    for path, (n, ms, device, bound, lib_device) in per_call.items():
-        print(f"[kernel] small_kv_attention per {path} UNet call, {n} "
-              f"launches at the rows above: through the wrapper {ms:.4f} ms, "
-              f"device only {device:.4f} ms (SDPA {lib_device:.4f} ms), "
-              f"bound {bound:.4f} ms")
+    for (name, path), (n, ms, device, bound, lib_device) in per_call.items():
+        print(f"[kernel] {name} per {path} call, {n} launches at the rows "
+              f"above: through the wrapper {ms:.4f} ms, device only "
+              f"{device:.4f} ms (SDPA {lib_device:.4f} ms), bound "
+              f"{bound:.4f} ms")
 
     phase_group_norm(dev, rng, stats)
 
@@ -1046,7 +1235,7 @@ def phase_kernels(dev) -> KernelStats:
         torch.cuda.empty_cache()
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for row in MATCH_SHAPES:
+    for row in MATCH_SHAPES + sdxl_match_rows():
         B, S, D, C = match_shape(row)
         src = torch.nn.functional.normalize(f32(B, S, C), dim=-1).bfloat16()
         dst = torch.nn.functional.normalize(f32(B, D, C), dim=-1).bfloat16()
@@ -1082,7 +1271,8 @@ def phase_kernels(dev) -> KernelStats:
         if not err < MATCH_TOL or wrong:
             raise AssertionError(f"best_match kernel disagrees at "
                                  f"{(B, S, D, C)}")
-        stats.add("best_match", err, ms, plain, None, bound, device)
+        stats.add("best_match", err, ms, plain, None, bound, device,
+                  "SDXL" if row in sdxl_match_rows() else None)
         del src, dst, srcf, dstf
         torch.cuda.empty_cache()
     merge_engine_times(dev, rng)
@@ -1122,12 +1312,18 @@ def phase_kernels(dev) -> KernelStats:
         stats.add("fused_cross_sublayer", err, ms, plain, None, bound, device)
         del args, args_f
         torch.cuda.empty_cache()
+    for (tag, name), r in stats.tagged.items():
+        lib = "none" if r["library"] is None else f"{r['library']:.3f} ms"
+        print(f"[kernel] {name} over its {r['n']} {tag} rows: kernel "
+              f"{r['ms']:.3f} ms (device only {r['device']:.3f}), plain "
+              f"{r['plain']:.3f} ms, bound {r['bound']:.4f} ms, library "
+              f"call {lib}, max|err| {r['err']:.2e}")
     return stats
 
 
-def make_frames() -> np.ndarray:
+def make_frames(size: int = SIZE) -> np.ndarray:
     """8 frames of a moving colour gradient with a moving disc, [0, 1]."""
-    yy, xx = np.mgrid[0:SIZE, 0:SIZE].astype(np.float32) / SIZE
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     out = []
     for i in range(N_FRAMES):
         ph = i / N_FRAMES
@@ -2456,6 +2652,243 @@ def phase_depth_reference(dev, bundle) -> None:
     del cpu
 
 
+def sdxl_config() -> dict:
+    """bench.py's bench_sdxl keys (1024x1024, inversion batch 4, chunk 4,
+    mix-4, local 0.9 / global 0.8, global_rand 0.5, guidance 7.5, VAE batch
+    2), SDXL_STEPS DDIM steps in both stages instead of 50, and a refiner
+    (random weights) from 0.8 of the steps on."""
+    return {
+        "sd_version": "xl", "height": SDXL_SIZE, "width": SDXL_SIZE,
+        "seed": 123, "float_precision": "bf16",
+        "inversion": {"prompt": "benchmark", "steps": SDXL_STEPS,
+                      "save_steps": SDXL_STEPS, "save_intermediate": False,
+                      "batch_size": 4, "control": "none", "quant": "none"},
+        "generation": {
+            "control": "none", "guidance_scale": 7.5,
+            "n_timesteps": SDXL_STEPS, "negative_prompt": "ugly, blurry",
+            "prompt": {"edit": "benchmark prompt"}, "chunk_size": 4,
+            "chunk_ord": "mix-4", "local_merge_ratio": 0.9,
+            "merge_global": True, "global_merge_ratio": 0.8,
+            "global_rand": 0.5, "align_batch": False, "quant": "none",
+            "batch_size": 2,
+            "refiner": {"sd_version": "xl-refiner",
+                        "denoising_start": 0.8}}}
+
+
+def phase_sdxl(dev, bundle):
+    """sdxl_config on the SDXL base and its refiner through the port's
+    Inverter and Generator.sample: every UNet call of each stage must launch
+    what SDXL_LAUNCHES says (LaunchesPerCall), best match 1 or 2 times a
+    generation call (3 a step); every attention shape the run gives a
+    kernel (read by hooks on the attention modules) must be a phase-3 row.
+    Returns the launches and the refiner's bundle."""
+    from vidtome_torch.models.layers import CrossAttention
+    from vidtome_torch.ops.attention import SMALL_KV
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = sdxl_config()
+    frames = make_frames(SDXL_SIZE)
+    times = {}
+    stage = functools.partial(timed, times)
+    inverter = Inverter(bundle, cfg)
+    generator = stage("build the refiner", lambda: Generator(bundle, cfg))
+    refiner = generator.refiner
+    unets = {"SDXL": bundle.unet, "refiner": refiner.bundle.unet}
+    shapes = collections.Counter()
+
+    def record(mod, args, kwargs):
+        x = args[0]
+        ctx = args[1] if len(args) > 1 else kwargs.get("context")
+        kv = x if ctx is None else ctx
+        shapes[(x.shape[0], mod.heads, x.shape[1], kv.shape[1],
+                mod.head_dim)] += 1
+
+    split_at = []
+
+    def at_split(module, args):  # the refiner stage's first UNet call
+        if not split_at:
+            torch.cuda.synchronize()
+            split_at.append(time.perf_counter())
+
+    hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
+             for u in unets.values() for m in u.modules()
+             if isinstance(m, CrossAttention)]
+    hooks.append(unets["refiner"].register_forward_pre_hook(at_split))
+    per_call = {k: LaunchesPerCall(u) for k, u in unets.items()}
+    try:
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        inverted = stage("invert", lambda: inverter.ddim_inversion(latents,
+                                                                   conds))
+        n_inv = len(per_call["SDXL"].calls)
+        generator.configure_frames(N_FRAMES)
+        pad = torch.as_tensor(generator.pad_src, device=dev)
+        table = generator.fidx_table()
+        prompt = next(iter(generator.prompt.values()))
+        t0 = time.perf_counter()
+        clean = stage("generate", lambda: generator.sample(
+            inverted[pad], prompt, fidx_table=table))
+        out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
+        launches = read_launches()
+    finally:
+        for h in hooks:
+            h.remove()
+        for c in per_call.values():
+            c.close()
+    times["base stage"] = split_at[0] - t0
+    times["refiner stage"] = times["generate"] - times["base stage"]
+
+    calls = {"SDXL inversion": per_call["SDXL"].calls[:n_inv],
+             "SDXL": per_call["SDXL"].calls[n_inv:],
+             "refiner": per_call["refiner"].calls}
+    odd = {}
+    for path, path_calls in calls.items():
+        want = SDXL_LAUNCHES[path.split()[0]]
+        for c in path_calls:
+            best = c["best_match"]
+            rest = {k: v for k, v in c.items()
+                    if k not in want and k != "best_match"}
+            if ({k: c[k] for k in want} != want or any(rest.values())
+                    or best not in ((0,) if path == "SDXL inversion"
+                                    else (1, 2))):
+                odd.setdefault(path, []).append(c)
+    best = {p: sum(c["best_match"] for c in cs) for p, cs in calls.items()}
+    sdxl_flash, sdxl_small = sdxl_attention_rows()
+    unchecked = [(sh, n) for sh, n in shapes.items()
+                 if sh not in (sdxl_flash if sh[3] > SMALL_KV
+                               else sdxl_small)]
+    n_chunks = table.shape[1]
+    print(f"[sdxl] SDXL + refiner (random), {N_FRAMES} frames "
+          f"{SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS}+{SDXL_STEPS} DDIM steps, "
+          f"the refiner from step {generator.split_step()}, {n_chunks} "
+          f"chunks, bench_sdxl keys; UNet calls: inversion "
+          f"{dict(inverter.unet_calls)}, base {dict(generator.unet_calls)}, "
+          f"refiner {dict(refiner.unet_calls)}")
+    print(f"[sdxl] launches of the first call of each kind: "
+          f"{ {p: cs[0] for p, cs in calls.items() if cs} } (want "
+          f"{SDXL_LAUNCHES} besides best_match); calls that differ: "
+          f"{ {p: len(cs) for p, cs in odd.items()} }, the first of each "
+          f"{ {p: cs[0] for p, cs in odd.items()} }; best_match over the "
+          f"calls {best}")
+    print(f"[sdxl] attention shapes (B, heads, Sq, Skv, D) the run gave the "
+          f"kernels, with their launches: {dict(shapes)}; not a phase-3 row: "
+          f"{unchecked}")
+    if generator.split_step() != SDXL_SPLIT or n_chunks != 2:
+        raise AssertionError("expected the refiner from step "
+                             f"{SDXL_SPLIT} and 2 chunks")
+    want_calls = {"SDXL inversion": SDXL_STEPS * -(-N_FRAMES // 4),
+                  "SDXL": SDXL_SPLIT * n_chunks,
+                  "refiner": (SDXL_STEPS - SDXL_SPLIT) * n_chunks}
+    if {p: len(cs) for p, cs in calls.items()} != want_calls:
+        raise AssertionError(f"UNet calls {calls.keys()} differ from "
+                             f"{want_calls}")
+    if odd or best["SDXL"] != 3 * SDXL_SPLIT or best["refiner"] != 3 * (
+            SDXL_STEPS - SDXL_SPLIT):
+        raise AssertionError(f"SDXL launches per UNet call differ: "
+                             f"{ {p: cs[0] for p, cs in odd.items()} }, "
+                             f"best_match {best}")
+    if unchecked:
+        raise AssertionError(f"attention shapes phase 3 did not check: "
+                             f"{unchecked}")
+    if tuple(out.shape) != (N_FRAMES, SDXL_SIZE, SDXL_SIZE, 3):
+        raise AssertionError(f"frames shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("SDXL frames not finite or outside [0, 1]")
+    if not torch.isfinite(inverted).all():
+        raise AssertionError("SDXL inverted latents not finite")
+    print(f"[sdxl] frames mean {out.mean().item():.4f} std "
+          f"{out.std().item():.4f}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"[sdxl] kernel launches in this run: {launches}")
+    return launches, refiner.bundle
+
+
+def sdxl_unet_args(dev, unet, batch: int, latent: int, seed: int):
+    """A UNet call's inputs on ``dev``: x [batch, latent, latent, 4], 77
+    context tokens, pooled embeds and the time ids of a 1024p frame (the
+    refiner's with the aesthetic scores 2.5 / 6.0 on alternate rows)."""
+    cfg = unet.config
+    rng = np.random.default_rng(seed)
+    ids = ([SDXL_SIZE, SDXL_SIZE, 0, 0, SDXL_SIZE, SDXL_SIZE]
+           if cfg.addition_num_time_ids == 6 else
+           [SDXL_SIZE, SDXL_SIZE, 0, 0, 2.5])
+    ids = np.tile(np.float32(ids), (batch, 1))
+    if cfg.addition_num_time_ids == 5:
+        ids[1::2, 4] = 6.0
+    arrays = (rng.standard_normal((batch, latent, latent, 4), np.float32),
+              rng.standard_normal((batch, 77, cfg.cross_attention_dim),
+                                  np.float32),
+              rng.standard_normal((batch, cfg.addition_pooled_dim),
+                                  np.float32), ids)
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def phase_sdxl_calls(dev, bundle, refiner) -> None:
+    """One SDXL base and one refiner UNet call at batch 8 and a 128x128
+    latent (no merging): device ms summed over its kernels (torch.profiler)
+    and ms through the call (CUDA events, the host's gaps included)."""
+    for name, b in (("SDXL", bundle), ("refiner", refiner)):
+        x, ctx, pooled, ids = sdxl_unet_args(dev, b.unet, 8, SDXL_SIZE // 8,
+                                             8)
+        x, ctx = x.bfloat16(), ctx.bfloat16()
+
+        def call(unet=b.unet, x=x, ctx=ctx, pooled=pooled, ids=ids):
+            with torch.inference_mode():
+                return unet(x, 501, ctx, add_text_embeds=pooled,
+                            add_time_ids=ids)
+        try:
+            device = profiled_device_ms(call)
+        except Exception as exc:  # a measurement only: say so, go on
+            print(f"[sdxl] device time not measured ({exc!r})")
+            device = None
+        wall = cuda_time(call, 3)
+        print(f"[sdxl] one {name} UNet call [8,{SDXL_SIZE // 8},"
+              f"{SDXL_SIZE // 8},4], no merging: device ms (torch.profiler, "
+              f"summed over its kernels) {device}; through the call (CUDA "
+              f"events) {wall:.3f} ms")
+        del x, ctx, pooled, ids
+        torch.cuda.empty_cache()
+
+
+def phase_sdxl_reference(dev, bundle, refiner) -> None:
+    """One SDXL base and one refiner UNet call at a 16x16 latent, batch 2,
+    with pooled embeds and time ids: card bf16 kernels vs CPU fp32 plain
+    versions to REF_TOL; the same call with the pooled embeds zeroed must
+    differ by more than REF_TOL."""
+    for name, b in (("SDXL", bundle), ("refiner", refiner)):
+        x, ctx, pooled, ids = sdxl_unet_args("cpu", b.unet, 2, 16, 9)
+        cpu = copy.deepcopy(b.unet).to("cpu", torch.float32)
+        with torch.inference_mode():
+            def run(m, d, p):
+                return m(x.to(d), 501, ctx.to(d), add_text_embeds=p.to(d),
+                         add_time_ids=ids.to(d)).float().cpu()
+
+            before = read_launches()
+            got = run(b.unet, dev, pooled)
+            ran = {k: v - before[k] for k, v in read_launches().items()}
+            want = run(cpu, "cpu", pooled)
+            zero = run(cpu, "cpu", torch.zeros_like(pooled))
+        del cpu
+        gc.collect()
+        scale = want.abs().max()
+        err = ((got - want).abs().max() / scale).item()
+        gap = ((zero - want).abs().max() / scale).item()
+        print(f"[reference] {name} weights, 128x128 input, pooled embeds and "
+              f"time ids: card bf16 kernels vs CPU fp32 plain max rel err "
+              f"{err:.2e} (tol {REF_TOL}); pooled embeds zeroed vs not "
+              f"{gap:.2e} (must exceed {REF_TOL}); kernels launched on the "
+              f"card {ran}")
+        if not err < REF_TOL:
+            raise AssertionError(f"{name} card vs CPU reference rel err {err}")
+        if not gap > REF_TOL:
+            raise AssertionError(f"{name}: the pooled embeds change the "
+                                 f"output by only {gap}")
+        if not (ran["full_group_norm"] and ran["small_kv_attention"]):
+            raise AssertionError("the reference call ran no GroupNorm or "
+                                 "small-KV kernel")
+
+
 def write_cli_inputs(out_dir: str) -> None:
     """Inputs of the CLI runs of this slice's configs on data/demo.mp4
     (neither data/flamingo.mp4 nor data/breakdance.mp4 is shipped):
@@ -2580,7 +3013,22 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     phase_depth_reference(dev, bundle)
     torch.cuda.synchronize()
-    for path in (exact, int8, controlnet, lora, pnp, depth):
+
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bundle = init_model("xl", weight_dtype="bf16", device=dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"[sdxl] SDXL random weights on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sdxl, refiner = phase_sdxl(dev, bundle)
+    torch.cuda.synchronize()
+    phase_sdxl_calls(dev, bundle, refiner)
+    torch.cuda.synchronize()
+    phase_sdxl_reference(dev, bundle, refiner)
+    torch.cuda.synchronize()
+    for path in (exact, int8, controlnet, lora, pnp, depth, sdxl):
         launches = {k: launches[k] + path[k] for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

@@ -1,5 +1,5 @@
-"""SD1.5's full ControlNet and UNet, and SD2-depth's full UNet, on the port
-vs the JAX package (slow).
+"""SD1.5's full ControlNet and UNet, SD2-depth's full UNet, and the full
+SDXL and SDXL-refiner UNets, on the port vs the JAX package (slow).
 
 The parity tests elsewhere run the tiny topology (2 levels, 1 resnet a
 block, 2 heads).  This one holds the full SD1.5 stack: 4 levels, 2 resnets
@@ -14,9 +14,19 @@ SD2-depth (``init_model("depth")``: SD2.1's UNet with 5 input channels,
 head dim 64, linear projections, cross-attention width 1024) runs at a
 [2, 16, 16, 5] input whose fifth channel is a depth map in [-1, 1].
 
+SDXL (``SDXL_UNET``: 3 levels, no attention at level 0, 2 and 10
+transformer blocks at levels 1 and 2, cross-attention width 2048) and its
+refiner (``SDXL_REFINER_UNET``: 4 levels, 96-wide heads 4 blocks deep,
+width 1280) take the UNet parameters of the JAX ``init_model("xl")`` /
+``("xl-refiner")`` (``registry._random_unet_params``, seed 0) at a
+[2, 16, 16, 4] input with pooled embeds and the base's 6 / the refiner's 5
+time ids.  Each is built alone: the JAX output is taken first, then the
+JAX tree is carried into the port module by module and freed as it goes,
+so one fp32 copy of the weights (10.3 / 9.0 GB) is alive at a time.
+
 Held to 1e-4 of the output's max |value|: fp32 summation order over the
 full depth (about 5e-6 for the bare UNet, ROADMAP.md queue 3).  Each stack
-takes about 140 s and 13 GB on the CPU, so the file is marked ``slow`` (the
+takes minutes and 10-20 GB on the CPU, so the file is marked ``slow`` (the
 tier-1 run deselects it).
 """
 
@@ -131,3 +141,52 @@ def test_full_sd2_depth_unet_matches_jax():
           f"moves its output by {_rel(no_depth, want):.2e}")
     assert err < REL_TOL
     assert _rel(no_depth, want) > 100 * REL_TOL
+
+
+@pytest.mark.parametrize("version", ["xl", "xl-refiner"])
+def test_full_sdxl_unet_matches_jax(version):
+    import gc
+    import resource
+
+    from vidtome_torch.models import unet as t_unet
+    from vidtome_tpu.models import unet as j_unet
+    from vidtome_tpu.models.registry import _random_unet_params
+
+    name = "SDXL_UNET" if version == "xl" else "SDXL_REFINER_UNET"
+    cfg = getattr(j_unet, name)
+    params = _random_unet_params(cfg, jnp.float32)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 16, 16, 4), np.float32)
+    ctx = rng.standard_normal((2, 77, cfg.cross_attention_dim), np.float32)
+    pooled = rng.standard_normal((2, 1280), np.float32)
+    ids = np.float32([[1024, 1024, 0, 0, 1024, 1024] if version == "xl"
+                      else [1024, 1024, 0, 0, s] for s in (2.5, 6.0)])
+    unet = j_unet.UNet2DConditionModel(config=cfg, dtype=jnp.float32,
+                                       use_pallas=False)
+    want = np.asarray(unet.apply(
+        {"params": params}, jnp.asarray(x), jnp.asarray(T), jnp.asarray(ctx),
+        add_text_embeds=jnp.asarray(pooled), add_time_ids=jnp.asarray(ids)))
+    tree = dict(params)
+    del params
+    state = {}
+    for key in sorted(tree):  # one top-level module at a time, then freed
+        state.update(convert.from_jax_params(
+            {key: jax.device_get(tree.pop(key))}, "unet"))
+        gc.collect()
+    with torch.device("meta"):
+        t_model = TUNet(getattr(t_unet, name))
+    t_model.load_state_dict(state, strict=True, assign=True)
+    del state
+    t_model = t_model.float().eval()
+    with torch.no_grad():
+        got = t_model(torch.from_numpy(x), T, torch.from_numpy(ctx),
+                      add_text_embeds=torch.from_numpy(pooled),
+                      add_time_ids=torch.from_numpy(ids))
+        no_pooled = t_model(torch.from_numpy(x), T, torch.from_numpy(ctx),
+                            add_time_ids=torch.from_numpy(ids))
+    err = _rel(got, want)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"full {name} max rel err {err:.2e}; zero pooled embeds move its "
+          f"output by {_rel(no_pooled, want):.2e}; peak RSS {rss:.1f} GiB")
+    assert err < REL_TOL
+    assert _rel(no_pooled, want) > 100 * REL_TOL

@@ -264,19 +264,22 @@ def test_generation_needs_the_source_table():
 
 @pytest.mark.parametrize("version", ["depth", "xl"])
 def test_unported_versions_refused(version):
-    """SDXL is not ported yet and is refused; SD2-depth builds (on the meta
-    device here: its full-size weights are not needed to check the
-    stack)."""
-    if version == "xl":
-        with pytest.raises(NotImplementedError, match=version):
-            init_model(version, weight_dtype="fp32", device="cpu")
-        return
+    """No version is left unported: SD2-depth and SDXL build (on the meta
+    device here: their full-size weights are not needed to check the
+    stacks)."""
     from vidtome_torch.models import registry
 
-    assert version not in registry._UNPORTED_VERSIONS
+    assert registry._UNPORTED_VERSIONS == ()
     unet_cfg, text_cfg, _ = registry.SD_CONFIGS[version]
     with torch.device("meta"):
         unet = registry.UNet2DConditionModel(unet_cfg)
+    if version == "xl":
+        text2 = registry.TEXT2_CONFIGS["xl"]
+        assert unet.config.cross_attention_dim == (
+            text_cfg.hidden_size + text2.hidden_size) == 2048
+        assert unet.add_embedding.linear_1.in_features == (
+            text2.projection_dim + 6 * 256)
+        return
     assert unet.conv_in.weight.shape == (320, 5, 3, 3)
     assert unet.config.cross_attention_dim == text_cfg.hidden_size == 1024
 

@@ -15,9 +15,11 @@ import torch
 
 from vidtome_torch.core.merge import local_merge_rounds, round_stride
 from vidtome_torch.models import convert
+from vidtome_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from vidtome_torch.models.registry import init_model
 from vidtome_torch.models.tome import ToMeConfig
 from vidtome_torch.models.unet import UNet2DConditionModel, UNetConfig
+from vidtome_torch.models.vae import AutoencoderKL
 
 
 def jax_local_draws(key, F: int, target_stride: int) -> list[int]:
@@ -67,12 +69,20 @@ def port_unet_config(cfg) -> UNetConfig:
                          for k in UNetConfig.__dataclass_fields__})
 
 
+def port_text_config(cfg) -> CLIPTextConfig:
+    """The port's CLIPTextConfig with the JAX one's values."""
+    return CLIPTextConfig(**{k: getattr(cfg, k)
+                             for k in CLIPTextConfig.__dataclass_fields__})
+
+
 def port_bundle_from_jax(bundle, sd_version: str = "tiny"):
     """A CPU fp32 port bundle carrying the JAX bundle's weights (its
     ControlNet's too, where it holds one).  A JAX bundle of sd_version
     "depth" (a tiny UNet with 5 input channels, as
     ``tests/test_pipeline_control.py`` builds it) gives a port bundle of
-    that version, with a UNet of the JAX one's config."""
+    that version, with a UNet of the JAX one's config; a JAX SDXL bundle
+    (the tiny dual-encoder stack of ``tests/test_pipeline_xl.py``) one
+    with its UNet, VAE and both text encoders."""
     has_cn = bundle.controlnet_params is not None
     port = init_model(sd_version, weight_dtype="fp32", device="cpu",
                       control="canny" if has_cn else "none")
@@ -80,15 +90,34 @@ def port_bundle_from_jax(bundle, sd_version: str = "tiny"):
         port.unet = UNet2DConditionModel(
             port_unet_config(bundle.unet_config)).eval()
         port.sd_version = "depth"
+    if bundle.is_xl:
+        chans, layers = bundle.vae_channels
+        port.unet = UNet2DConditionModel(
+            port_unet_config(bundle.unet_config)).eval()
+        port.vae = AutoencoderKL(chans, layers,
+                                 scaling_factor=bundle.vae_scaling).eval()
+        port.text_encoder = CLIPTextModel(
+            port_text_config(bundle.text_config)).eval()
+        port.text_encoder_2 = CLIPTextModel(
+            port_text_config(bundle.text2_config)).eval()
+        port.sd_version, port.model_key = bundle.sd_version, bundle.model_key
+    load_jax_weights(port, bundle)
+    return port
+
+
+def load_jax_weights(port, bundle) -> None:
+    """The JAX bundle's weights into the port bundle's modules, in place
+    (a stage holding those modules sees them)."""
     mods = [(port.unet, bundle.unet_params, "unet"),
             (port.vae, bundle.vae_params, "vae"),
             (port.text_encoder, bundle.text_params, "text")]
-    if has_cn:
+    if bundle.controlnet_params is not None:
         mods.append((port.controlnet, bundle.controlnet_params, "controlnet"))
+    if bundle.text2_params is not None:
+        mods.append((port.text_encoder_2, bundle.text2_params, "text"))
     for mod, tree, comp in mods:
         tree = jax.tree.map(np.asarray, jax.device_get(tree))
         mod.load_state_dict(convert.from_jax_params(tree, comp), strict=True)
-    return port
 
 
 def perturb_zero_convs(params, seed: int = 0):

@@ -12,7 +12,12 @@ control images, cached under ``<work_dir>/<control>_image/``.  On
 SD2-depth (``sd_version: depth``, for example ``configs/flamingo.yaml``)
 both stages read the clip's depth latents through ``<work_dir>/depth/``;
 ``generation.use_lora`` merges ``generation.lora.path`` into the model when
-the generation stage is built (``configs/breakdance.yaml``).
+the generation stage is built (``configs/breakdance.yaml``).  ``sd_version:
+xl`` runs SDXL (its latents under ``<save_path>/stable-diffusion-xl-base-1.0``),
+and ``generation.refiner`` (for example ``{sd_version: xl-refiner,
+denoising_start: 0.8}``) hands the last steps of every edit to the SDXL
+refiner.  The inversion writes the per-frame prompts beside the latents
+(``inversion_prompts.txt``).
 """
 
 from __future__ import annotations
@@ -52,6 +57,9 @@ def run_inversion(config, bundle):
     def save_latent(t, x):
         artifacts.save_latent(save_dir, t, x.float().cpu().numpy())
 
+    # the per-frame prompts beside the latents (JAX inverter.py:432-436)
+    with open(os.path.join(save_dir, "inversion_prompts.txt"), "w") as f:
+        f.write("\n".join(inverter.prompts(len(frames))))
     inverted, recon = inverter(frames, save_latent)
     path = artifacts.save_latent(save_dir, ts[0],
                                  inverted.float().cpu().numpy())

@@ -1,10 +1,13 @@
 """CLIP text encoder (SD1.x: ViT-L/14, 12 layers, quick-gelu, 768 wide;
-SD2.x: OpenCLIP ViT-H, 23 layers, exact gelu, 1024 wide).
+SD2.x: OpenCLIP ViT-H, 23 layers, exact gelu, 1024 wide; SDXL: ViT-L and
+OpenCLIP bigG, 32 layers, 1280 wide, with a pooled projection).
 
-Counterpart of ``vidtome_tpu/models/clip_text.py`` for ``SD15_TEXT``,
-``SD21_TEXT`` and ``TINY_TEXT``: a pre-LayerNorm transformer with causal
-masking whose final LayerNorm'd hidden state feeds the UNet's
-cross-attention.  Module names follow transformers' ``CLIPTextModel``.
+Counterpart of ``vidtome_tpu/models/clip_text.py``: a pre-LayerNorm
+transformer with causal masking whose final LayerNorm'd hidden state feeds
+the UNet's cross-attention; SDXL's encoders give the penultimate layer's
+state instead (``clip_skip``) and bigG also the EOS-pooled projection
+(``projection_dim``).  Module names follow transformers'
+``CLIPTextModel`` (``CLIPTextModelWithProjection``: ``text_projection``).
 The causal attention is plain PyTorch in fp32, as the JAX package
 computes it outside any kernel.
 """
@@ -28,14 +31,30 @@ class CLIPTextConfig:
     max_positions: int = 77
     hidden_act: str = "quick_gelu"   # SD2.x OpenCLIP: "gelu"
     layer_norm_eps: float = 1e-5
+    # SDXL: the hidden state clip_skip layers before the end, without the
+    # final LayerNorm (SDXL takes the penultimate layer's, clip_skip=1)
+    clip_skip: int = 0
+    # > 0: also the EOS-pooled, final-LayerNorm'd state through a bias-free
+    # projection (SDXL's text_encoder_2)
+    projection_dim: int = 0
 
 
 SD15_TEXT = CLIPTextConfig()
 SD21_TEXT = CLIPTextConfig(hidden_size=1024, num_layers=23, num_heads=16,
                            intermediate_size=4096, hidden_act="gelu")
+# SDXL's pair: CLIP ViT-L (penultimate states) and OpenCLIP bigG
+# (penultimate states and the pooled projection)
+SDXL_TEXT_1 = CLIPTextConfig(clip_skip=1)
+SDXL_TEXT_2 = CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20,
+                             intermediate_size=5120, hidden_act="gelu",
+                             clip_skip=1, projection_dim=1280)
 TINY_TEXT = CLIPTextConfig(vocab_size=1000, hidden_size=32, num_layers=2,
                            num_heads=2, intermediate_size=64,
                            max_positions=16)
+TINY_TEXT_2 = CLIPTextConfig(vocab_size=1000, hidden_size=16, num_layers=2,
+                             num_heads=2, intermediate_size=32,
+                             max_positions=16, clip_skip=1,
+                             projection_dim=16)
 
 
 class CLIPAttention(nn.Module):
@@ -123,9 +142,17 @@ class CLIPTextModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.text_model = _TextTransformer(cfg)
+        self.text_projection = (
+            nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+            if cfg.projection_dim else None)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """[B, S] ids -> [B, S, hidden], the final LayerNorm'd states."""
+    def forward(self, input_ids: torch.Tensor,
+                eos_token_id: int | None = None):
+        """[B, S] ids -> [B, S, hidden]: the final LayerNorm'd states, or
+        with ``clip_skip`` k the states k layers before the end without
+        it.  With ``projection_dim`` returns (states, pooled [B, proj]):
+        the final LayerNorm'd state at the first ``eos_token_id``
+        (``vocab_size - 1`` by default) through ``text_projection``."""
         tm = self.text_model
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)
@@ -133,7 +160,19 @@ class CLIPTextModel(nn.Module):
             tm.embeddings.position_embedding(pos)[None]
         mask = torch.ones(S, S, dtype=torch.bool,
                           device=input_ids.device).tril()[None, None]
+        states = []
         for layer in tm.encoder.layers:
             x = layer(x, mask)
-        return tm.final_layer_norm(x)
+            states.append(x)
+        final = tm.final_layer_norm(x)
+        out = states[-1 - self.cfg.clip_skip] if self.cfg.clip_skip else final
+        if self.text_projection is None:
+            return out
+        if eos_token_id is None:
+            eos_token_id = self.cfg.vocab_size - 1
+        # argmax takes the first maximum: the first EOS, as the JAX model
+        eos = (input_ids == eos_token_id).int().argmax(dim=1)
+        pooled = final[torch.arange(input_ids.shape[0],
+                                    device=input_ids.device), eos]
+        return out, self.text_projection(pooled)
 

@@ -1,9 +1,13 @@
 """Weights into the port: diffusers checkpoints and the JAX package's trees.
 
 The port's modules carry the diffusers / transformers parameter names, so
-a checkpoint's state dict loads after two fix-ups (:func:`from_diffusers`):
+a checkpoint's state dict loads after three fix-ups (:func:`from_diffusers`):
 the legacy VAE attention names (``query/key/value/proj_attn``, stored as
-[C, C, 1, 1] convs) and transformers' ``position_ids`` buffer.
+[C, C, 1, 1] convs), transformers' ``position_ids`` buffer and the text
+projection some SDXL exports keep under ``text_model``.  The second text
+encoder of an SDXL checkpoint (``text_encoder_2``) is a 'text' component;
+the UNet's ``add_embedding`` and the encoder's ``text_projection`` carry
+the names they have in both layouts.
 
 :func:`from_jax_params` inverts ``vidtome_tpu/models/convert.py``: it turns
 a flax parameter tree (numpy leaves) back into that state dict — HWIO conv
@@ -157,6 +161,8 @@ def from_diffusers(state: Mapping[str, Any],
             value, torch.Tensor) else value)
         if component == "text" and key.endswith("position_ids"):
             continue
+        if component == "text" and key == "text_model.text_projection.weight":
+            key = "text_projection.weight"
         if component == "vae":
             m = re.match(r"^(.*mid_block\.attentions\.0)\.(query|key|value|"
                          r"proj_attn)\.(weight|bias)$", key)

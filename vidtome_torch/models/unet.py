@@ -1,9 +1,10 @@
-"""Conditional UNet of Stable Diffusion 1.x / 2.x, NHWC.
+"""Conditional UNet of Stable Diffusion 1.x / 2.x / XL, NHWC.
 
 Counterpart of ``vidtome_tpu/models/unet.py``: the exact path, the
 deep-feature cache split (``cache_mode``), the PnP injection flags, the
-int8 (W8A8) layers of a per-call table and the ControlNet residuals; no
-SDXL embeddings.  Module names follow diffusers'
+int8 (W8A8) layers of a per-call table, the ControlNet residuals, the
+per-level transformer depth and SDXL's addition embedding (pooled text
+embed and micro-conditioning time ids).  Module names follow diffusers'
 ``UNet2DConditionModel`` (``down_blocks.0.resnets.1`` ...), so its state
 dict is the diffusers one.  Token merging enters through ``tome_call``
 (``models/tome.py``) in every transformer block at downsample <=
@@ -33,14 +34,21 @@ class UNetConfig:
     layers_per_block: int = 2
     cross_attention_dim: int = 768
     num_heads: int | None = 8           # SD1.x: fixed head count per level
-    head_dim: int | None = None         # SD2.x: fixed head dim (64)
-    use_linear_projection: bool = False  # SD2.x: dense proj_in / proj_out
+    head_dim: int | None = None         # SD2.x / XL: fixed head dim
+    transformer_depth: int | Sequence[int] = 1  # per level when a sequence
+    use_linear_projection: bool = False  # SD2.x / XL: dense proj_in / out
     down_block_types: Sequence[str] = (
         "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
         "CrossAttnDownBlock2D", "DownBlock2D")
     up_block_types: Sequence[str] = (
         "UpBlock2D", "CrossAttnUpBlock2D",
         "CrossAttnUpBlock2D", "CrossAttnUpBlock2D")
+    # SDXL addition embedding: the pooled text embed and the sinusoidally
+    # embedded time ids, projected onto the timestep embedding
+    addition_embed: bool = False
+    addition_time_embed_dim: int = 256
+    addition_pooled_dim: int = 1280     # pooled text-encoder-2 width
+    addition_num_time_ids: int = 6
 
     def heads_for(self, channels: int) -> tuple[int, int]:
         """(heads, head_dim) of a transformer at this width."""
@@ -48,17 +56,60 @@ class UNetConfig:
             return channels // self.head_dim, self.head_dim
         return self.num_heads, channels // self.num_heads
 
+    def depth_for(self, level: int) -> int:
+        """Transformer blocks of each Transformer2D at this level."""
+        if isinstance(self.transformer_depth, int):
+            return self.transformer_depth
+        return self.transformer_depth[level]
+
 
 SD15_UNET = UNetConfig()
 SD21_UNET = UNetConfig(cross_attention_dim=1024, num_heads=None, head_dim=64,
                        use_linear_projection=True)
 # SD2-depth: SD2.1 with the depth map concatenated as a fifth input channel
 SD2_DEPTH_UNET = dataclasses.replace(SD21_UNET, in_channels=5)
+# SDXL base: three levels, no attention at level 0, 2 and 10 blocks deep at
+# levels 1 and 2 (and the mid block), context of both text encoders (768 +
+# 1280), 6 time ids (original size, crop, target size)
+SDXL_UNET = UNetConfig(
+    block_out_channels=(320, 640, 1280), cross_attention_dim=2048,
+    num_heads=None, head_dim=64, transformer_depth=(0, 2, 10),
+    use_linear_projection=True,
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                      "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    addition_embed=True)
+# the SDXL refiner: four levels, attention on the middle two and the mid
+# block, 96-wide heads 4 blocks deep, context of the bigG encoder alone and
+# 5 time ids (original size, crop, aesthetic score)
+SDXL_REFINER_UNET = UNetConfig(
+    block_out_channels=(384, 768, 1536, 1536), cross_attention_dim=1280,
+    num_heads=None, head_dim=96, transformer_depth=4,
+    use_linear_projection=True,
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                      "CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                    "UpBlock2D"),
+    addition_embed=True, addition_num_time_ids=5)
 TINY_UNET = UNetConfig(
     block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=32,
     num_heads=2,
     down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
     up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
+TINY_SDXL_UNET = UNetConfig(
+    block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=32,
+    num_heads=2, transformer_depth=(0, 2), use_linear_projection=True,
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+    addition_embed=True, addition_time_embed_dim=8, addition_pooled_dim=16,
+    addition_num_time_ids=6)
+TINY_REFINER_UNET = UNetConfig(
+    block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=16,
+    num_heads=2, transformer_depth=1, use_linear_projection=True,
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
+    addition_embed=True, addition_time_embed_dim=8, addition_pooled_dim=16,
+    addition_num_time_ids=5)
 
 
 class _Level(nn.Module):
@@ -81,11 +132,16 @@ class UNet2DConditionModel(nn.Module):
         temb_ch = ch0 * 4
         self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, temb_ch)
+        self.add_embedding = (TimestepEmbedding(
+            cfg.addition_pooled_dim
+            + cfg.addition_num_time_ids * cfg.addition_time_embed_dim,
+            temb_ch) if cfg.addition_embed else None)
 
         def transformer(ch: int, level: int) -> Transformer2D:
             return Transformer2D(ch, *cfg.heads_for(ch),
                                  cfg.cross_attention_dim,
                                  downsample=2 ** level,
+                                 depth=cfg.depth_for(level),
                                  linear=cfg.use_linear_projection)
 
         skip_ch = [ch0]
@@ -135,9 +191,17 @@ class UNet2DConditionModel(nn.Module):
                 attn_inject: bool | None = None,
                 conv_inject: bool | None = None, num_lanes: int = 1,
                 qt=None, down_residuals: Sequence[torch.Tensor] | None = None,
-                mid_residual: torch.Tensor | None = None):
+                mid_residual: torch.Tensor | None = None,
+                add_text_embeds: torch.Tensor | None = None,
+                add_time_ids: torch.Tensor | None = None):
         """x [B, H, W, Cin], t scalar timestep, context [B, S, Dctx]
         -> eps [B, H, W, Cout] in the weights' dtype.
+
+        SDXL (``config.addition_embed``, JAX ``unet.py:189-204``): the
+        pooled text embed ``add_text_embeds`` [B, pooled] and the time ids
+        ``add_time_ids`` [B, ids] (zeros where None), the ids sinusoidally
+        embedded, go through ``add_embedding`` onto the timestep
+        embedding.
 
         ``cache_mode`` (the deep-feature step cache, JAX ``unet.py:
         166-310``): "full" returns ``(eps, deep)``, ``deep`` being the input
@@ -175,6 +239,10 @@ class UNet2DConditionModel(nn.Module):
         temb = timestep_embedding(t, self.config.block_out_channels[0])
         temb = self.time_embedding(temb.to(device=x.device, dtype=dtype), qt)
         temb = temb.expand(B, -1)
+        if self.add_embedding is not None:
+            temb = temb + self.add_embedding(
+                self._addition(B, x.device, dtype, add_text_embeds,
+                               add_time_ids), qt)
         context = context.to(dtype)
 
         h = self.conv_in(x.to(dtype), qt)
@@ -227,3 +295,17 @@ class UNet2DConditionModel(nn.Module):
 
         out = self.conv_out(self.conv_norm_out(h), qt)
         return (out, deep) if cache_mode == "full" else out
+
+    def _addition(self, B: int, device, dtype, pooled, time_ids):
+        """The addition embedding's input [B, pooled + ids * dim]: the
+        pooled embed and the time ids' sinusoidal embeddings, each id
+        embedded alone."""
+        cfg = self.config
+        if time_ids is None:
+            time_ids = torch.zeros(B, cfg.addition_num_time_ids,
+                                   device=device)
+        if pooled is None:
+            pooled = torch.zeros(B, cfg.addition_pooled_dim, device=device)
+        ids = timestep_embedding(time_ids.to(device).reshape(-1),
+                                 cfg.addition_time_embed_dim).reshape(B, -1)
+        return torch.cat([pooled.to(device, dtype), ids.to(dtype)], dim=-1)

@@ -15,23 +15,46 @@ from vidtome_torch.ops import quant as quant_ops
 
 class TextEncoder:
     """Tokenize + encode prompts to the UNet's cross-attention context
-    (fp32, on the bundle's device)."""
+    (fp32, on the bundle's device).
+
+    The SDXL family gives (context, pooled) (JAX ``common.py:15-90``): the
+    base concatenates both encoders' penultimate states and pools from
+    encoder 2, the refiner's one (bigG) encoder gives both; the bigG
+    encoder reads the ids with every id after the first EOS set to 0, as
+    SDXL's second tokenizer pads."""
 
     def __init__(self, bundle: ModelBundle):
         self._tokenizer = bundle.tokenizer
         self._model = bundle.text_encoder
+        self._model_2 = bundle.text_encoder_2
         self._device = bundle.device
+        self.is_xl, self.is_refiner = bundle.is_xl, bundle.is_refiner
 
     @torch.no_grad()
-    def __call__(self, prompts: str | list[str]) -> torch.Tensor:
+    def __call__(self, prompts: str | list[str]):
         ids = torch.as_tensor(self._tokenizer(prompts), dtype=torch.long,
                               device=self._device)
-        return self._model(ids)
+        if self.is_refiner:
+            return self._model(self._zero_after_eos(ids))
+        hidden = self._model(ids)
+        if not self.is_xl:
+            return hidden
+        hidden2, pooled = self._model_2(self._zero_after_eos(ids))
+        return torch.cat([hidden, hidden2], dim=-1), pooled
+
+    def _zero_after_eos(self, ids: torch.Tensor) -> torch.Tensor:
+        """Keep the first EOS, zero every id after it."""
+        eos = getattr(self._tokenizer, "eos", None)
+        if eos is None:
+            return ids
+        is_eos = (ids == eos).long()
+        return ids.masked_fill(is_eos.cumsum(dim=1) - is_eos > 0, 0)
 
     def embed_cfg(self, prompt: str, negative_prompt: str | None,
-                  pnp: bool = False) -> torch.Tensor:
+                  pnp: bool = False):
         """[uncond; cond] contexts, with an empty-prompt source lane first
-        for PnP (reference generate.py:100-108)."""
+        for PnP (reference generate.py:100-108); the SDXL family's come
+        with their pooled embeds, (context, pooled)."""
         return self([""] * pnp + [negative_prompt or "", prompt])
 
 
@@ -73,7 +96,7 @@ _UNPORTED = {
     "control": ("none", "pnp") + tuple(CONTROLNET_DICT),
     "chunk_batch": (False,),
     "chunk_boundaries": ("rotate",), "merge_crossattn": (False,),
-    "merge_ff": (False,), "refiner": (None,),
+    "merge_ff": (False,),
 }
 
 
@@ -88,6 +111,26 @@ def reject_unported(section: str, stage_cfg, config) -> None:
             name = f"{where}.{key}" if where else key
             raise NotImplementedError(
                 f"{name}={value!r} is not ported to vidtome_torch yet "
+                f"(ROADMAP.md, queue 1)")
+
+
+def reject_unported_xl(section: str, stage_cfg, config,
+                       bundle: ModelBundle) -> None:
+    """Raise NotImplementedError where a stage on an SDXL-family bundle
+    turns on int8, or generation PnP or a LoRA: the port runs each on the
+    other versions, not yet on SDXL's (ROADMAP.md, queue 1).  A ControlNet
+    is refused there by ``init_model``."""
+    if not bundle.needs_pooled:
+        return
+    found = {"quant": parse_quant(stage_cfg, config)}
+    if section == "generation":
+        found.update(control=str(stage_cfg.get("control", "none")),
+                     use_lora=bool(stage_cfg.get("use_lora", False)))
+    for key, value in found.items():
+        if value not in ("none", False):
+            raise NotImplementedError(
+                f"{section}.{key}={value!r} on sd_version "
+                f"{bundle.sd_version!r} is not ported to vidtome_torch yet "
                 f"(ROADMAP.md, queue 1)")
 
 

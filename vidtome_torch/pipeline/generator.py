@@ -46,6 +46,18 @@ source lane included, the uncond lane not on CFG-skip steps) and
 concatenated as a fifth channel after the lanes are built; a ControlNet
 takes that input too.
 
+SDXL (``sd_version: xl``, JAX ``generator.py:404-437``, ``:465-525``,
+``:1040-1082``): the lane contexts come with each lane's pooled embed and
+time ids [h, w, 0, 0, h, w], repeated per frame as the contexts are; a
+``refiner`` sub-config builds a second Generator on an ``xl-refiner``
+bundle (no control, no refiner of its own; random weights, seed 0,
+without its ``model_key``), and :meth:`Generator.sample`
+runs the base for the first ``denoising_start`` share of the steps and the
+refiner for the rest, from the same chunk schedule and draws at the same
+global step indices (its step caches rebuilt from its first step,
+:meth:`Generator.mode_masks`); the refiner's 5 time ids carry the
+aesthetic score, the negative one on every lane but the cond lane.
+
 LoRA (``use_lora: true``, JAX ``generator.py:301-307``): the adapter named
 by ``generation.lora`` is merged into the bundle's UNet and text encoder
 when the Generator is built (``models/lora.py``), before the stage's int8
@@ -63,6 +75,7 @@ every prompt, so every edit sees the same schedule and draws.
 from __future__ import annotations
 
 import collections
+import copy
 import functools
 import sys
 
@@ -75,10 +88,11 @@ from vidtome_torch.core.scheduler import DDIMScheduler, ddim_step
 from vidtome_torch.io import artifacts
 from vidtome_torch.models.layers import RESNET_MODES, SUBLAYER_MODES
 from vidtome_torch.models.lora import apply_lora_bundle
-from vidtome_torch.models.registry import ModelBundle
+from vidtome_torch.models.registry import ModelBundle, init_model
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
+                                           reject_unported_xl,
                                            resolve_precision,
                                            stage_controlnet,
                                            stage_controlnet_table,
@@ -265,6 +279,11 @@ class Generator:
         self.resnet_mode = parse_resnet_mode(gene, config)
         self.quant = parse_quant(gene, config)
         self.bundle = bundle
+        reject_unported_xl("generation", gene, config, bundle)
+        self.gene = gene
+        # the size the SDXL family's time ids carry (JAX generator.py:1049)
+        self.size = ((float(config["height"]), float(config["width"]))
+                     if bundle.needs_pooled else None)
         self.seed = int(config.get("seed", 123))
         self.n_timesteps = int(gene["n_timesteps"])
         self.guidance_scale = float(gene["guidance_scale"])
@@ -314,6 +333,26 @@ class Generator:
         # (steps that ran no UNet)
         self.unet_calls: collections.Counter = collections.Counter()
         self._eps_align_warned = False
+        self.refiner = None
+        ref = gene.get("refiner", None)
+        if ref and not bundle.is_refiner:
+            if not bundle.is_xl:
+                # the refiner denoises in the SDXL VAE's latent space
+                raise ValueError(f"generation.refiner requires an SDXL base "
+                                 f"(sd_version: xl); got sd_version="
+                                 f"{bundle.sd_version!r}")
+            ref_bundle = init_model(
+                sd_version=ref.get("sd_version", "xl-refiner"),
+                model_key=ref.get("model_key"),
+                weight_dtype=("bf16" if bundle.dtype == torch.bfloat16
+                              else "fp32"), device=bundle.device)
+            ref_cfg = copy.deepcopy(config)
+            ref_cfg["generation"]["control"] = "none"
+            ref_cfg["generation"]["refiner"] = None
+            self.refiner = Generator(ref_bundle, ref_cfg)
+            self.refiner_start = float(ref.get("denoising_start", 0.8))
+            self.aesthetic = (float(ref.get("negative_aesthetic_score", 2.5)),
+                              float(ref.get("aesthetic_score", 6.0)))
 
     def configure_frames(self, n: int) -> None:
         """Set n_frames / n_padded / pad_src for an n-frame clip."""
@@ -385,26 +424,56 @@ class Generator:
         return torch.from_numpy(np.asarray(images, np.float32)).to(
             self.bundle.device, self.bundle.dtype)
 
-    def context(self, prompt: str) -> torch.Tensor:
+    def context(self, prompt: str, aesthetic: tuple | None = None):
         """The lane contexts of one edit: [uncond; cond], with the empty
-        source prompt first under PnP."""
-        return self.text.embed_cfg(prompt, self.negative_prompt,
-                                   pnp=self.use_pnp)
+        source prompt first under PnP.  The SDXL family's are (contexts,
+        pooled embeds, time ids) (JAX ``generator.py:1040-1065``): the
+        base's time ids [h, w, 0, 0, h, w] on every lane, the refiner's
+        [h, w, 0, 0, score], the (negative, positive) ``aesthetic`` scores
+        (else the configured ones) the negative on every lane but the
+        last."""
+        context = self.text.embed_cfg(prompt, self.negative_prompt,
+                                      pnp=self.use_pnp)
+        if self.size is None:
+            return context
+        ctx, pooled = context
+        h, w = self.size
+        if self.bundle.unet.config.addition_num_time_ids == 5:
+            ref_cfg = self.gene.get("refiner", None) or {}
+            neg, pos = aesthetic or (
+                float(ref_cfg.get("negative_aesthetic_score", 2.5)),
+                float(ref_cfg.get("aesthetic_score", 6.0)))
+            ids = [[h, w, 0.0, 0.0, neg]] * (ctx.shape[0] - 1) + [
+                [h, w, 0.0, 0.0, pos]]
+        else:
+            ids = [[h, w, 0.0, 0.0, h, w]] * ctx.shape[0]
+        return ctx, pooled, torch.tensor(ids, device=ctx.device)
 
     @torch.inference_mode()
-    def ddim_sample(self, x: torch.Tensor, context: torch.Tensor,
+    def ddim_sample(self, x: torch.Tensor, context,
                     fidx_table: np.ndarray | None = None,
                     draws: DrawSource | None = None,
                     src_table: torch.Tensor | None = None,
                     control: torch.Tensor | None = None,
-                    depth: torch.Tensor | None = None) -> torch.Tensor:
+                    depth: torch.Tensor | None = None, start: int = 0,
+                    stop: int | None = None) -> torch.Tensor:
         """Denoise padded latents x [n_padded, h, w, 4] under the lane
-        contexts (:meth:`context`).  PnP needs ``src_table``
+        contexts (:meth:`context`) over steps ``start``..``stop`` of the
+        schedule (all by default).  PnP needs ``src_table``
         [steps, n_padded, h, w, 4], the inversion's latents at each
         generation timestep; a ControlNet ``control``, the padded control
         images [n_padded, 8h, 8w, 3]; SD2-depth ``depth``, the padded depth
-        latents [n_padded, h, w, 1]."""
+        latents [n_padded, h, w, 1].  The chunk schedule, the draws and
+        the PnP table are read at the global step index."""
+        add = {}
+        if self.size is not None:
+            if not isinstance(context, tuple):
+                raise ValueError("the SDXL family takes (contexts, pooled "
+                                 "embeds, time ids): Generator.context")
+            context, pooled, time_ids = context
+            add = dict(add_text_embeds=pooled, add_time_ids=time_ids)
         sch = self.scheduler
+        stop = sch.num_steps if stop is None else stop
         if self.use_pnp and (src_table is None
                              or src_table.shape[0] != sch.num_steps):
             raise ValueError(f"PnP needs src_table [{sch.num_steps}, "
@@ -428,7 +497,7 @@ class Generator:
         gs = self.guidance_scale
         fidx_all = torch.as_tensor(fidx_table, dtype=torch.long,
                                    device=x.device)
-        modes = self.mode_masks()
+        modes = self.mode_masks(start)
         deep = ucond = None
         L = self.num_lanes
         if self.cache_on:  # [lanes, Fpad, h, w, C1]
@@ -439,7 +508,7 @@ class Generator:
                                 device=x.device)
         history = EpsHistory(self.eps_extrapolate)
         calls = self.unet_calls = collections.Counter()
-        for i in range(sch.num_steps):
+        for i in range(start, stop):
             if modes is not None and not modes[i, 2]:
                 # eps skip: no UNet, the DDIM update on the predicted eps
                 calls["eps_skip"] += 1
@@ -455,6 +524,8 @@ class Generator:
             # the uncond lane (row L - 2)
             lanes = [r for r in range(L) if not (cfg_skip and r == L - 2)]
             ctx = context[lanes].repeat_interleave(F, dim=0)
+            add_kw = {k: v[lanes].repeat_interleave(F, dim=0)
+                      for k, v in add.items()}
             pnp = {}
             if self.use_pnp:
                 pnp = dict(attn_inject=i < self.pnp_attn_steps,
@@ -492,7 +563,7 @@ class Generator:
                            resnet_mode=self.resnet_mode,
                            sublayer_mode=self.sublayer_mode,
                            num_lanes=len(lanes), qt=self.qt, **pnp,
-                           **residuals)
+                           **residuals, **add_kw)
                 calls["shallow" if cache_mode == "shallow" else "full"] += 1
                 if cfg_skip:
                     calls["cfg_skip"] += 1
@@ -541,8 +612,36 @@ class Generator:
         outputs = {}
         for name, prompt in self.prompt.items():
             print(f"[INFO] current prompt: {prompt}")
-            clean = self.ddim_sample(x0, self.context(prompt),
-                                     src_table=src_table, control=control,
-                                     depth=depth)
+            clean = self.sample(x0, prompt, src_table=src_table,
+                                control=control, depth=depth)
             outputs[name] = self.vae.decode(clean[:self.n_frames])
         return outputs
+
+    def split_step(self) -> int:
+        """The first step of the refiner stage (JAX ``generator.py:1071``)."""
+        steps = self.scheduler.num_steps
+        return max(1, min(int(round(steps * self.refiner_start)), steps - 1))
+
+    def sample(self, x0: torch.Tensor, prompt: str,
+               fidx_table: np.ndarray | None = None,
+               draws: DrawSource | None = None, **inputs) -> torch.Tensor:
+        """Clean latents of one edit from the padded latents ``x0``: the
+        whole schedule, or with a refiner the base up to :meth:`split_step`
+        and the refiner from there, both from the same chunk schedule and
+        draws (JAX ``generator.py:1067-1082``).  ``inputs`` go to the base
+        stage's :meth:`ddim_sample`."""
+        context = self.context(prompt)
+        if self.refiner is None:
+            return self.ddim_sample(x0, context, fidx_table, draws, **inputs)
+        if fidx_table is None:
+            fidx_table = self.fidx_table()
+        if draws is None:
+            draws = self.draw_source(fidx_table.shape[1])
+        split = self.split_step()
+        x = self.ddim_sample(x0, context, fidx_table, draws, stop=split,
+                             **inputs)
+        r = self.refiner
+        r.configure_frames(self.n_frames)
+        print(f"[INFO] refiner stage: steps {split}..{r.scheduler.num_steps}")
+        return r.ddim_sample(x, r.context(prompt, self.aesthetic),
+                             fidx_table, draws, start=split)

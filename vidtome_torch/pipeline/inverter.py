@@ -15,6 +15,12 @@ UNet call, full and shallow.  With
 ``save_intermediate`` the latents of every save timestep are kept: in
 memory (``Inverter.saved``, the source table PnP generation reads) and
 through the caller's ``save_latent`` hook (``cli.py`` writes them to disk).
+On the SDXL base (``sd_version: xl``, JAX ``inverter.py:169-186``) every
+UNet call takes the frames' pooled prompt embeds and the time ids
+[h, w, 0, 0, h, w] of the configured size.  The JAX inverter cannot invert
+with a refiner as the primary model (it keys on ``is_xl``, so the
+refiner's (context, pooled) reaches its UNet as the context), and the
+port refuses one.
 
 Two of the generator's serving caches apply (inversion has one lane, so no
 CFG cache): the deep-feature cache (``cache_interval`` /
@@ -39,6 +45,7 @@ from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
+                                           reject_unported_xl,
                                            resolve_precision,
                                            stage_controlnet,
                                            stage_controlnet_table,
@@ -58,8 +65,20 @@ def _pad_frames(a: torch.Tensor, n_target: int) -> torch.Tensor:
 class Inverter:
     def __init__(self, bundle: ModelBundle, config):
         inv = config["inversion"]
+        if bundle.is_refiner:
+            raise ValueError(
+                f"sd_version {bundle.sd_version!r} cannot invert: the "
+                f"refiner is a second generation stage (generation.refiner "
+                f"on an sd_version: xl base); the JAX inverter cannot run "
+                f"it either")
         self.sublayer_mode = parse_sublayer_mode(inv, config)
         reject_unported("inversion", inv, config)
+        reject_unported_xl("inversion", inv, config, bundle)
+        # the reference reads use_blip (invert.py:60) but never acts on it
+        if inv.get("use_blip", False):
+            print("[WARNING] use_blip is accepted for config compatibility "
+                  "but not implemented (the reference never implements it "
+                  "either); supply inversion.prompt directly")
         self.control = str(inv.get("control", "none"))
         self.control_scale = float(inv.get("control_scale", 1.0))
         self.use_controlnet = stage_controlnet(self.control, bundle,
@@ -83,6 +102,11 @@ class Inverter:
         self.recon = bool(inv.get("recon", False))
         self.prompt = inv["prompt"]
         self.work_dir = config.get("work_dir")
+        # SDXL's time ids: original and target size (height, width), no crop
+        self.time_ids = None
+        if bundle.is_xl:
+            h, w = float(config["height"]), float(config["width"])
+            self.time_ids = [h, w, 0.0, 0.0, h, w]
         resolve_precision(config, inv, bundle)
         # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
         self.qt = stage_quant_table(self.quant, bundle, "inversion")
@@ -148,8 +172,8 @@ class Inverter:
             self.bundle.device, self.bundle.dtype)
 
     @torch.inference_mode()
-    def _run(self, latents: torch.Tensor, conds: torch.Tensor,
-             inversion: bool, on_step: Callable | None = None,
+    def _run(self, latents: torch.Tensor, conds, inversion: bool,
+             on_step: Callable | None = None,
              control: torch.Tensor | None = None,
              depth: torch.Tensor | None = None) -> torch.Tensor:
         """One UNet call (after the ControlNet's, with ``control``) per
@@ -157,7 +181,11 @@ class Inverter:
         of all frames (reference invert.py:122-131); eps-skip steps run
         only the update on the predicted eps.  On SD2-depth both networks
         take the micro-batch with its ``depth`` latents as a fifth
-        channel."""
+        channel.  ``conds`` is the per-frame contexts, on SDXL (contexts,
+        pooled embeds)."""
+        pooled = None
+        if self.time_ids is not None:
+            conds, pooled = conds
         n, bs = latents.shape[0], self.batch_size
         if self.use_controlnet and (control is None or control.shape[0] != n):
             raise ValueError(f"inversion.control {self.control!r} needs the "
@@ -168,6 +196,11 @@ class Inverter:
         n_p = -(-n // bs) * bs
         x = _pad_frames(latents, n_p).clone()
         conds = _pad_frames(conds, n_p)
+        xl = {}
+        if pooled is not None:
+            xl = dict(add_text_embeds=_pad_frames(pooled, n_p),
+                      add_time_ids=torch.tensor(
+                          [self.time_ids], device=x.device).expand(n_p, -1))
         if control is not None:
             control = _pad_frames(control, n_p)
         if depth is not None:
@@ -213,7 +246,8 @@ class Inverter:
                                            if mode == "shallow" else None),
                                resnet_mode=self.resnet_mode,
                                sublayer_mode=self.sublayer_mode, qt=self.qt,
-                               **residuals)
+                               **residuals,
+                               **{k: v[b:b + bs] for k, v in xl.items()})
                     calls["shallow" if mode == "shallow" else "full"] += 1
                     if mode == "full":
                         out, deep[b:b + bs] = out
@@ -266,12 +300,16 @@ class Inverter:
         return self._run(latents, conds, inversion=False, control=control,
                          depth=depth)
 
-    def encode(self, frames) -> tuple[torch.Tensor, torch.Tensor]:
+    def prompts(self, n: int) -> list[str]:
+        """The per-frame prompts of an n-frame clip: a string prompt
+        repeated, a list as given (JAX ``inverter.py:432-433``)."""
+        return ([self.prompt] * n if isinstance(self.prompt, str)
+                else list(self.prompt))
+
+    def encode(self, frames):
         """Frames [T, H, W, 3] in [0, 1] -> (clean latents, per-frame
-        prompt contexts)."""
-        prompts = ([self.prompt] * len(frames) if isinstance(self.prompt, str)
-                   else list(self.prompt))
-        return self.vae.encode(frames), self.text(prompts)
+        prompt contexts; on SDXL (contexts, pooled embeds))."""
+        return self.vae.encode(frames), self.text(self.prompts(len(frames)))
 
     def __call__(self, frames, save_latent: Callable | None = None):
         """Invert ``frames``; returns (inverted latents, reconstructed
