@@ -783,7 +783,7 @@ class KernelStats:
                     ops_ms=0.0, bound=0.0, device=None, library_device=None)
 
     def add(self, name, err, ms, plain, library, bound, device=None,
-            library_device=None, tag=None):
+            library_device=None, *, tag=None):
         rows = [self.rows[name]]
         if tag:
             rows.append(self.tagged.setdefault((tag, name),
@@ -885,9 +885,9 @@ def phase_group_norm(dev, rng, stats: KernelStats) -> None:
                                  f"{(B, rows, C)}")
         tag = "SDXL" if any(not p.startswith("SD1.5") for p in paths) else None
         stats.add("full_group_norm", abs_full, ms_full, plain, lib, bound,
-                  dev_full, lib_dev, tag)
+                  dev_full, lib_dev, tag=tag)
         stats.add("group_norm", abs_apply, ms_pair, plain, lib, bound,
-                  dev_pair, lib_dev, tag)
+                  dev_pair, lib_dev, tag=tag)
         for path, n in paths.items():
             row = per_call.setdefault(path, [0, 0.0, 0.0, 0.0, 0.0])
             for i, v in enumerate((1, dev_full, dev_pair, max(bound),
@@ -1117,7 +1117,7 @@ def phase_kernels(dev) -> KernelStats:
                 raise AssertionError(f"{name} kernel disagrees at "
                                      f"{(B, H, Sq, Skv, D)}")
             stats.add(name, err, ms, plain, lib, bound, device, lib_device,
-                      "SDXL" if (B, H, Sq, Skv, D) in sdxl_flash
+                      tag="SDXL" if (B, H, Sq, Skv, D) in sdxl_flash
                       or (B, H, Sq, Skv, D) in sdxl_small else None)
             for path, n in a_call.get((B, H, Sq, Skv, D), {}).items():
                 row = per_call.setdefault((name, path), [0, 0.0, 0.0, 0.0,
@@ -1272,7 +1272,7 @@ def phase_kernels(dev) -> KernelStats:
             raise AssertionError(f"best_match kernel disagrees at "
                                  f"{(B, S, D, C)}")
         stats.add("best_match", err, ms, plain, None, bound, device,
-                  "SDXL" if row in sdxl_match_rows() else None)
+                  tag="SDXL" if row in sdxl_match_rows() else None)
         del src, dst, srcf, dstf
         torch.cuda.empty_cache()
     merge_engine_times(dev, rng)
