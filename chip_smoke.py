@@ -42,9 +42,10 @@ Phases (any failure exits non-zero before the last line):
      of its UNet calls (sdxl_attention_rows: the merged level 1 at the
      lengths sdxl_config's merging gives, level 2, the refiner's 96-wide
      heads, the VAE's mid attention at 16384 tokens), each summed per call
-     of each kind; GroupNorm at every shape of an SDXL and a refiner UNet
-     call and a 1024p VAE decode and encode (sdxl_gn_rows, read from a
-     forward on the meta device), with GN_FP32_ROWS, summed per call; best
+     of each kind; GroupNorm at every shape of an SDXL UNet call of the
+     inversion (batch 4) and the generation (batch 8), a refiner UNet call
+     and a 1024p VAE decode and encode (sdxl_gn_rows, read from a forward
+     on the meta device), with GN_FP32_ROWS, summed per call; best
      match at level 1 (sdxl_match_rows: C = 640 and 768);
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
@@ -149,8 +150,8 @@ Phases (any failure exits non-zero before the last line):
      Generator.sample runs the base, then the refiner.  Every UNet call of
      the inversion, the base stage and the refiner stage must launch what
      SDXL_LAUNCHES says (LaunchesPerCall), best match 1 or 2 times a
-     generation call; every attention shape the run gives a kernel must
-     be a phase-3 row; prints the stage seconds (invert, base stage,
+     generation call; every attention and GroupNorm shape the run gives a
+     kernel must be a phase-3 row; prints the stage seconds (invert, base stage,
      refiner stage, decode) and the device time of one base and one
      refiner UNet call at batch 8 (torch.profiler) beside its time through
      the call;
@@ -595,9 +596,10 @@ def sdxl_match_rows() -> list[tuple]:
 
 
 def sdxl_gn_rows() -> dict:
-    """The GroupNorm inputs of one SDXL base and one refiner UNet call
-    (batch 8 at a 128x128 latent) and of one 1024p VAE decode (batch 2,
-    the generation's VAE batch) and encode (batch 4, the inversion's),
+    """The GroupNorm inputs of one SDXL base UNet call of the inversion
+    (batch 4) and of the generation (batch 8), one refiner call (batch 8),
+    all at a 128x128 latent, and of one 1024p VAE decode (batch 2, the
+    generation's VAE batch) and encode (batch 4, the inversion's),
     (B, rows, C, silu, eps) -> {path: norms a call}, read from a forward of
     each module on the meta device (shapes only, no memory)."""
     from vidtome_torch.models.layers import GroupNorm
@@ -623,14 +625,15 @@ def sdxl_gn_rows() -> dict:
 
     lat = SDXL_SIZE // 8
     with torch.device("meta"):
-        x = torch.empty(8, lat, lat, 4)
-        for path, cfg in (("SDXL UNet", SDXL_UNET),
-                          ("refiner UNet", SDXL_REFINER_UNET)):
+        for path, cfg, B in (("SDXL inversion", SDXL_UNET, 4),
+                             ("SDXL UNet", SDXL_UNET, 8),
+                             ("refiner UNet", SDXL_REFINER_UNET, 8)):
             unet = UNet2DConditionModel(cfg)
             record(path, unet, lambda: unet(
-                x, 1, torch.empty(8, 77, cfg.cross_attention_dim),
-                add_text_embeds=torch.empty(8, cfg.addition_pooled_dim),
-                add_time_ids=torch.empty(8, cfg.addition_num_time_ids)))
+                torch.empty(B, lat, lat, 4), 1,
+                torch.empty(B, 77, cfg.cross_attention_dim),
+                add_text_embeds=torch.empty(B, cfg.addition_pooled_dim),
+                add_time_ids=torch.empty(B, cfg.addition_num_time_ids)))
         vae = AutoencoderKL()
         record("VAE decode", vae, lambda: vae.decode(
             torch.empty(2, lat, lat, 4)))
@@ -770,31 +773,17 @@ def bound_ms(nbytes: float, **ops: float) -> tuple[float, float]:
 class KernelStats:
     """Per kernel, over its phase-3 shapes: the largest error, and the
     summed kernel, plain-version, library-call and bound times (attention:
-    also the kernel's and the library call's device-only times); the same
-    over the shapes of a tag (``SDXL``) apart in ``tagged``."""
+    also the kernel's and the library call's device-only times)."""
 
     def __init__(self):
-        self.rows = {k: self._row() for k in KERNELS}
-        self.tagged = {}  # (tag, kernel) -> a row, and its shape count "n"
-
-    @staticmethod
-    def _row() -> dict:
-        return dict(err=0.0, ms=0.0, plain=0.0, library=None, bytes_ms=0.0,
-                    ops_ms=0.0, bound=0.0, device=None, library_device=None)
+        self.rows = {k: dict(err=0.0, ms=0.0, plain=0.0, library=None,
+                             bytes_ms=0.0, ops_ms=0.0, bound=0.0,
+                             device=None, library_device=None)
+                     for k in KERNELS}
 
     def add(self, name, err, ms, plain, library, bound, device=None,
-            library_device=None, *, tag=None):
-        rows = [self.rows[name]]
-        if tag:
-            rows.append(self.tagged.setdefault((tag, name),
-                                               dict(self._row(), n=0)))
-            rows[-1]["n"] += 1
-        for r in rows:
-            self._add(r, err, ms, plain, library, bound, device,
-                      library_device)
-
-    @staticmethod
-    def _add(r, err, ms, plain, library, bound, device, library_device):
+            library_device=None):
+        r = self.rows[name]
         r["err"] = max(r["err"], err)
         r["ms"] += ms
         r["plain"] += plain
@@ -883,11 +872,10 @@ def phase_group_norm(dev, rng, stats: KernelStats) -> None:
                 and err_stats < GN_STATS_TOL):
             raise AssertionError(f"GroupNorm kernel disagrees at "
                                  f"{(B, rows, C)}")
-        tag = "SDXL" if any(not p.startswith("SD1.5") for p in paths) else None
         stats.add("full_group_norm", abs_full, ms_full, plain, lib, bound,
-                  dev_full, lib_dev, tag=tag)
+                  dev_full, lib_dev)
         stats.add("group_norm", abs_apply, ms_pair, plain, lib, bound,
-                  dev_pair, lib_dev, tag=tag)
+                  dev_pair, lib_dev)
         for path, n in paths.items():
             row = per_call.setdefault(path, [0, 0.0, 0.0, 0.0, 0.0])
             for i, v in enumerate((1, dev_full, dev_pair, max(bound),
@@ -1116,9 +1104,7 @@ def phase_kernels(dev) -> KernelStats:
             if not err < tol or not rel <= rel_tol:
                 raise AssertionError(f"{name} kernel disagrees at "
                                      f"{(B, H, Sq, Skv, D)}")
-            stats.add(name, err, ms, plain, lib, bound, device, lib_device,
-                      tag="SDXL" if (B, H, Sq, Skv, D) in sdxl_flash
-                      or (B, H, Sq, Skv, D) in sdxl_small else None)
+            stats.add(name, err, ms, plain, lib, bound, device, lib_device)
             for path, n in a_call.get((B, H, Sq, Skv, D), {}).items():
                 row = per_call.setdefault((name, path), [0, 0.0, 0.0, 0.0,
                                                          0.0])
@@ -1271,8 +1257,7 @@ def phase_kernels(dev) -> KernelStats:
         if not err < MATCH_TOL or wrong:
             raise AssertionError(f"best_match kernel disagrees at "
                                  f"{(B, S, D, C)}")
-        stats.add("best_match", err, ms, plain, None, bound, device,
-                  tag="SDXL" if row in sdxl_match_rows() else None)
+        stats.add("best_match", err, ms, plain, None, bound, device)
         del src, dst, srcf, dstf
         torch.cuda.empty_cache()
     merge_engine_times(dev, rng)
@@ -1312,12 +1297,6 @@ def phase_kernels(dev) -> KernelStats:
         stats.add("fused_cross_sublayer", err, ms, plain, None, bound, device)
         del args, args_f
         torch.cuda.empty_cache()
-    for (tag, name), r in stats.tagged.items():
-        lib = "none" if r["library"] is None else f"{r['library']:.3f} ms"
-        print(f"[kernel] {name} over its {r['n']} {tag} rows: kernel "
-              f"{r['ms']:.3f} ms (device only {r['device']:.3f}), plain "
-              f"{r['plain']:.3f} ms, bound {r['bound']:.4f} ms, library "
-              f"call {lib}, max|err| {r['err']:.2e}")
     return stats
 
 
@@ -2679,10 +2658,11 @@ def phase_sdxl(dev, bundle):
     """sdxl_config on the SDXL base and its refiner through the port's
     Inverter and Generator.sample: every UNet call of each stage must launch
     what SDXL_LAUNCHES says (LaunchesPerCall), best match 1 or 2 times a
-    generation call (3 a step); every attention shape the run gives a
-    kernel (read by hooks on the attention modules) must be a phase-3 row.
-    Returns the launches and the refiner's bundle."""
-    from vidtome_torch.models.layers import CrossAttention
+    generation call (3 a step); every attention and GroupNorm shape the run
+    gives a kernel (read by hooks on the attention and GroupNorm modules of
+    the UNets and the VAE) must be a phase-3 row.  Returns the launches and
+    the refiner's bundle."""
+    from vidtome_torch.models.layers import CrossAttention, GroupNorm
     from vidtome_torch.ops.attention import SMALL_KV
     from vidtome_torch.pipeline.generator import Generator
     from vidtome_torch.pipeline.inverter import Inverter
@@ -2695,7 +2675,7 @@ def phase_sdxl(dev, bundle):
     generator = stage("build the refiner", lambda: Generator(bundle, cfg))
     refiner = generator.refiner
     unets = {"SDXL": bundle.unet, "refiner": refiner.bundle.unet}
-    shapes = collections.Counter()
+    shapes, gn_shapes = collections.Counter(), collections.Counter()
 
     def record(mod, args, kwargs):
         x = args[0]
@@ -2703,6 +2683,11 @@ def phase_sdxl(dev, bundle):
         kv = x if ctx is None else ctx
         shapes[(x.shape[0], mod.heads, x.shape[1], kv.shape[1],
                 mod.head_dim)] += 1
+
+    def record_gn(mod, args):
+        x = args[0]
+        gn_shapes[(x.shape[0], int(np.prod(x.shape[1:-1])), x.shape[-1],
+                   mod.silu, mod.eps, x.dtype)] += 1
 
     split_at = []
 
@@ -2714,6 +2699,9 @@ def phase_sdxl(dev, bundle):
     hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
              for u in unets.values() for m in u.modules()
              if isinstance(m, CrossAttention)]
+    hooks += [m.register_forward_pre_hook(record_gn)
+              for u in (*unets.values(), bundle.vae) for m in u.modules()
+              if isinstance(m, GroupNorm)]
     hooks.append(unets["refiner"].register_forward_pre_hook(at_split))
     per_call = {k: LaunchesPerCall(u) for k, u in unets.items()}
     try:
@@ -2758,6 +2746,9 @@ def phase_sdxl(dev, bundle):
     unchecked = [(sh, n) for sh, n in shapes.items()
                  if sh not in (sdxl_flash if sh[3] > SMALL_KV
                                else sdxl_small)]
+    gn_checked = {row for row, _ in gn_rows()}
+    gn_unchecked = [(sh, n) for sh, n in gn_shapes.items()
+                    if sh not in gn_checked]
     n_chunks = table.shape[1]
     print(f"[sdxl] SDXL + refiner (random), {N_FRAMES} frames "
           f"{SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS}+{SDXL_STEPS} DDIM steps, "
@@ -2774,6 +2765,8 @@ def phase_sdxl(dev, bundle):
     print(f"[sdxl] attention shapes (B, heads, Sq, Skv, D) the run gave the "
           f"kernels, with their launches: {dict(shapes)}; not a phase-3 row: "
           f"{unchecked}")
+    print(f"[sdxl] GroupNorm shapes (B, rows, C, silu, eps, dtype) with their "
+          f"launches: {dict(gn_shapes)}; not a phase-3 row: {gn_unchecked}")
     if generator.split_step() != SDXL_SPLIT or n_chunks != 2:
         raise AssertionError("expected the refiner from step "
                              f"{SDXL_SPLIT} and 2 chunks")
@@ -2791,6 +2784,9 @@ def phase_sdxl(dev, bundle):
     if unchecked:
         raise AssertionError(f"attention shapes phase 3 did not check: "
                              f"{unchecked}")
+    if gn_unchecked:
+        raise AssertionError(f"GroupNorm shapes phase 3 did not check: "
+                             f"{gn_unchecked}")
     if tuple(out.shape) != (N_FRAMES, SDXL_SIZE, SDXL_SIZE, 3):
         raise AssertionError(f"frames shape {tuple(out.shape)}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:

@@ -146,13 +146,12 @@ class CLIPTextModel(nn.Module):
             nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
             if cfg.projection_dim else None)
 
-    def forward(self, input_ids: torch.Tensor,
-                eos_token_id: int | None = None):
+    def forward(self, input_ids: torch.Tensor):
         """[B, S] ids -> [B, S, hidden]: the final LayerNorm'd states, or
         with ``clip_skip`` k the states k layers before the end without
         it.  With ``projection_dim`` returns (states, pooled [B, proj]):
-        the final LayerNorm'd state at the first ``eos_token_id``
-        (``vocab_size - 1`` by default) through ``text_projection``."""
+        the final LayerNorm'd state at the first EOS through
+        ``text_projection``."""
         tm = self.text_model
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)
@@ -168,10 +167,9 @@ class CLIPTextModel(nn.Module):
         out = states[-1 - self.cfg.clip_skip] if self.cfg.clip_skip else final
         if self.text_projection is None:
             return out
-        if eos_token_id is None:
-            eos_token_id = self.cfg.vocab_size - 1
-        # argmax takes the first maximum: the first EOS, as the JAX model
-        eos = (input_ids == eos_token_id).int().argmax(dim=1)
+        # CLIP's EOS id is the last of the vocabulary; argmax takes the
+        # first maximum: the first EOS, as the JAX model
+        eos = (input_ids == self.cfg.vocab_size - 1).int().argmax(dim=1)
         pooled = final[torch.arange(input_ids.shape[0],
                                     device=input_ids.device), eos]
         return out, self.text_projection(pooled)
