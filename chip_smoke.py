@@ -158,13 +158,50 @@ Phases (any failure exits non-zero before the last line):
   18. SDXL reference check: one SDXL and one refiner UNet call at a 16x16
      latent with pooled embeds and time ids, card (bf16 kernels) vs CPU
      (fp32 plain); the pooled embeds zeroed must differ by more than the
-     tolerance.
+     tolerance;
+  19. SDXL int8: sdxl_config with bench_sdxl's --int8 (quant: int8 in both
+     stages, the refiner's included) and fused resnet blocks in both, under
+     VIDTOME_GN_MODE=full: every UNet call must launch the W8A8 resnet once
+     per ResnetBlock2D (17 a base call, 22 a refiner call), the GroupNorm
+     stats and finalize entries twice per W8A8 launch, the bf16 resnet
+     never (sdxl_call_want); then one int8 base and refiner call timed;
+  20. SDXL int8 reference check: one int8 base call at a 16x16 latent and
+     one int8 refiner call at a 32x32 latent (the smallest at which its
+     int8 products have more than 16 rows), card vs CPU (INT8_REF_TOL);
+  21. SDXL PnP: control: pnp on the base stage with the fused sublayer (in
+     the refiner stage too, which runs control: none), the inversion
+     saving every step's latents: every UNet call must launch the sublayer
+     once per TransformerBlock (70 a base call, 44 a refiner call) and
+     small-KV only where no sublayer runs; then one PnP base call (3 lanes
+     x 4 frames) and one refiner call timed;
+  22. SDXL PnP reference check: one base call at a 16x16 latent with 3
+     lanes, both injections on, sublayer fused, card vs CPU; injections
+     off must differ by more than the tolerance;
+  23. SDXL serving: bench.py's SDXL serve sidecar keys (SERVE_PROFILES
+     ["maxe3xbs"]: the step caches, merging 0.95 / 0.9, fused resnets and
+     sublayers) from phase 17's inverted latents, with the refiner: the
+     UNet calls per kind of both stages must match the mode tables, and
+     every call must launch what its kind gives (full: the bf16 resnet once
+     a ResnetBlock2D, the sublayer once a TransformerBlock; shallow: its
+     level-0 resnets); then one serving base and refiner call timed;
+  24. SDXL LoRA: a synthetic kohya LoRA over the UNet and both text
+     encoders (write_lora), merged by a Generator with use_lora into the
+     base and offered to its refiner: the merged counts per namespace, a
+     probe weight of each namespace at W + delta, the context and pooled
+     embeds moved, each UNet call of the LoRA generation launching what
+     the plain generation's call at the same index did.
+  Phases 19, 21, 23 and 24 record every shape they give the fused resnet
+  and sublayer kernels (KernelShapes) and fail if one is not a phase-3
+  row (RESNET_SHAPES, SUBLAYER_SHAPES and sdxl_block_rows: every
+  ResnetBlock2D of an SDXL call at batch 4 and 8 and of a refiner call,
+  every TransformerBlock of an SDXL call at batch 8 and 12 and of a
+  refiner call, each summed per call in phase 3).
 ``python3 chip_smoke.py --cli-inputs DIR`` instead writes the inputs of the
 CLI runs of configs/flamingo.yaml and configs/breakdance.yaml on
 data/demo.mp4 (write_cli_inputs) and exits.
-Then one JSON line with the kernels' numbers (launches: summed over the
-exact, serving, int8, ControlNet, PnP, LoRA, SD2-depth and SDXL paths,
-each counted from 0; ms,
+Then the command's seconds and one JSON line with the kernels' numbers
+(launches: summed over the exact, serving, int8, ControlNet, PnP, LoRA,
+SD2-depth and the five SDXL paths, each counted from 0; ms,
 plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes, for
 group_norm (the stats, apply and finalize entries) stats + apply a
@@ -191,6 +228,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -462,6 +500,11 @@ SUBLAYER_SHAPES = [  # (B, S, C, heads): SD2.1 PnP generation, 77 keys
     (12, 1024, 640, 10),
     (12, 256, 1280, 20),
     (12, 64, 1280, 20),
+    # the refiner's widths in heads of 64 (12 and 24: three a cluster
+    # rank), which no path here runs (the refiner's heads are 96 wide);
+    # the SDXL phases' rows come from sdxl_block_rows
+    (8, 4096, 768, 12),
+    (8, 1024, 1536, 24),
 ]
 GN_SHAPES = [  # (B, rows, C, silu, eps, norms per exact UNet call)
     # SD1.5's UNet at a 64x64 latent, batch 8: all 61 GroupNorms of a call
@@ -640,6 +683,60 @@ def sdxl_gn_rows() -> dict:
         record("VAE encode", vae, lambda: vae.encode(
             torch.empty(4, SDXL_SIZE, SDXL_SIZE, 3)))
     return rows
+
+
+@functools.cache
+def sdxl_block_rows() -> tuple[dict, dict]:
+    """The fused resnet and fused sublayer rows of the new SDXL phases,
+    (B, H, W, Cin, Cout) and (B, S, C, heads) -> {path: launches a call},
+    read from a forward of each UNet on the meta device at a 128x128
+    latent: every ResnetBlock2D of an SDXL call of the inversion (batch 4)
+    and of the generation (batch 8) and of a refiner call (batch 8), the
+    int8 and serving phases' shapes (the serving phase's shallow and
+    CFG-skip calls run level-0 blocks of these shapes); every
+    TransformerBlock of an SDXL generation call (batch 8, serving), a PnP
+    call (3 lanes x 4 frames) and a refiner call (batch 8)."""
+    from vidtome_torch.models.layers import ResnetBlock2D, TransformerBlock
+    from vidtome_torch.models.unet import (SDXL_REFINER_UNET, SDXL_UNET,
+                                           UNet2DConditionModel)
+
+    resnets, blocks = {}, {}
+
+    def pre_resnet(path):
+        def hook(mod, args):
+            B, H, W, Ci = args[0].shape
+            row = resnets.setdefault((B, H, W, Ci, mod.conv1.out_channels),
+                                     {})
+            row[path] = row.get(path, 0) + 1
+        return hook
+
+    def pre_block(path):
+        def hook(mod, args):
+            B, S, C = args[0].shape
+            row = blocks.setdefault((B, S, C, mod.attn2.heads), {})
+            row[path] = row.get(path, 0) + 1
+        return hook
+
+    lat = SDXL_SIZE // 8
+    with torch.device("meta"), torch.no_grad():
+        for path, cfg, B, want in (
+                ("SDXL inversion", SDXL_UNET, 4, (pre_resnet,)),
+                ("SDXL generation", SDXL_UNET, 8, (pre_resnet, pre_block)),
+                ("SDXL PnP", SDXL_UNET, 12, (pre_block,)),
+                ("refiner", SDXL_REFINER_UNET, 8, (pre_resnet, pre_block))):
+            unet = UNet2DConditionModel(cfg)
+            hooks = [m.register_forward_pre_hook(fn(path))
+                     for fn, kind in ((pre_resnet, ResnetBlock2D),
+                                      (pre_block, TransformerBlock))
+                     if fn in want
+                     for m in unet.modules() if isinstance(m, kind)]
+            unet(torch.empty(B, lat, lat, 4), 1,
+                 torch.empty(B, 77, cfg.cross_attention_dim),
+                 add_text_embeds=torch.empty(B, cfg.addition_pooled_dim),
+                 add_time_ids=torch.empty(B, cfg.addition_num_time_ids))
+            for h in hooks:
+                h.remove()
+    return resnets, blocks
 
 
 def gn_rows() -> list[tuple]:
@@ -1043,6 +1140,17 @@ def unfused_sublayer(args, heads: int, kv_len: int, eps: float = 1e-5):
     return run
 
 
+def print_per_call(per_call: dict, library: str) -> None:
+    """Phase 3's sums per UNet call of a path: {(kernel, path): [launches,
+    ms, device ms, bound ms, library ms]}, each row's times weighted by its
+    launches a call."""
+    for (name, path), (n, ms, device, bound, lib) in per_call.items():
+        print(f"[kernel] {name} per {path} call, {n} launches at the rows "
+              f"above: through the wrapper {ms:.4f} ms, device only "
+              f"{device:.4f} ms ({library} {lib:.4f} ms), bound "
+              f"{bound:.4f} ms")
+
+
 def phase_kernels(dev) -> KernelStats:
     from torch.nn import functional as F
 
@@ -1063,7 +1171,7 @@ def phase_kernels(dev) -> KernelStats:
               f"({'bytes' if bound[0] >= bound[1] else 'operations'}){note}")
 
     stats = KernelStats()
-    # (kernel, path) -> summed launches x (ms, device ms, bound, SDPA)
+    # (kernel, path) -> summed launches x (ms, device ms, bound, library)
     per_call = {}
     sdxl_flash, sdxl_small = sdxl_attention_rows()
     for name, shapes, a_call in (
@@ -1113,11 +1221,8 @@ def phase_kernels(dev) -> KernelStats:
                     row[i] += n * x
             del q, k, v, qf, kf, vf, got
             torch.cuda.empty_cache()
-    for (name, path), (n, ms, device, bound, lib_device) in per_call.items():
-        print(f"[kernel] {name} per {path} call, {n} launches at the rows "
-              f"above: through the wrapper {ms:.4f} ms, device only "
-              f"{device:.4f} ms (SDPA {lib_device:.4f} ms), bound "
-              f"{bound:.4f} ms")
+    print_per_call(per_call, "SDPA device only")
+    per_call.clear()
 
     phase_group_norm(dev, rng, stats)
 
@@ -1125,7 +1230,9 @@ def phase_kernels(dev) -> KernelStats:
         return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale
                                 + shift).to(dev)
 
-    for B, H, W, Ci, Co in RESNET_SHAPES:
+    sdxl_resnets, sdxl_blocks = sdxl_block_rows()
+    for B, H, W, Ci, Co in RESNET_SHAPES + list(sdxl_resnets):
+        paths = sdxl_resnets.get((B, H, W, Ci, Co), {})
         # the conv weights as ResnetBlock2D holds them: OIHW views of
         # packed [O, 3, 3, I] storage (channels_last)
         args = [bf16((B, H, W, Ci)), f32(B, Co, scale=0.3),
@@ -1178,6 +1285,10 @@ def phase_kernels(dev) -> KernelStats:
             raise AssertionError(f"fused resnet kernel disagrees at "
                                  f"{(B, H, W, Ci, Co)}")
         stats.add("fused_resnet", abs_err, ms, plain, lib, bound, device)
+        for path, n in paths.items():
+            row = per_call.setdefault(("fused_resnet", path), [0] + [0.0] * 4)
+            for i, x in enumerate((1, ms, device, max(bound), lib)):
+                row[i] += n * x
         del args_f, got, xc, hc
         # W8A8: int8 weights packed, and each conv's static activation
         # scale taken once, as the int8 tables hold them (the resnet block
@@ -1217,8 +1328,18 @@ def phase_kernels(dev) -> KernelStats:
                                  f"{(B, H, W, Ci, Co)}")
         stats.add("fused_resnet_w8a8", abs_err, ms, plain, None, bound,
                   device)
+        for path, n in paths.items():
+            row = per_call.setdefault(("fused_resnet_w8a8", path),
+                                      [0] + [0.0] * 4)
+            for i, x in enumerate((1, ms, device, max(bound), bf16_device)):
+                row[i] += n * x
         del args
         torch.cuda.empty_cache()
+    for name, library in (("fused_resnet", "cuDNN's two convolutions"),
+                          ("fused_resnet_w8a8", "the bf16 block device only")):
+        print_per_call({k: v for k, v in per_call.items() if k[0] == name},
+                       library)
+    per_call.clear()
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for row in MATCH_SHAPES + sdxl_match_rows():
@@ -1262,7 +1383,8 @@ def phase_kernels(dev) -> KernelStats:
         torch.cuda.empty_cache()
     merge_engine_times(dev, rng)
 
-    for B, S, C, heads in SUBLAYER_SHAPES:
+    for B, S, C, heads in SUBLAYER_SHAPES + list(sdxl_blocks):
+        paths = sdxl_blocks.get((B, S, C, heads), {})
         args = sublayer_inputs(rng, dev, B, S, C)
         args_f = [a.float() for a in args]
         kw = dict(heads=heads, kv_len=77)
@@ -1295,8 +1417,14 @@ def phase_kernels(dev) -> KernelStats:
             raise AssertionError(f"fused sublayer kernel disagrees at "
                                  f"{(B, S, C, heads)}")
         stats.add("fused_cross_sublayer", err, ms, plain, None, bound, device)
+        for path, n in paths.items():
+            row = per_call.setdefault(("fused_cross_sublayer", path),
+                                      [0] + [0.0] * 4)
+            for i, x in enumerate((1, ms, device, max(bound), chain)):
+                row[i] += n * x
         del args, args_f
         torch.cuda.empty_cache()
+    print_per_call(per_call, "the unfused bf16 chain device only")
     return stats
 
 
@@ -2011,10 +2139,11 @@ def phase_pnp(dev, bundle) -> dict:
     return launches
 
 
-def profiled_device_ms(fn) -> float | None:
+def profiled_device_ms(fn, top: int = 0):
     """Device milliseconds summed over the kernels of one call of ``fn``
     (torch.profiler, after a warm-up call); None where the profiler
-    records no device time."""
+    records no device time.  With ``top``, also the ``top`` kernels that
+    take most of it, [(name, ms, launches)]."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2024,11 +2153,17 @@ def profiled_device_ms(fn) -> float | None:
         fn()
         torch.cuda.synchronize()
     # the kernels' own entries (a launching op's entry repeats their time)
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 if us > 0 else None
+    kernels = [(e.key, (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0)) / 1e3,
+                e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = sum(k[1] for k in kernels)
+    ms = ms if ms > 0 else None
+    if not top:
+        return ms
+    kernels.sort(key=lambda k: -k[1])
+    return ms, [(name[:60], round(t, 3), n) for name, t, n in kernels[:top]]
 
 
 def phase_pnp_call(dev, bundle) -> None:
@@ -2276,7 +2411,7 @@ def phase_control_models(dev, nets: dict) -> None:
 def lora_targets(bundle) -> list[tuple[str, str, torch.nn.Module]]:
     """(kohya prefix, module name, module) of every attention projection,
     resnet conv and time_emb_proj of the UNet, and the text encoder's
-    q/k/v/out projections."""
+    q/k/v/out projections (SDXL: both encoders', lora_te1_ / lora_te2_)."""
     import re
 
     from torch import nn
@@ -2284,20 +2419,27 @@ def lora_targets(bundle) -> list[tuple[str, str, torch.nn.Module]]:
     unet_re = re.compile(r"(attn[12]\.(to_q|to_k|to_v|to_out\.0)|resnets\.\d+"
                          r"\.(conv1|conv2|conv_shortcut|time_emb_proj))$")
     text_re = re.compile(r"self_attn\.(q_proj|k_proj|v_proj|out_proj)$")
+    roots = [("lora_unet_", bundle.unet, unet_re)]
+    if bundle.text_encoder_2 is None:
+        roots.append(("lora_te_", bundle.text_encoder, text_re))
+    else:
+        roots += [("lora_te1_", bundle.text_encoder, text_re),
+                  ("lora_te2_", bundle.text_encoder_2, text_re)]
     out = []
-    for prefix, root, pat in (("lora_unet_", bundle.unet, unet_re),
-                              ("lora_te_", bundle.text_encoder, text_re)):
+    for prefix, root, pat in roots:
         for name, mod in root.named_modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d)) and pat.search(name):
                 out.append((prefix, name, mod))
     return out
 
 
-def write_lora(bundle, path: str, seed: int = 7) -> dict:
+def write_lora(bundle, path: str, seed: int = 7,
+               probes: set | None = None) -> dict:
     """A kohya LoRA of rank LORA_RANK, alpha LORA_ALPHA over
     lora_targets(bundle), from a torch seed, written with the port's
     safetensors writer; returns {module: fp32 delta on the card} with the
-    delta alpha / rank * up @ down in the module's layout."""
+    delta alpha / rank * up @ down in the module's layout, for every target
+    or the (prefix, name) pairs in ``probes``."""
     from vidtome_torch.io.safetensors import save_file
 
     gen = torch.Generator().manual_seed(seed)
@@ -2313,6 +2455,8 @@ def write_lora(bundle, path: str, seed: int = 7) -> dict:
         state[f"{base}.lora_down.weight"] = down
         state[f"{base}.lora_up.weight"] = up
         state[f"{base}.alpha"] = torch.tensor(LORA_ALPHA)
+        if probes is not None and (prefix, name) not in probes:
+            continue
         delta = (up.reshape(w.shape[0], LORA_RANK)
                  @ down.reshape(LORA_RANK, -1)).reshape(w.shape)
         deltas[mod] = (delta * (LORA_ALPHA / LORA_RANK)).to(w.device)
@@ -2656,25 +2800,23 @@ def sdxl_config() -> dict:
 
 def phase_sdxl(dev, bundle):
     """sdxl_config on the SDXL base and its refiner through the port's
-    Inverter and Generator.sample: every UNet call of each stage must launch
-    what SDXL_LAUNCHES says (LaunchesPerCall), best match 1 or 2 times a
+    Inverter and Generator.sample (drive_sdxl): every UNet call of each
+    stage must launch what SDXL_LAUNCHES says, best match 1 or 2 times a
     generation call (3 a step); every attention and GroupNorm shape the run
     gives a kernel (read by hooks on the attention and GroupNorm modules of
-    the UNets and the VAE) must be a phase-3 row.  Returns the launches and
-    the refiner's bundle."""
+    the UNets and the VAE) must be a phase-3 row.  Returns the launches,
+    the refiner's bundle and the inverted latents."""
     from vidtome_torch.models.layers import CrossAttention, GroupNorm
     from vidtome_torch.ops.attention import SMALL_KV
     from vidtome_torch.pipeline.generator import Generator
     from vidtome_torch.pipeline.inverter import Inverter
 
     cfg = sdxl_config()
-    frames = make_frames(SDXL_SIZE)
     times = {}
-    stage = functools.partial(timed, times)
     inverter = Inverter(bundle, cfg)
-    generator = stage("build the refiner", lambda: Generator(bundle, cfg))
+    generator = timed(times, "build the refiner",
+                      lambda: Generator(bundle, cfg))
     refiner = generator.refiner
-    unets = {"SDXL": bundle.unet, "refiner": refiner.bundle.unet}
     shapes, gn_shapes = collections.Counter(), collections.Counter()
 
     def record(mod, args, kwargs):
@@ -2689,59 +2831,20 @@ def phase_sdxl(dev, bundle):
         gn_shapes[(x.shape[0], int(np.prod(x.shape[1:-1])), x.shape[-1],
                    mod.silu, mod.eps, x.dtype)] += 1
 
-    split_at = []
-
-    def at_split(module, args):  # the refiner stage's first UNet call
-        if not split_at:
-            torch.cuda.synchronize()
-            split_at.append(time.perf_counter())
-
+    unets = (bundle.unet, refiner.bundle.unet)
     hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
-             for u in unets.values() for m in u.modules()
+             for u in unets for m in u.modules()
              if isinstance(m, CrossAttention)]
     hooks += [m.register_forward_pre_hook(record_gn)
-              for u in (*unets.values(), bundle.vae) for m in u.modules()
+              for u in (*unets, bundle.vae) for m in u.modules()
               if isinstance(m, GroupNorm)]
-    hooks.append(unets["refiner"].register_forward_pre_hook(at_split))
-    per_call = {k: LaunchesPerCall(u) for k, u in unets.items()}
     try:
-        reset_launches()
-        latents, conds = stage("encode", lambda: inverter.encode(frames))
-        inverted = stage("invert", lambda: inverter.ddim_inversion(latents,
-                                                                   conds))
-        n_inv = len(per_call["SDXL"].calls)
-        generator.configure_frames(N_FRAMES)
-        pad = torch.as_tensor(generator.pad_src, device=dev)
-        table = generator.fidx_table()
-        prompt = next(iter(generator.prompt.values()))
-        t0 = time.perf_counter()
-        clean = stage("generate", lambda: generator.sample(
-            inverted[pad], prompt, fidx_table=table))
-        out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
-        launches = read_launches()
+        run = drive_sdxl(dev, bundle, generator, times, inverter=inverter)
     finally:
         for h in hooks:
             h.remove()
-        for c in per_call.values():
-            c.close()
-    times["base stage"] = split_at[0] - t0
-    times["refiner stage"] = times["generate"] - times["base stage"]
 
-    calls = {"SDXL inversion": per_call["SDXL"].calls[:n_inv],
-             "SDXL": per_call["SDXL"].calls[n_inv:],
-             "refiner": per_call["refiner"].calls}
-    odd = {}
-    for path, path_calls in calls.items():
-        want = SDXL_LAUNCHES[path.split()[0]]
-        for c in path_calls:
-            best = c["best_match"]
-            rest = {k: v for k, v in c.items()
-                    if k not in want and k != "best_match"}
-            if ({k: c[k] for k in want} != want or any(rest.values())
-                    or best not in ((0,) if path == "SDXL inversion"
-                                    else (1, 2))):
-                odd.setdefault(path, []).append(c)
-    best = {p: sum(c["best_match"] for c in cs) for p, cs in calls.items()}
+    best = {p: sum(c["best_match"] for c in cs) for p, cs in run.calls.items()}
     sdxl_flash, sdxl_small = sdxl_attention_rows()
     unchecked = [(sh, n) for sh, n in shapes.items()
                  if sh not in (sdxl_flash if sh[3] > SMALL_KV
@@ -2749,55 +2852,33 @@ def phase_sdxl(dev, bundle):
     gn_checked = {row for row, _ in gn_rows()}
     gn_unchecked = [(sh, n) for sh, n in gn_shapes.items()
                     if sh not in gn_checked]
-    n_chunks = table.shape[1]
     print(f"[sdxl] SDXL + refiner (random), {N_FRAMES} frames "
           f"{SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS}+{SDXL_STEPS} DDIM steps, "
-          f"the refiner from step {generator.split_step()}, {n_chunks} "
-          f"chunks, bench_sdxl keys; UNet calls: inversion "
-          f"{dict(inverter.unet_calls)}, base {dict(generator.unet_calls)}, "
-          f"refiner {dict(refiner.unet_calls)}")
-    print(f"[sdxl] launches of the first call of each kind: "
-          f"{ {p: cs[0] for p, cs in calls.items() if cs} } (want "
-          f"{SDXL_LAUNCHES} besides best_match); calls that differ: "
-          f"{ {p: len(cs) for p, cs in odd.items()} }, the first of each "
-          f"{ {p: cs[0] for p, cs in odd.items()} }; best_match over the "
-          f"calls {best}")
+          f"the refiner from step {generator.split_step()}, "
+          f"{run.table.shape[1]} chunks, bench_sdxl keys; UNet calls: "
+          f"inversion {dict(inverter.unet_calls)}, base "
+          f"{dict(generator.unet_calls)}, refiner "
+          f"{dict(refiner.unet_calls)}; best_match over the calls {best}")
     print(f"[sdxl] attention shapes (B, heads, Sq, Skv, D) the run gave the "
           f"kernels, with their launches: {dict(shapes)}; not a phase-3 row: "
           f"{unchecked}")
     print(f"[sdxl] GroupNorm shapes (B, rows, C, silu, eps, dtype) with their "
           f"launches: {dict(gn_shapes)}; not a phase-3 row: {gn_unchecked}")
-    if generator.split_step() != SDXL_SPLIT or n_chunks != 2:
+    if generator.split_step() != SDXL_SPLIT or run.table.shape[1] != 2:
         raise AssertionError("expected the refiner from step "
                              f"{SDXL_SPLIT} and 2 chunks")
-    want_calls = {"SDXL inversion": SDXL_STEPS * -(-N_FRAMES // 4),
-                  "SDXL": SDXL_SPLIT * n_chunks,
-                  "refiner": (SDXL_STEPS - SDXL_SPLIT) * n_chunks}
-    if {p: len(cs) for p, cs in calls.items()} != want_calls:
-        raise AssertionError(f"UNet calls {calls.keys()} differ from "
-                             f"{want_calls}")
-    if odd or best["SDXL"] != 3 * SDXL_SPLIT or best["refiner"] != 3 * (
+    check_calls("sdxl", run, sdxl_wants(bundle, refiner))
+    if best["SDXL"] != 3 * SDXL_SPLIT or best["refiner"] != 3 * (
             SDXL_STEPS - SDXL_SPLIT):
-        raise AssertionError(f"SDXL launches per UNet call differ: "
-                             f"{ {p: cs[0] for p, cs in odd.items()} }, "
-                             f"best_match {best}")
+        raise AssertionError(f"best_match launches {best}, 3 a step")
     if unchecked:
         raise AssertionError(f"attention shapes phase 3 did not check: "
                              f"{unchecked}")
     if gn_unchecked:
         raise AssertionError(f"GroupNorm shapes phase 3 did not check: "
                              f"{gn_unchecked}")
-    if tuple(out.shape) != (N_FRAMES, SDXL_SIZE, SDXL_SIZE, 3):
-        raise AssertionError(f"frames shape {tuple(out.shape)}")
-    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
-        raise AssertionError("SDXL frames not finite or outside [0, 1]")
-    if not torch.isfinite(inverted).all():
-        raise AssertionError("SDXL inverted latents not finite")
-    print(f"[sdxl] frames mean {out.mean().item():.4f} std "
-          f"{out.std().item():.4f}; stage seconds "
-          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
-    print(f"[sdxl] kernel launches in this run: {launches}")
-    return launches, refiner.bundle
+    print_run("sdxl", run, times)
+    return run.launches, refiner.bundle, run.inverted
 
 
 def sdxl_unet_args(dev, unet, batch: int, latent: int, seed: int):
@@ -2818,33 +2899,6 @@ def sdxl_unet_args(dev, unet, batch: int, latent: int, seed: int):
               rng.standard_normal((batch, cfg.addition_pooled_dim),
                                   np.float32), ids)
     return [torch.from_numpy(a).to(dev) for a in arrays]
-
-
-def phase_sdxl_calls(dev, bundle, refiner) -> None:
-    """One SDXL base and one refiner UNet call at batch 8 and a 128x128
-    latent (no merging): device ms summed over its kernels (torch.profiler)
-    and ms through the call (CUDA events, the host's gaps included)."""
-    for name, b in (("SDXL", bundle), ("refiner", refiner)):
-        x, ctx, pooled, ids = sdxl_unet_args(dev, b.unet, 8, SDXL_SIZE // 8,
-                                             8)
-        x, ctx = x.bfloat16(), ctx.bfloat16()
-
-        def call(unet=b.unet, x=x, ctx=ctx, pooled=pooled, ids=ids):
-            with torch.inference_mode():
-                return unet(x, 501, ctx, add_text_embeds=pooled,
-                            add_time_ids=ids)
-        try:
-            device = profiled_device_ms(call)
-        except Exception as exc:  # a measurement only: say so, go on
-            print(f"[sdxl] device time not measured ({exc!r})")
-            device = None
-        wall = cuda_time(call, 3)
-        print(f"[sdxl] one {name} UNet call [8,{SDXL_SIZE // 8},"
-              f"{SDXL_SIZE // 8},4], no merging: device ms (torch.profiler, "
-              f"summed over its kernels) {device}; through the call (CUDA "
-              f"events) {wall:.3f} ms")
-        del x, ctx, pooled, ids
-        torch.cuda.empty_cache()
 
 
 def phase_sdxl_reference(dev, bundle, refiner) -> None:
@@ -2885,6 +2939,595 @@ def phase_sdxl_reference(dev, bundle, refiner) -> None:
                                  "small-KV kernel")
 
 
+class KernelShapes:
+    """The shapes the run gives the fused resnet kernels ((variant, B, H,
+    W, Cin, Cout)) and the fused sublayer kernel ((B, S, C, heads)), with
+    their launches, recorded by wrapping the wrappers' launch functions
+    inside the block."""
+
+    def __init__(self):
+        self.resnet = collections.Counter()
+        self.sublayer = collections.Counter()
+
+    def __enter__(self):
+        from vidtome_torch.ops import resnet, sublayer
+
+        self._saved = resnet._launch, sublayer._launch
+        res_launch, sub_launch = self._saved
+
+        def res(*args, quant=None):
+            name = "fused_resnet" if quant is None else "fused_resnet_w8a8"
+            self.resnet[(name, *args[0].shape, args[4].shape[0])] += 1
+            return res_launch(*args, quant=quant)
+
+        def sub(*args):
+            self.sublayer[(*args[0].shape, args[11])] += 1
+            return sub_launch(*args)
+
+        resnet._launch, sublayer._launch = res, sub
+        return self
+
+    def __exit__(self, *exc):
+        from vidtome_torch.ops import resnet, sublayer
+
+        resnet._launch, sublayer._launch = self._saved
+
+    def unchecked(self) -> list:
+        """The recorded shapes that are not phase-3 rows (both resnet
+        variants run at every RESNET_SHAPES and sdxl_block_rows row)."""
+        resnets, blocks = sdxl_block_rows()
+        res_rows = set(RESNET_SHAPES) | set(resnets)
+        sub_rows = set(SUBLAYER_SHAPES) | set(blocks)
+        return ([(sh, n) for sh, n in self.resnet.items()
+                 if sh[1:] not in res_rows]
+                + [(sh, n) for sh, n in self.sublayer.items()
+                   if sh not in sub_rows])
+
+
+def drive_sdxl(dev, bundle, generator, times: dict, inverter=None,
+               inverted=None) -> types.SimpleNamespace:
+    """One edit of the SDXL phases' 8 frames through the port's Inverter
+    (or from the given ``inverted`` latents) and Generator.sample, the base
+    and then the refiner (under PnP the base reads the inversion's saved
+    latents), the launch counters set to 0 before and read after.  Returns
+    the launches, each UNet call's launches by path ("SDXL inversion",
+    "SDXL", "refiner"; LaunchesPerCall), the shapes the run gave the fused
+    resnet and sublayer kernels (KernelShapes), the chunk table, the
+    inverted latents and the frames; the stage seconds go into ``times``,
+    the base and refiner stages apart."""
+    stage = functools.partial(timed, times)
+    refiner_unet = generator.refiner.bundle.unet
+    split_at = []
+
+    def at_split(module, args):  # the refiner stage's first UNet call
+        if not split_at:
+            torch.cuda.synchronize()
+            split_at.append(time.perf_counter())
+
+    hook = refiner_unet.register_forward_pre_hook(at_split)
+    per_call = {"SDXL": LaunchesPerCall(bundle.unet),
+                "refiner": LaunchesPerCall(refiner_unet)}
+    try:
+        with KernelShapes() as shapes:
+            reset_launches()
+            if inverter is not None:
+                frames = make_frames(SDXL_SIZE)
+                latents, conds = stage("encode",
+                                       lambda: inverter.encode(frames))
+                inverted = stage("invert", lambda: inverter.ddim_inversion(
+                    latents, conds))
+            n_inv = len(per_call["SDXL"].calls)
+            generator.configure_frames(N_FRAMES)
+            pad = torch.as_tensor(generator.pad_src, device=dev)
+            table = generator.fidx_table()
+            prompt = next(iter(generator.prompt.values()))
+            inputs = {}
+            if generator.use_pnp:
+                inputs["src_table"] = inverter.source_table(
+                    generator.scheduler.timesteps)[:, pad]
+            t0 = time.perf_counter()
+            clean = stage("generate", lambda: generator.sample(
+                inverted[pad], prompt, fidx_table=table, **inputs))
+            out = stage("decode",
+                        lambda: generator.vae.decode(clean[:N_FRAMES]))
+            launches = read_launches()
+    finally:
+        hook.remove()
+        for c in per_call.values():
+            c.close()
+    times["base stage"] = split_at[0] - t0
+    times["refiner stage"] = times["generate"] - times["base stage"]
+    calls = {"SDXL": per_call["SDXL"].calls[n_inv:],
+             "refiner": per_call["refiner"].calls}
+    if inverter is not None:
+        calls["SDXL inversion"] = per_call["SDXL"].calls[:n_inv]
+    if tuple(out.shape) != (N_FRAMES, SDXL_SIZE, SDXL_SIZE, 3):
+        raise AssertionError(f"frames shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("SDXL frames not finite or outside [0, 1]")
+    if not torch.isfinite(inverted).all():
+        raise AssertionError("SDXL inverted latents not finite")
+    return types.SimpleNamespace(launches=launches, calls=calls,
+                                 shapes=shapes, table=table,
+                                 inverted=inverted, out=out)
+
+
+def sdxl_call_want(unet, kind: str = "full", resnet: str | None = None,
+                   sublayer: bool = False) -> dict:
+    """The launches of one SDXL or refiner UNet call by its topology (best
+    match left out): SDXL_LAUNCHES for a full call; the fused resnet kernel
+    (``resnet``: "fused_resnet" or "fused_resnet_w8a8") once a
+    ResnetBlock2D, with the GroupNorm stats and finalize entries twice, in
+    place of its two full GroupNorms; under ``sublayer`` the fused
+    sublayer once a TransformerBlock, in place of its small-KV
+    cross-attention.  A shallow call (the level-0 path around the deep
+    cache, which has no attention on the SDXL family) runs only its
+    resnets and conv_norm_out."""
+    from vidtome_torch.models.layers import TransformerBlock
+
+    refiner = unet.config.addition_num_time_ids == 5
+    blocks = sum(isinstance(m, TransformerBlock) for m in unet.modules())
+    n_res = resnets_per_call(unet)[kind]
+    want = {k: 0 for k in KERNELS if k != "best_match"}
+    if kind == "full":
+        want.update(SDXL_LAUNCHES["refiner" if refiner else "SDXL"])
+        if sublayer:
+            want["small_kv_attention"] -= blocks
+            want["fused_cross_sublayer"] = blocks
+    else:
+        if len(unet.down_blocks[0].attentions) or len(
+                unet.up_blocks[-1].attentions):
+            raise AssertionError("a shallow call of this UNet runs attention")
+        want["full_group_norm"] = 2 * n_res + 1
+    if resnet is not None:
+        want[resnet] = n_res
+        want["group_norm"] = 2 * n_res
+        want["full_group_norm"] -= 2 * n_res
+    return want
+
+
+def sdxl_wants(bundle, refiner, inversion: bool = True,
+               **modes) -> dict:
+    """The launches each UNet call of an SDXL phase must show, {path:
+    [(launches, best-match counts allowed)], one a call}: the inversion's
+    calls (batch 4, no merging, no sublayer: the stage leaves it off) and
+    the base and refiner stages' full calls (best match 1 or 2), the
+    stages' ``modes`` (sdxl_call_want) on both."""
+    steps = {"SDXL": SDXL_SPLIT, "refiner": SDXL_STEPS - SDXL_SPLIT}
+    unets = {"SDXL": bundle.unet, "refiner": refiner.bundle.unet}
+    wants = {p: [(sdxl_call_want(unets[p], **modes), (1, 2))] * 2 * n
+             for p, n in steps.items()}
+    if inversion:
+        inv = {k: v for k, v in modes.items() if k != "sublayer"}
+        wants["SDXL inversion"] = [(sdxl_call_want(bundle.unet, **inv),
+                                    (0,))] * SDXL_STEPS * -(-N_FRAMES // 4)
+    return wants
+
+
+def check_calls(tag: str, run, wants: dict) -> None:
+    """Every UNet call of a drive_sdxl run against ``wants`` ({path:
+    [(launches, best-match counts allowed)], one a call}): the number of
+    calls and each call's launches; and every shape given the fused
+    resnet and sublayer kernels a phase-3 row."""
+    odd = {}
+    for path, want in wants.items():
+        calls = run.calls[path]
+        if len(calls) != len(want):
+            raise AssertionError(f"[{tag}] {path}: {len(calls)} UNet calls, "
+                                 f"want {len(want)}")
+        odd[path] = [i for i, (c, (w, best)) in enumerate(zip(calls, want))
+                     if {k: v for k, v in c.items() if k != "best_match"} != w
+                     or c["best_match"] not in best]
+    unchecked = run.shapes.unchecked()
+    print(f"[{tag}] launches of the first UNet call of each path: "
+          f"{ {p: cs[0] for p, cs in run.calls.items() if cs} }; calls that "
+          f"differ from what they must launch: "
+          f"{ {p: len(i) for p, i in odd.items()} }")
+    print(f"[{tag}] fused resnet shapes (variant, B, H, W, Cin, Cout) and "
+          f"sublayer shapes (B, S, C, heads) with their launches: "
+          f"{dict(run.shapes.resnet)} {dict(run.shapes.sublayer)}; not a "
+          f"phase-3 row: {unchecked}")
+    if any(odd.values()):
+        raise AssertionError(f"[{tag}] launches per UNet call differ: "
+                             f"{ {p: i[:3] for p, i in odd.items()} }")
+    if unchecked:
+        raise AssertionError(f"[{tag}] shapes phase 3 did not check: "
+                             f"{unchecked}")
+
+
+def print_run(tag: str, run, times: dict) -> None:
+    print(f"[{tag}] frames mean {run.out.mean().item():.4f} std "
+          f"{run.out.std().item():.4f}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"[{tag}] kernel launches in this run: {run.launches}")
+
+
+def sdxl_call_times(dev, tag: str, calls: list) -> None:
+    """One UNet call of each (name, unet, batch, kwargs) at a 128x128
+    latent (no merging): device ms summed over its kernels, with the five
+    kernels that take most of it (torch.profiler), and ms through the call
+    (CUDA events, the host's gaps included)."""
+    for name, unet, batch, kw in calls:
+        x, ctx, pooled, ids = sdxl_unet_args(dev, unet, batch, SDXL_SIZE // 8,
+                                             8)
+        x, ctx = x.bfloat16(), ctx.bfloat16()
+
+        def call(unet=unet, x=x, ctx=ctx, pooled=pooled, ids=ids, kw=kw):
+            with torch.inference_mode():
+                return unet(x, 501, ctx, add_text_embeds=pooled,
+                            add_time_ids=ids, **kw)
+        try:
+            device, top = profiled_device_ms(call, top=5)
+        except Exception as exc:  # a measurement only: say so, go on
+            print(f"[{tag}] device time not measured ({exc!r})")
+            device, top = None, []
+        wall = cuda_time(call, 3)
+        print(f"[{tag}] one {name} UNet call [{batch},{SDXL_SIZE // 8},"
+              f"{SDXL_SIZE // 8},4], no merging: device ms (torch.profiler, "
+              f"summed over its kernels) {device}; through the call (CUDA "
+              f"events) {wall:.3f} ms; the kernels that take most, (name, "
+              f"ms, launches): {top}")
+        del x, ctx, pooled, ids
+        torch.cuda.empty_cache()
+
+
+def sdxl_int8_config() -> dict:
+    """sdxl_config with bench_sdxl's --int8 (quant: int8 in both stages,
+    so in the refiner's too) and fused resnet blocks in both stages."""
+    cfg = sdxl_config()
+    for stage in ("inversion", "generation"):
+        cfg[stage].update(quant="int8", resnet_mode="fused")
+    return cfg
+
+
+def phase_sdxl_int8(dev, bundle):
+    """sdxl_int8_config under VIDTOME_GN_MODE=full: every UNet call of the
+    inversion, the base stage and the refiner stage must launch the W8A8
+    resnet once per ResnetBlock2D (17 a base call, 22 a refiner call), the
+    GroupNorm stats and finalize entries twice per W8A8 launch, the bf16
+    resnet never, and otherwise what SDXL_LAUNCHES says; every fused-resnet
+    shape a phase-3 row; the frames finite in [0, 1].  Then one int8 base
+    and refiner call timed.  Returns the launches and the refiner's
+    Generator."""
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = sdxl_int8_config()
+    times = {}
+    with gn_mode("full"):
+        inverter = timed(times, "quantize the base (inversion)",
+                         lambda: Inverter(bundle, cfg))
+        generator = timed(times, "quantize the base, build and quantize the "
+                          "refiner", lambda: Generator(bundle, cfg))
+        refiner = generator.refiner
+        run = drive_sdxl(dev, bundle, generator, times, inverter=inverter)
+        print(f"[sdxl int8] SDXL + refiner int8 (W8A8, fused resnets, "
+              f"VIDTOME_GN_MODE=full), {N_FRAMES} frames "
+              f"{SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS}+{SDXL_STEPS} DDIM "
+              f"steps, the refiner from step {generator.split_step()}; int8 "
+              f"tensors: base {len(generator.qt)}, refiner "
+              f"{len(refiner.qt)}; UNet calls: inversion "
+              f"{dict(inverter.unet_calls)}, base "
+              f"{dict(generator.unet_calls)}, refiner "
+              f"{dict(refiner.unet_calls)}")
+        check_calls("sdxl int8", run, sdxl_wants(
+            bundle, refiner, resnet="fused_resnet_w8a8"))
+        print_run("sdxl int8", run, times)
+        sdxl_call_times(dev, "sdxl int8", [
+            (f"int8 {name}", u, 8, dict(resnet_mode="fused", qt=g.qt))
+            for name, u, g in (("SDXL", bundle.unet, generator),
+                               ("refiner", refiner.bundle.unet, refiner))])
+    return run.launches, refiner
+
+
+def phase_sdxl_int8_reference(dev, bundle, refiner) -> None:
+    """One int8 SDXL call at a 16x16 latent and one int8 refiner call at a
+    32x32 latent (its 2x2 level at 16x16 would give its int8 products 8
+    rows, fewer than torch._int_mm takes), batch 2, fused resnet blocks,
+    with the stages' int8 tables: bf16 kernels on the card under
+    VIDTOME_GN_MODE=full vs fp32 plain versions on the CPU, to
+    INT8_REF_TOL."""
+    from vidtome_torch.ops.quant import QuantTable, QWeight, quantize_unet
+
+    for name, b, table, latent in (
+            ("SDXL", bundle, quantize_unet(bundle.unet), 16),
+            ("refiner", refiner.bundle, refiner.qt, 32)):
+        t0 = time.perf_counter()
+        x, ctx, pooled, ids = sdxl_unet_args("cpu", b.unet, 2, latent, 9)
+        cpu = copy.deepcopy(b.unet).to("cpu", torch.float32)
+        cpu_table = QuantTable(cpu, {
+            n: QWeight(e.weight.cpu(), e.scale.cpu(),
+                       None if e.act_scale is None else e.act_scale.cpu())
+            for n, e in table.entries.items()})
+        with torch.inference_mode(), gn_mode("full"):
+            def run(m, d, qt):
+                return m(x.to(d), 501, ctx.to(d), add_text_embeds=pooled.to(d),
+                         add_time_ids=ids.to(d), resnet_mode="fused",
+                         qt=qt).float().cpu()
+
+            before = read_launches()
+            got = run(b.unet, dev, table)
+            ran = {k: v - before[k] for k, v in read_launches().items()}
+            want = run(cpu, "cpu", cpu_table)
+            plain = run(cpu, "cpu", None)
+        del cpu, cpu_table
+        gc.collect()
+        scale = want.abs().max()
+        err = ((got - want).abs().max() / scale).item()
+        effect = ((plain - want).abs().max() / scale).item()
+        print(f"[reference] {name} weights, int8 UNet call at a "
+              f"{latent}x{latent} latent, fused resnet blocks, full "
+              f"GroupNorm: card bf16 kernels vs CPU fp32 plain max rel err "
+              f"{err:.2e} (tol {INT8_REF_TOL}); the int8 table's own effect "
+              f"on the CPU output {effect:.2e}; kernels launched on the card "
+              f"{ran}; {time.perf_counter() - t0:.1f} s")
+        if not err < INT8_REF_TOL:
+            raise AssertionError(f"{name} int8 card vs CPU rel err {err}")
+        if not (ran["fused_resnet_w8a8"] and ran["full_group_norm"]):
+            raise AssertionError("the int8 reference call ran no W8A8 resnet "
+                                 "or full GroupNorm kernel")
+
+
+def sdxl_pnp_config() -> dict:
+    """sdxl_config with PnP in the base stage (control: pnp, default.yaml's
+    pnp_attn_t 0.5 / pnp_f_t 0.8; the refiner stage runs control: none),
+    the inversion saving every step's latents, and the fused sublayer in
+    the generation (so in the refiner's too)."""
+    cfg = sdxl_config()
+    cfg["inversion"]["save_intermediate"] = True
+    cfg["generation"].update(control="pnp", pnp_attn_t=0.5, pnp_f_t=0.8,
+                             sublayer_mode="fused")
+    return cfg
+
+
+def phase_sdxl_pnp(dev, bundle) -> dict:
+    """sdxl_pnp_config: the inversion keeps every step's latents, the base
+    stage runs 3 lanes (source first, fed from them) and the refiner 2.
+    Every UNet call must launch the fused sublayer once per
+    TransformerBlock (70 a base call, 44 a refiner call), small-KV only
+    where no sublayer runs (the refiner mid block's self-attention), and
+    otherwise what SDXL_LAUNCHES says; the inversion's calls SDXL_LAUNCHES
+    (no sublayer there); every sublayer shape a phase-3 row; the frames
+    finite in [0, 1].  Then one PnP base call (3 lanes x 4 frames, both
+    injections on) and one refiner call timed."""
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = sdxl_pnp_config()
+    times = {}
+    inverter = Inverter(bundle, cfg)
+    generator = timed(times, "build the refiner",
+                      lambda: Generator(bundle, cfg))
+    refiner = generator.refiner
+    run = drive_sdxl(dev, bundle, generator, times, inverter=inverter)
+    print(f"[sdxl pnp] SDXL PnP + refiner, {N_FRAMES} frames "
+          f"{SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS}+{SDXL_STEPS} DDIM steps, "
+          f"the refiner from step {generator.split_step()}; base lanes "
+          f"{generator.num_lanes}, refiner lanes {refiner.num_lanes}; "
+          f"attention injection on {generator.pnp_attn_steps} steps, conv "
+          f"on {generator.pnp_conv_steps}; saved latents "
+          f"{len(inverter.saved)}; sublayer_mode base "
+          f"{generator.sublayer_mode}, refiner {refiner.sublayer_mode}; "
+          f"UNet calls: inversion {dict(inverter.unet_calls)}, base "
+          f"{dict(generator.unet_calls)}, refiner {dict(refiner.unet_calls)}")
+    if (generator.num_lanes, refiner.num_lanes, run.table.shape[1]) != (
+            3, 2, 2):
+        raise AssertionError("expected 3 base lanes, 2 refiner lanes, 2 "
+                             "chunks")
+    check_calls("sdxl pnp", run, sdxl_wants(bundle, refiner, sublayer=True))
+    print_run("sdxl pnp", run, times)
+    pnp = dict(sublayer_mode="fused", attn_inject=True, conv_inject=True,
+               num_lanes=3)
+    sdxl_call_times(dev, "sdxl pnp", [
+        ("PnP SDXL", bundle.unet, 12, pnp),
+        ("PnP-stage refiner", refiner.bundle.unet, 8,
+         dict(sublayer_mode="fused"))])
+    return run.launches
+
+
+def phase_sdxl_pnp_reference(dev, bundle) -> None:
+    """One SDXL call at a 16x16 latent with 3 lanes, both PnP injections
+    on and sublayer_mode="fused": bf16 kernels on the card vs fp32 plain
+    versions on the CPU, to REF_TOL; the injections off must differ by
+    more than REF_TOL."""
+    t0 = time.perf_counter()
+    x, ctx, pooled, ids = sdxl_unet_args("cpu", bundle.unet, 3, 16, 10)
+    cpu = copy.deepcopy(bundle.unet).to("cpu", torch.float32)
+    with torch.inference_mode():
+        def run(m, d, inject):
+            return m(x.to(d), 501, ctx.to(d), add_text_embeds=pooled.to(d),
+                     add_time_ids=ids.to(d), sublayer_mode="fused",
+                     attn_inject=inject, conv_inject=inject,
+                     num_lanes=3).float().cpu()
+
+        before = read_launches()
+        got = run(bundle.unet, dev, True)
+        ran = {k: v - before[k] for k, v in read_launches().items()}
+        want = run(cpu, "cpu", True)
+        off = run(cpu, "cpu", False)
+    del cpu
+    gc.collect()
+    scale = want.abs().max()
+    err = ((got - want).abs().max() / scale).item()
+    gap = ((off - want).abs().max() / scale).item()
+    print(f"[reference] SDXL weights, PnP UNet call at a 16x16 latent, 3 "
+          f"lanes, injections on, sublayer fused: card bf16 kernels vs CPU "
+          f"fp32 plain max rel err {err:.2e} (tol {REF_TOL}); injections off "
+          f"vs on {gap:.2e} (must exceed {REF_TOL}); kernels launched on the "
+          f"card {ran}; {time.perf_counter() - t0:.1f} s")
+    if not err < REF_TOL:
+        raise AssertionError(f"SDXL PnP card vs CPU reference rel err {err}")
+    if not gap > REF_TOL:
+        raise AssertionError(f"PnP injections change the output by only "
+                             f"{gap}")
+    if not ran["fused_cross_sublayer"]:
+        raise AssertionError("the reference call ran no sublayer kernel")
+
+
+def sdxl_serve_config() -> dict:
+    """sdxl_config with bench.py's SDXL serve sidecar keys: its generation
+    keys with SERVE_PROFILES["maxe3xbs"] (bench.py:168: the deep, CFG and
+    eps step caches, linear eps extrapolation, local 0.95 / global 0.9
+    merging, fused resnet blocks and fused sublayers), which the refiner's
+    copy of the config carries too."""
+    cfg = sdxl_config()
+    cfg["generation"].update(
+        cache_schedule="full:6,uniform:12", cfg_schedule="full:6,uniform:6",
+        eps_schedule="full:6,uniform:3", eps_extrapolate=True,
+        local_merge_ratio=0.95, global_merge_ratio=0.9, resnet_mode="fused",
+        sublayer_mode="fused")
+    return cfg
+
+
+def phase_sdxl_serving(dev, bundle, inverted) -> dict:
+    """sdxl_serve_config's generation from phase 17's inverted latents
+    (bench.py's sidecar serves from them): the UNet calls per kind (full,
+    shallow, CFG skip, eps skip) of both stages must match their mode
+    tables, and every call must launch what its kind gives (sdxl_call_want:
+    the bf16 fused resnet once a ResnetBlock2D, the sublayer once a
+    TransformerBlock in a full call); every fused-resnet and sublayer shape
+    a phase-3 row; the frames finite in [0, 1].  Then one serving base and
+    refiner call timed."""
+    from vidtome_torch.pipeline.generator import Generator
+
+    cfg = sdxl_serve_config()
+    times = {}
+    generator = timed(times, "build the refiner",
+                      lambda: Generator(bundle, cfg))
+    refiner = generator.refiner
+    run = drive_sdxl(dev, bundle, generator, times, inverted=inverted)
+    split, n_chunks = generator.split_step(), run.table.shape[1]
+    stages = {"SDXL": (generator, generator.mode_masks(), 0, split),
+              "refiner": (refiner, refiner.mode_masks(split), split,
+                          SDXL_STEPS)}
+    wants, got_calls, want_calls = {}, {}, {}
+    for path, (gen, modes, start, stop) in stages.items():
+        unet = gen.bundle.unet
+        # the kind of each UNet call: a step that runs, n_chunks calls
+        wants[path] = [
+            (sdxl_call_want(unet, kind, "fused_resnet", sublayer=True),
+             (1, 2) if kind == "full" else (0,))
+            for i in range(start, stop) if modes[i, 2]
+            for kind in ("full" if modes[i, 0] else "shallow",) * n_chunks]
+        want_calls[path] = expected_calls(modes[start:stop], n_chunks,
+                                          cfg=True)
+        got_calls[path] = {k: v for k, v in gen.unet_calls.items() if v}
+    print(f"[sdxl serve] SDXL + refiner, bench.py's SDXL serve sidecar keys "
+          f"(maxe3xbs), {N_FRAMES} frames {SDXL_SIZE}x{SDXL_SIZE}, "
+          f"{SDXL_STEPS} DDIM steps, the refiner from step {split}; UNet "
+          f"calls {got_calls} (mode tables {want_calls})")
+    if got_calls != want_calls:
+        raise AssertionError("UNet calls per kind differ from the mode "
+                             "tables")
+    if not all(k in got_calls["SDXL"] for k in ("full", "shallow",
+                                                "cfg_skip", "eps_skip")):
+        raise AssertionError(f"the serving base stage ran no step of some "
+                             f"kind: {got_calls['SDXL']}")
+    check_calls("sdxl serve", run, wants)
+    print_run("sdxl serve", run, times)
+    fused = dict(resnet_mode="fused", sublayer_mode="fused")
+    sdxl_call_times(dev, "sdxl serve", [
+        ("serving SDXL", bundle.unet, 8, fused),
+        ("serving refiner", refiner.bundle.unet, 8, fused)])
+    return run.launches
+
+
+def phase_sdxl_lora(dev, bundle, inverted) -> dict:
+    """sdxl_config with a synthetic kohya LoRA (write_lora: every attention
+    projection, resnet conv and time_emb_proj of the UNet and the q/k/v/out
+    projections of both text encoders) merged on load: the generation
+    without the adapter, then a Generator with use_lora merges it into the
+    base and offers it to its refiner (as the JAX package's copied config
+    does) and generates from the same latents.  The merged counts per
+    namespace must be the file's targets (the refiner's printed: its UNet
+    and encoder take the pairs whose names and shapes fit, its te2 pairs
+    are warned about); a probe weight of each namespace must be W + delta
+    within two bf16 roundings; the context and the pooled embeds must
+    differ from the plain ones; each UNet call of the plain generation
+    must launch what the topology gives, each of the LoRA generation what
+    the plain generation's call at the same index did; the frames must
+    differ.  The base bundle keeps the LoRA: run this phase last."""
+    import contextlib
+    import io
+    import re
+
+    from vidtome_torch.pipeline.generator import Generator
+
+    probes = {("lora_unet_", LORA_PROBE),
+              ("lora_te1_", "text_model.encoder.layers.0.self_attn.q_proj"),
+              ("lora_te2_", "text_model.encoder.layers.0.self_attn.q_proj")}
+    times = {}
+    targets = collections.Counter(p for p, _, _ in lora_targets(bundle))
+    with tempfile.TemporaryDirectory() as work_dir:
+        path = os.path.join(work_dir, "lora.safetensors")
+        deltas = timed(times, "write the LoRA",
+                       lambda: write_lora(bundle, path, probes=probes))
+        saved = {m: m.weight.detach().clone() for m in deltas}
+        cfg_lora = sdxl_config()
+        cfg_lora["generation"].update(use_lora=True,
+                                      lora={"path": path, "weight": 1.0})
+        plain = Generator(bundle, sdxl_config())
+        prompt = next(iter(plain.prompt.values()))
+        ctx_plain = plain.context(prompt)
+        plain_times = {}
+        plain_run = drive_sdxl(dev, bundle, plain, plain_times,
+                               inverted=inverted)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            generator = timed(times, "merge (base and refiner)",
+                              lambda: Generator(bundle, cfg_lora))
+        print(log.getvalue(), end="")
+        ctx_lora = generator.context(prompt)
+        run = drive_sdxl(dev, bundle, generator, times, inverted=inverted)
+    merged = [(m[1], int(m[2])) for m in re.finditer(
+        r"LoRA\[(\w+)\]: merged (\d+) modules", log.getvalue())]
+    want_merged = [("unet", targets["lora_unet_"]),
+                   ("text_encoder", targets["lora_te1_"]),
+                   ("text_encoder_2", targets["lora_te2_"])]
+    excess = []
+    for mod, delta in deltas.items():
+        want = saved[mod].float() + delta
+        tol = 2.0 ** -8 * (delta.abs() + want.abs())
+        excess.append(((mod.weight.detach().float() - want).abs()
+                       - tol).max().item())
+    moved = [((a - b).abs().max() / b.abs().max()).item()
+             for a, b in zip(ctx_lora[:2], ctx_plain[:2])]
+    diff = (run.out.float() - plain_run.out.float()).abs().max().item()
+    print(f"[sdxl lora] SDXL + refiner with a synthetic kohya LoRA (rank "
+          f"{LORA_RANK}, alpha {LORA_ALPHA}; targets {dict(targets)}), "
+          f"{N_FRAMES} frames {SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS} DDIM "
+          f"steps, the refiner from step {generator.split_step()}; merged "
+          f"{merged} (base want {want_merged}); the refiner's bundle holds "
+          f"{generator.refiner.bundle.lora}")
+    print(f"[sdxl lora] probes (UNet {LORA_PROBE}, both encoders' layer 0 "
+          f"q_proj): largest excess of |merged - (W + delta)| over two bf16 "
+          f"roundings {max(excess):.3e} (must be <= 0); context and pooled "
+          f"embeds moved by {moved} of max |plain| (must exceed 1e-3); "
+          f"frames with vs without the LoRA max |diff| {diff:.4f}; the plain "
+          f"generation's stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in plain_times.items()))
+    if merged[:3] != want_merged:
+        raise AssertionError(f"merged {merged[:3]}, want {want_merged}")
+    if "text_encoder_2 tensors but the model has a single" not in (
+            log.getvalue()):
+        raise AssertionError("the refiner did not warn about the te2 pairs")
+    if len(excess) != len(probes) or not max(excess) <= 0:
+        raise AssertionError(f"LoRA merge off W + delta at the probes: "
+                             f"{excess}")
+    if not min(moved) > 1e-3:
+        raise AssertionError(f"the LoRA moves the text embeddings by {moved}")
+    check_calls("sdxl lora plain", plain_run,
+                sdxl_wants(bundle, generator.refiner, inversion=False))
+    check_calls("sdxl lora", run, {
+        p: [({k: v for k, v in c.items() if k != "best_match"},
+             (c["best_match"],)) for c in cs]
+        for p, cs in plain_run.calls.items()})
+    if not diff > 0.05:
+        raise AssertionError("the LoRA does not change the edit")
+    print_run("sdxl lora", run, times)
+    return {k: v + plain_run.launches[k] for k, v in run.launches.items()}
+
+
 def write_cli_inputs(out_dir: str) -> None:
     """Inputs of the CLI runs of this slice's configs on data/demo.mp4
     (neither data/flamingo.mp4 nor data/breakdance.mp4 is shipped):
@@ -2922,6 +3565,7 @@ def write_cli_inputs(out_dir: str) -> None:
 
 
 def main(argv: list[str]) -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3018,13 +3662,35 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     print(f"[sdxl] SDXL random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s")
-    sdxl, refiner = phase_sdxl(dev, bundle)
+    sdxl, refiner, inverted = phase_sdxl(dev, bundle)
     torch.cuda.synchronize()
-    phase_sdxl_calls(dev, bundle, refiner)
+    sdxl_call_times(dev, "sdxl", [("SDXL", bundle.unet, 8, {}),
+                                  ("refiner", refiner.unet, 8, {})])
     torch.cuda.synchronize()
     phase_sdxl_reference(dev, bundle, refiner)
+    del refiner
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdxl_int8, refiner = phase_sdxl_int8(dev, bundle)
     torch.cuda.synchronize()
-    for path in (exact, int8, controlnet, lora, pnp, depth, sdxl):
+    phase_sdxl_int8_reference(dev, bundle, refiner)
+    del refiner
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdxl_pnp = phase_sdxl_pnp(dev, bundle)
+    torch.cuda.synchronize()
+    phase_sdxl_pnp_reference(dev, bundle)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdxl_serve = phase_sdxl_serving(dev, bundle, inverted)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdxl_lora = phase_sdxl_lora(dev, bundle, inverted)
+    torch.cuda.synchronize()
+    print(f"[main] chip_smoke.py's phases {time.perf_counter() - start:.1f} s "
+          f"(the builds included)")
+    for path in (exact, int8, controlnet, lora, pnp, depth, sdxl, sdxl_int8,
+                 sdxl_pnp, sdxl_serve, sdxl_lora):
         launches = {k: launches[k] + path[k] for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

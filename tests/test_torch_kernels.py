@@ -226,6 +226,11 @@ def _resnet_args(rng, cuda, B, H, W, Ci, Co):
     (1, 13, 21, 64, 64),      # ragged tiles on both image axes
     (8, 8, 8, 1280, 1280),    # SD1.5 8x8 level: one 8x8 tile an image
     (8, 16, 16, 2560, 1280),  # up block 1, skip-concat width
+    # the SDXL refiner's widths: 36- and 12-channel groups, Co = 384 and
+    # 768 not a multiple of 160
+    (2, 32, 32, 1152, 384),
+    (2, 16, 16, 384, 768),
+    (2, 16, 16, 3072, 1536),
 ])
 def test_fused_resnet_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     rng = np.random.default_rng(5)
@@ -606,6 +611,15 @@ def _sublayer_args(rng, cuda, B, S, C, skv):
     (8, 256, 1280, 8, 77, 77),      # SD1.5 level 2: D = 160
     (8, 64, 1280, 8, 77, 77),       # SD1.5 mid block: D = 160
     (2, 70, 1280, 8, 128, 100),     # 128 padded keys, 100 valid, D = 160
+    (8, 4096, 640, 10, 77, 77),     # SDXL level 1: two ranks of 5 heads
+    (8, 1024, 1280, 20, 77, 77),    # SDXL level 2 and mid: four ranks
+    (8, 4096, 768, 8, 77, 77),      # SDXL refiner level 1: D = 96, four
+    (8, 1024, 1536, 16, 77, 77),    # ranks of 2; level 2: eight ranks
+    (8, 256, 1536, 16, 77, 77),     # refiner mid block
+    (2, 100, 768, 8, 128, 100),     # D = 96, 128 padded keys
+    (8, 4096, 768, 12, 77, 77),     # 12 heads of 64: four ranks of 3
+    (8, 1024, 1536, 24, 77, 77),    # 24 heads of 64: eight ranks of 3
+    (2, 100, 768, 12, 128, 100),    # three heads a rank, 128 padded keys
 ])
 def test_fused_sublayer_kernel_matches_plain(cuda, B, S, C, heads, skv,
                                              kv_len):
@@ -717,6 +731,11 @@ def _w8a8_args(rng, cuda, B, H, W, Ci, Co, spike=False):
     (2, 16, 16, 320, 96),
     # one ragged chunk (96 of 128 channels), Co = 224 past the N tile
     (3, 16, 24, 96, 224),
+    # the SDXL refiner's widths: 384 = 320 + 64 output channels, 36- and
+    # 12-channel groups
+    (2, 32, 32, 1152, 384),
+    (2, 16, 16, 384, 768),
+    (2, 16, 16, 3072, 1536),
 ])
 def test_fused_resnet_w8a8_kernel_matches_plain(cuda, B, H, W, Ci, Co):
     args, kw = _w8a8_args(np.random.default_rng(12), cuda, B, H, W, Ci, Co)

@@ -47,6 +47,21 @@ SD15 = sorted({(8, s, s, ci, co) for s, ci, co in [
     (16, 1920, 1280), (32, 1920, 640), (32, 1280, 640), (32, 960, 640),
     (64, 960, 320), (64, 640, 320)] for ci in (ci, co)})
 
+# the ResnetBlock2D shapes of chip_smoke.py's SDXL phases (sdxl_block_rows:
+# an SDXL call at batch 4 and 8, a refiner call at batch 8), (B, H, W, Ci,
+# Co): the refiner's 384 / 768 / 1536 output channels are no multiple of
+# 160 or 320, its groups 12, 24 or 48 channels wide
+SDXL = sorted({(B, s, s, ci, co) for B in (4, 8) for s, ci, co in [
+    (128, 320, 320), (128, 640, 320), (128, 960, 320), (64, 320, 640),
+    (64, 640, 640), (64, 960, 640), (64, 1280, 640), (64, 1920, 640),
+    (32, 640, 1280), (32, 1280, 1280), (32, 1920, 1280), (32, 2560, 1280)]}
+              | {(8, s, s, ci, co) for s, ci, co in [
+                  (128, 384, 384), (128, 768, 384), (128, 1152, 384),
+                  (64, 384, 768), (64, 768, 768), (64, 1152, 768),
+                  (64, 1536, 768), (64, 2304, 768), (32, 768, 1536),
+                  (32, 1536, 1536), (32, 2304, 1536), (32, 3072, 1536),
+                  (16, 1536, 1536), (16, 3072, 1536)]})
+
 
 def test_phase3_rows_are_the_pinned_ones():
     assert set(PHASE3) == set(chip_smoke.RESNET_SHAPES)
@@ -86,6 +101,29 @@ def test_plan_at_sd15_blocks(shape):
     assert plan.smem <= SMEM_BLOCK
     if wgs == 1:  # two blocks of one warpgroup share an SM
         assert 2 * (plan.smem + 1024) <= SMEM_SM
+
+
+def test_sdxl_rows_are_the_pinned_ones():
+    assert set(chip_smoke.sdxl_block_rows()[0]) == set(SDXL)
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["bf16", "w8a8"])
+@pytest.mark.parametrize("shape", SDXL)
+def test_plan_at_sdxl_blocks(shape, w8a8):
+    """Both convolutions of every SDXL and refiner block: the grid covers
+    the output channels (the last block ragged at 384, 768 and 1536), fills
+    a wave, and fits a block's shared memory; the channels meet the
+    wrappers' alignment and split into the 32 groups."""
+    B, H, W, Ci, Co = shape
+    make = t_res.conv_plan_w8a8 if w8a8 else t_res.conv_plan
+    assert Ci % 32 == 0 and Co % 32 == 0  # the W8A8 wrapper's rule
+    for cin in (Ci, Co):
+        plan = make(B, H, W, cin, Co)
+        assert plan.grid == (plan.tiles, -(-Co // plan.block_n), B)
+        assert plan.tiles == -(-H // plan.tile_h) * -(-W // plan.tile_w)
+        assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= SMS
+        assert plan.smem <= SMEM_BLOCK
+        assert plan.block_n * (plan.grid[1] - 1) < Co
 
 
 @pytest.mark.parametrize("B,H,W,Ci,Co,want", [

@@ -36,6 +36,7 @@ from vidtome_torch.models import unet as t_unet
 from vidtome_torch.models.registry import (SD_CONFIGS, SD_MODEL_KEYS,
                                            init_model)
 from vidtome_torch.models.tome import DrawSource
+from vidtome_torch.ops.quant import quantize_unet
 from vidtome_torch.pipeline.common import TextEncoder as TText
 from vidtome_torch.pipeline.generator import Generator as TGen
 from vidtome_torch.pipeline.inverter import Inverter as TInv
@@ -121,16 +122,18 @@ def bundles():
     return jb, jr
 
 
-def jax_edits(jb, cfg, inverted, base: bool) -> dict:
+def jax_edits(jb, cfg, inverted, base: bool,
+              latents_dir: str | None = None) -> dict:
     """The JAX generator's two-stage frames (and, with ``base``, the base
     model's alone over all steps: the same executable, blocks of 2
-    steps)."""
+    steps); PnP reads the saved inversion latents under ``latents_dir``."""
     from vidtome_tpu.pipeline.generator import Generator as JGen
 
     jgen = JGen(jb, Config({**cfg, "generation": {
         **cfg.generation, "steps_per_block": 2}}))
     jgen.configure_frames(N_FRAMES)
     jgen.depth = jgen.control_images = None
+    jgen.latents_dir, jgen.frame_ids = latents_dir, list(range(N_FRAMES))
     jgen.init_noise = jnp.asarray(inverted, jb.dtype)[jgen.pad_src]
     context = jgen._build_context(PROMPT)
     clean = {"two_stage": jgen._sample_with_refiner(PROMPT, context)}
@@ -160,19 +163,29 @@ def jax_run(bundles, tmp_path_factory):
                  "refiner_caches": caches["two_stage"]}
 
 
-def port_sample(tb, bundles, cfg, inverted):
+def port_sample(tb, bundles, cfg, inverted, src: dict | None = None):
     """The port's frames from inversion latents [T, h, w, 4], with the
-    JAX package's merge draws; a refiner stage takes the JAX refiner's
-    weights."""
+    JAX package's merge draws (PnP: the source table from ``src``,
+    {timestep: latents}); a refiner stage takes the JAX refiner's weights,
+    and an int8 refiner its int8 table of them."""
     gen = TGen(tb, cfg)
-    if gen.refiner is not None:
-        load_jax_weights(gen.refiner.bundle, bundles[1])
+    r = gen.refiner
+    if r is not None:
+        load_jax_weights(r.bundle, bundles[1])
+        if r.qt is not None:
+            r.qt = quantize_unet(r.bundle.unet)
     gen.configure_frames(N_FRAMES)
     table = gen.fidx_table()
     assert table.shape[1] == 2
-    x0 = torch.tensor(np.asarray(inverted))[torch.as_tensor(gen.pad_src)]
+    pad = torch.as_tensor(gen.pad_src)
+    inputs = {}
+    if src is not None:
+        inputs["src_table"] = torch.stack(
+            [src[int(t)] for t in gen.scheduler.timesteps])[:, pad]
+    x0 = torch.tensor(np.asarray(inverted))[pad]
     clean = gen.sample(x0, PROMPT, fidx_table=table,
-                       draws=DrawSource(jax_draw_table(123, STEPS, 2, 4, 4)))
+                       draws=DrawSource(jax_draw_table(123, STEPS, 2, 4, 4)),
+                       **inputs)
     return to_np(gen.vae.decode(clean[:N_FRAMES])), gen
 
 
@@ -345,17 +358,6 @@ def test_inverter_refuses_a_refiner(bundles):
         TInv(tr, config())
 
 
-@pytest.mark.parametrize("stage,key,value", [
-    ("generation", "control", "pnp"), ("generation", "quant", "int8"),
-    ("inversion", "quant", "int8"), ("generation", "use_lora", True)])
-def test_unported_options_on_sdxl_refused(bundles, stage, key, value):
-    tb = port_bundle_from_jax(bundles[0])
-    cfg = config()
-    cfg[stage][key] = value
-    with pytest.raises(NotImplementedError, match=key):
-        (TInv if stage == "inversion" else TGen)(tb, cfg)
-
-
 def test_cli_sdxl_stages_on_cpu(bundles, tmp_path):
     """The CLI's stages on the tiny SDXL bundle with a (random) tiny
     refiner: the latents under the bundle's model key, the per-frame
@@ -379,3 +381,31 @@ def test_cli_sdxl_stages_on_cpu(bundles, tmp_path):
     assert out["edit"].shape == (N_FRAMES, 64, 64, 3)
     assert torch.isfinite(out["edit"]).all()
     assert (tmp_path / "out" / "edit" / "frames" / "0007.png").exists()
+
+
+@pytest.mark.parametrize("mode", ["pnp", "int8"])
+def test_cli_sdxl_modes_on_cpu(bundles, tmp_path, mode):
+    """The CLI's stages on the tiny SDXL bundle with PnP (the inversion
+    writes the latents of every step, the generation reads them as its
+    source lane) or with int8 in both stages."""
+    from tests.helpers import make_tiny_video
+    from vidtome_torch import cli
+
+    gene = ({"control": "pnp"} if mode == "pnp"
+            else {"quant": "int8", "guidance_scale": 1.0})
+    cfg = config(latents_path=str(tmp_path / "latents"),
+                 output_path=str(tmp_path / "out"), frame_range=[N_FRAMES],
+                 batch_size=2, **gene)
+    cfg["input_path"] = make_tiny_video(str(tmp_path / "video"),
+                                        n_frames=N_FRAMES)
+    cfg.inversion.update(save_path=str(tmp_path / "latents"),
+                         save_intermediate=mode == "pnp",
+                         quant="int8" if mode == "int8" else "none")
+    tb = port_bundle_from_jax(bundles[0])
+    cli.run_inversion(cfg, tb)
+    saved = sorted((tmp_path / "latents" / "tiny-xl").glob("noisy_latents_*"))
+    assert len(saved) == (STEPS if mode == "pnp" else 1)
+    out = cli.run_generation(cfg, tb)
+    assert out["edit"].shape == (N_FRAMES, 64, 64, 3)
+    assert torch.isfinite(out["edit"]).all()
+    assert (tmp_path / "out" / "edit").is_dir()

@@ -27,7 +27,14 @@ SD15 = [(8, 4096, 320, 8), (8, 1024, 640, 8), (8, 256, 1280, 8),
         (8, 64, 1280, 8)]
 TEST_WIDTHS = [(2, S, C, heads) for S in (1, 100)
                for C, heads in ((64, 4), (128, 2), (160, 4), (640, 8))]
-ROWS = SD21 + SD15 + TEST_WIDTHS
+# SDXL (D = 64: 10 and 20 heads) under PnP (batch 12) and CFG (batch 8),
+# its refiner as configured here (D = 96: 8 and 16 heads) and the
+# refiner's widths at D = 64 (12 and 24 heads)
+SDXL = [(12, 4096, 640, 10), (12, 1024, 1280, 20), (8, 4096, 640, 10),
+        (8, 1024, 1280, 20), (8, 4096, 768, 8), (8, 1024, 1536, 16),
+        (8, 256, 1536, 16), (8, 4096, 768, 12), (8, 1024, 1536, 24),
+        (8, 256, 1536, 24)]
+ROWS = SD21 + SD15 + TEST_WIDTHS + SDXL
 
 
 def test_plan_sd21_rows():
@@ -38,6 +45,20 @@ def test_plan_sd21_rows():
     assert [p.grid[0] * p.grid[1] for p in plans] == [768, 384, 192, 48]
     for p in plans:
         assert (p.width, p.heads_rank, p.head_dim, p.kvp) == (320, 5, 64, 80)
+
+
+@pytest.mark.parametrize("C,heads,cluster,heads_rank", [
+    (640, 10, 2, 5), (1280, 20, 4, 5), (768, 12, 4, 3), (1536, 24, 8, 3),
+    (768, 8, 4, 2), (1536, 16, 8, 2)])
+def test_plan_takes_sdxl_and_refiner_widths(C, heads, cluster, heads_rank):
+    """Every SDXL and refiner width at 77 keys: 12 and 24 heads of 64 split
+    into three a rank (clusters of 1, 2, 4 or 8 cannot split them into two
+    or five), the refiner's 8 and 16 heads of 96 into two."""
+    for B, S in ((4, 4096), (8, 1024), (12, 256)):
+        p = t_sub.plan(B, S, C, heads, 77, 77)
+        assert (p.cluster, p.heads_rank, p.head_dim) == (
+            cluster, heads_rank, C // heads)
+        assert p.smem <= t_sub.SMEM_LIMIT and p.kvp == 80
 
 
 @pytest.mark.parametrize("B,S,C,heads", ROWS)

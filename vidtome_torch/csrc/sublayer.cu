@@ -30,12 +30,13 @@
 //  * work unit: a 64-row tile of one batch element, split by whole heads
 //    over a thread-block cluster of n = 1, 2, 4 or 8 blocks: rank r owns
 //    columns [r W, (r + 1) W), W = C / n = HR heads of D (at most 320
-//    columns; 320 at every SD1.5 / SD2.1 UNet width).  A block's shared
-//    memory and registers do not grow with C, and the grid does: 48 blocks
-//    at SD2.1's mid block where one block a tile gave 24.  The instance is
-//    (D, HR, KCH, NCK); ops/sublayer.plan picks n by the grid's waves (the
-//    C entry vidtome_sublayer_clusters counts the clusters the card holds
-//    at once);
+//    columns; 320 at every SD1.5 / SD2.1 / SDXL UNet width, 192 at 12
+//    or 24 heads of 64 and at the SDXL refiner's 8 or 16 heads of 96).  A
+//    block's shared memory and registers do not grow with C, and the grid
+//    does: 48 blocks at SD2.1's mid block where one block a tile gave 24.
+//    The instance is (D, HR, KCH, NCK); ops/sublayer.plan picks n by the
+//    grid's waves (the C entry vidtome_sublayer_clusters counts the
+//    clusters the card holds at once);
 //  * block: two consumer warpgroups and one producer warpgroup, of which
 //    one thread issues the TMA copies, then hands its registers over
 //    (setmaxnreg: 40 a producer thread, 232 a consumer).  The consumers
@@ -1041,8 +1042,9 @@ int clusters(int n, int smem) {
 // The instances, as ops/sublayer.INSTANCES and CHUNKS: (D, HR, KCH), each
 // for 80 and 128 padded keys (NCK 5 and 8).
 #define VT_SUBLAYER_INSTANCES(X)                                           \
-  X(16, 4, 64) X(40, 4, 32) X(40, 8, 64) X(64, 2, 64) X(64, 5, 64)         \
-  X(80, 2, 32) X(80, 4, 64) X(160, 1, 32) X(160, 2, 32)
+  X(16, 4, 64) X(40, 4, 32) X(40, 8, 64) X(64, 2, 64) X(64, 3, 64)         \
+  X(64, 5, 64) X(80, 2, 32) X(80, 4, 64) X(96, 2, 64) X(160, 1, 32)        \
+  X(160, 2, 32)
 
 }  // namespace
 

@@ -18,8 +18,14 @@ Key formats, as in the JAX package:
     ``text_encoder.<dotted>``, ``text_encoder_2.<dotted>``, or
     ``base_model.model.<dotted>`` for the UNet.
 The dotted names are diffusers' for the UNet and transformers'
-(``text_model.encoder.layers.N...``) for the text encoder: the port's
-modules carry both, so a name is looked up as it stands.
+(``text_model.encoder.layers.N...``) for the text encoders: the port's
+modules carry both, so a name is looked up as it stands.  The ``te2``
+namespace goes into SDXL's second encoder (``bundle.text_encoder_2``); a
+bundle with one encoder (SD1.x / 2.x, the SDXL refiner, whose one encoder
+is bigG) skips it with a warning, as the JAX package does.  A pair whose
+module is missing or of another shape is skipped and counted; the log
+gives the shapes in the JAX package's kernel layout (dense [in, out], conv
+[kh, kw, in, out]), so that its lines read as the reference's.
 """
 
 from __future__ import annotations
@@ -115,6 +121,16 @@ def _delta(entry: dict, scale: float) -> torch.Tensor | None:
     return w * (scale * alpha / rank)
 
 
+def _jax_layout(shape) -> tuple[int, ...]:
+    """A torch weight shape in the JAX package's kernel layout: [out, in]
+    -> (in, out), OIHW -> (H, W, I, O)."""
+    shape = tuple(shape)
+    if len(shape) == 4:
+        o, i, h, w = shape
+        return (h, w, i, o)
+    return shape[::-1]
+
+
 def _merge_pairs(root: nn.Module, pairs: dict[str, dict], scale: float,
                  label: str) -> int:
     """Add each pair's delta to the weight of the Linear or conv it names
@@ -134,8 +150,8 @@ def _merge_pairs(root: nn.Module, pairs: dict[str, dict], scale: float,
             continue
         weight = module.weight
         if tuple(weight.shape) != tuple(delta.shape):
-            skipped.append(f"{dotted} (shape {tuple(delta.shape)} vs "
-                           f"{tuple(weight.shape)})")
+            skipped.append(f"{dotted} (shape {_jax_layout(delta.shape)} vs "
+                           f"{_jax_layout(weight.shape)})")
             continue
         with torch.no_grad():
             weight.add_(delta.to(weight.device, weight.dtype))
@@ -168,7 +184,7 @@ def apply_lora_bundle(bundle, lora_cfg: dict) -> None:
     """Merge the LoRA of the config's ``generation.lora`` section
     (``{path: file.safetensors, weight: 1.0}``; a local safetensors file,
     where the reference takes HF-hub arguments) into the bundle's UNet and
-    text encoder, in place, once: the bundle records the adapter
+    text encoders, in place, once: the bundle records the adapter
     (``ModelBundle.lora``), the same adapter again merges nothing, and
     another one raises."""
     path = lora_cfg.get("path") or lora_cfg.get("weight_name")
@@ -184,12 +200,18 @@ def apply_lora_bundle(bundle, lora_cfg: dict) -> None:
         raise ValueError(f"the bundle holds the LoRA {bundle.lora[0]} at "
                          f"scale {bundle.lora[1]}; merging {path} at scale "
                          f"{scale} needs a fresh bundle (init_model)")
-    pairs = _collect_pairs(load_file(path))
+    # in name order, as the JAX package's reader (safe_open) lists them,
+    # so that both log the same skipped examples
+    pairs = _collect_pairs(dict(sorted(load_file(path).items())))
     if pairs["unet"]:
         _merge_pairs(bundle.unet, pairs["unet"], scale, "unet")
     if pairs["te"]:
         _merge_pairs(bundle.text_encoder, pairs["te"], scale, "text_encoder")
     if pairs["te2"]:
-        print("[WARNING] LoRA has text_encoder_2 tensors but the model has "
-              "a single text encoder — skipped")
+        if bundle.text_encoder_2 is None:
+            print("[WARNING] LoRA has text_encoder_2 tensors but the model "
+                  "has a single text encoder — skipped")
+        else:
+            _merge_pairs(bundle.text_encoder_2, pairs["te2"], scale,
+                         "text_encoder_2")
     bundle.lora = adapter

@@ -54,11 +54,14 @@ MAX_WIDTH = 320      # columns a cluster rank owns at most
 MAX_STAGES = 4
 CLUSTERS = (1, 2, 4, 8)
 # (head dim, heads a cluster rank) of the kernel's instances (csrc/
-# sublayer.cu VT_SUBLAYER_INSTANCES): SD2.1's D = 64 at five heads a rank,
-# SD1.5's 40 / 80 / 160 at 8 / 4 / 2 (320 columns), narrower ranks for
-# the planner, and the test widths
-INSTANCES = ((16, 4), (40, 4), (40, 8), (64, 2), (64, 5), (80, 2), (80, 4),
-             (160, 1), (160, 2))
+# sublayer.cu VT_SUBLAYER_INSTANCES): D = 64 at five heads a rank (SD2.1,
+# SDXL's 10 and 20 heads) and at three (12 and 24 heads of 64 at 768 and
+# 1536 channels, over clusters of 4 and 8), D = 96 at two (the SDXL
+# refiner as configured here: 8 and 16 heads of 96, clusters of 4 and 8),
+# SD1.5's 40 / 80 / 160 at 8 / 4 / 2 (320 columns), narrower ranks for the
+# planner, and the test widths
+INSTANCES = ((16, 4), (40, 4), (40, 8), (64, 2), (64, 3), (64, 5), (80, 2),
+             (80, 4), (96, 2), (160, 1), (160, 2))
 # columns of C a ring item takes (64: rows of 128 bytes, which TMA reads
 # from L2 at about twice the rate of 64-byte rows); 32 where a rank's
 # columns are not whole 64-column chunks or 64 does not fit

@@ -114,26 +114,6 @@ def reject_unported(section: str, stage_cfg, config) -> None:
                 f"(ROADMAP.md, queue 1)")
 
 
-def reject_unported_xl(section: str, stage_cfg, config,
-                       bundle: ModelBundle) -> None:
-    """Raise NotImplementedError where a stage on an SDXL-family bundle
-    turns on int8, or generation PnP or a LoRA: the port runs each on the
-    other versions, not yet on SDXL's (ROADMAP.md, queue 1).  A ControlNet
-    is refused there by ``init_model``."""
-    if not bundle.needs_pooled:
-        return
-    found = {"quant": parse_quant(stage_cfg, config)}
-    if section == "generation":
-        found.update(control=str(stage_cfg.get("control", "none")),
-                     use_lora=bool(stage_cfg.get("use_lora", False)))
-    for key, value in found.items():
-        if value not in ("none", False):
-            raise NotImplementedError(
-                f"{section}.{key}={value!r} on sd_version "
-                f"{bundle.sd_version!r} is not ported to vidtome_torch yet "
-                f"(ROADMAP.md, queue 1)")
-
-
 def get_frame_ids(frame_range, frame_ids=None) -> list[int]:
     """[start, end, step] / [end] / explicit ids (reference
     utils/utils.py:298-309)."""
@@ -177,8 +157,9 @@ def parse_quant(stage_cfg, config) -> str:
 
 def stage_quant_table(quant: str, bundle: ModelBundle, stage: str):
     """The stage's int8 UNet table (None for ``quant: none``), built once
-    from the bundle's weights, which stay as they are: the two stages share
-    the bundle and may run different modes."""
+    from the weights of the bundle the stage runs, which stay as they are:
+    the two stages share the bundle and may run different modes, and an
+    SDXL refiner's Generator builds the table of the refiner's bundle."""
     if quant == "none":
         return None
     table = quant_ops.quantize_unet(bundle.unet)

@@ -50,16 +50,20 @@ SDXL (``sd_version: xl``, JAX ``generator.py:404-437``, ``:465-525``,
 ``:1040-1082``): the lane contexts come with each lane's pooled embed and
 time ids [h, w, 0, 0, h, w], repeated per frame as the contexts are; a
 ``refiner`` sub-config builds a second Generator on an ``xl-refiner``
-bundle (no control, no refiner of its own; random weights, seed 0,
-without its ``model_key``), and :meth:`Generator.sample`
-runs the base for the first ``denoising_start`` share of the steps and the
-refiner for the rest, from the same chunk schedule and draws at the same
-global step indices (its step caches rebuilt from its first step,
-:meth:`Generator.mode_masks`); the refiner's 5 time ids carry the
-aesthetic score, the negative one on every lane but the cond lane.
+bundle (random weights, seed 0, without its ``model_key``) from a copy of
+the whole config with ``control: none`` and no refiner of its own (JAX
+``generator.py:430-433``): ``quant``, ``resnet_mode``, ``sublayer_mode``
+and ``use_lora`` carry over, so the refiner builds its own int8 table and
+is offered the base's LoRA, while PnP stays with the base.
+:meth:`Generator.sample` runs the base for the first ``denoising_start``
+share of the steps and the refiner for the rest, from the same chunk
+schedule and draws at the same global step indices (its step caches
+rebuilt from its first step, :meth:`Generator.mode_masks`); the refiner's
+5 time ids carry the aesthetic score, the negative one on every lane but
+the cond lane.
 
 LoRA (``use_lora: true``, JAX ``generator.py:301-307``): the adapter named
-by ``generation.lora`` is merged into the bundle's UNet and text encoder
+by ``generation.lora`` is merged into the bundle's UNet and text encoders
 when the Generator is built (``models/lora.py``), before the stage's int8
 table and its text encoder, once per bundle (``ModelBundle.lora``: a
 second Generator with the same adapter merges nothing, one with another
@@ -92,7 +96,6 @@ from vidtome_torch.models.registry import ModelBundle, init_model
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
-                                           reject_unported_xl,
                                            resolve_precision,
                                            stage_controlnet,
                                            stage_controlnet_table,
@@ -279,7 +282,6 @@ class Generator:
         self.resnet_mode = parse_resnet_mode(gene, config)
         self.quant = parse_quant(gene, config)
         self.bundle = bundle
-        reject_unported_xl("generation", gene, config, bundle)
         self.gene = gene
         # the size the SDXL family's time ids carry (JAX generator.py:1049)
         self.size = ((float(config["height"]), float(config["width"]))

@@ -45,7 +45,6 @@ from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
-                                           reject_unported_xl,
                                            resolve_precision,
                                            stage_controlnet,
                                            stage_controlnet_table,
@@ -73,7 +72,6 @@ class Inverter:
                 f"it either")
         self.sublayer_mode = parse_sublayer_mode(inv, config)
         reject_unported("inversion", inv, config)
-        reject_unported_xl("inversion", inv, config, bundle)
         # the reference reads use_blip (invert.py:60) but never acts on it
         if inv.get("use_blip", False):
             print("[WARNING] use_blip is accepted for config compatibility "
