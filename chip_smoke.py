@@ -38,15 +38,13 @@ Phases (any failure exits non-zero before the last line):
      fused sublayer at every SUBLAYER_SHAPES row through the call and
      device-only, with its plan (ops/sublayer.plan) and, as a yardstick,
      the port's unfused bf16 chain for the same work device-only.  The
-     SDXL phase's shapes too: flash and small-KV at every attention shape
-     of its UNet calls (sdxl_attention_rows: the merged level 1 at the
-     lengths sdxl_config's merging gives, level 2, the refiner's 96-wide
-     heads, the VAE's mid attention at 16384 tokens), each summed per call
-     of each kind; GroupNorm at every shape of an SDXL UNet call of the
-     inversion (batch 4) and the generation (batch 8), a refiner UNet call
-     and a 1024p VAE decode and encode (sdxl_gn_rows, read from a forward
-     on the meta device), with GN_FP32_ROWS, summed per call; best
-     match at level 1 (sdxl_match_rows: C = 640 and 768);
+     SDXL phases' and phases 25-33's shapes too: every shape a kernel is
+     given by the call kinds of those phases (meta_rows, read by
+     ModuleLaunches from forwards on the meta device: the merged levels
+     at the lengths each phase's merging gives, the refiner's 96-wide
+     heads, the VAE's mid attention at 16384 tokens, the PnP, serving and
+     chunk_batch batches), each summed per call of each kind, with
+     GN_FP32_ROWS; the W8A8 resnet at the int8 phase's rows only;
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
@@ -149,9 +147,8 @@ Phases (any failure exits non-zero before the last line):
      (xl-refiner, random, built by the Generator) from step SDXL_SPLIT:
      Generator.sample runs the base, then the refiner.  Every UNet call of
      the inversion, the base stage and the refiner stage must launch what
-     SDXL_LAUNCHES says (LaunchesPerCall), best match 1 or 2 times a
-     generation call; every attention and GroupNorm shape the run gives a
-     kernel must be a phase-3 row; prints the stage seconds (invert, base stage,
+     SDXL_LAUNCHES says, best match 1 or 2 times a generation call;
+     prints the stage seconds (invert, base stage,
      refiner stage, decode) and the device time of one base and one
      refiner UNet call at batch 8 (torch.profiler) beside its time through
      the call;
@@ -190,18 +187,62 @@ Phases (any failure exits non-zero before the last line):
      probe weight of each namespace at W + delta, the context and pooled
      embeds moved, each UNet call of the LoRA generation launching what
      the plain generation's call at the same index did.
-  Phases 19, 21, 23 and 24 record every shape they give the fused resnet
-  and sublayer kernels (KernelShapes) and fail if one is not a phase-3
-  row (RESNET_SHAPES, SUBLAYER_SHAPES and sdxl_block_rows: every
-  ResnetBlock2D of an SDXL call at batch 4 and 8 and of a refiner call,
-  every TransformerBlock of an SDXL call at batch 8 and 12 and of a
-  refiner call, each summed per call in phase 3).
+  The SDXL phases (17, 19, 21, 23, 24, 32) and the gated-off generation
+  modes (phases 25-29 run on the SD1.5 bundle after phase 10, 30-31 on
+  SD2.1 after phase 12, 32-33 on SDXL after phase 23) record every UNet
+  call (ModuleLaunches, which phases 9, 14 and 15 read each ControlNet
+  and UNet call's launches from): its rows, the launches its module calls
+  imply by the wrappers' dispatch, which must be the launches the
+  counters saw, and every shape it and the VAE give a kernel, which must
+  be a phase-3 row (meta_rows: the same call kinds on the meta device).
+  Phases 25-33 each print their stage seconds, their UNet calls per kind
+  and the merge statistics of their last step (ToMeConfig.collect_stats:
+  per merging block, the tokens attn1 saw against the tokens it was
+  given):
+  25. chunk_batch serving: bench.py's maxe3xbB (configs/serve.yaml's keys
+     plus chunk_batch) on BATCH_FRAMES frames at 512x512, 50+50 steps from
+     the serving inversion: every step that runs the UNet makes 2 calls,
+     8 rows then 56 (4 and 28 on CFG-skip steps), the calls per kind as
+     the mode tables say; then the same keys without chunk_batch (8 calls
+     a step, not counted) for its stage seconds, and one step's calls at
+     full size, device ms (torch.profiler) and through the call, batched
+     and sequential;
+  26. chunk_batch reference: a step at a 16x16 latent (a call of 8 rows,
+     then one of 16 against its banks repeated per chunk), card (bf16
+     kernels, fused resnets) vs CPU (fp32 plain) with the card's
+     matchings (reference_steps);
+  27. ragged: the exact keys with chunk_boundaries: ragged at 10 and 8
+     frames (RAGGED_FRAMES), STEPS+STEPS steps: K = 1 + ceil((n - 1) / 4)
+     calls a step of 8 rows (8 frames: 3, in 12 slots), the table the
+     host's core/chunk.build_fidx_table, writes to the waste slot, n
+     frames out;
+  28. LDM on SD1.5: the exact keys with bench.py's --ldm (merge_crossattn,
+     merge_ff), STEPS+STEPS steps: the merged cross-attentions a call are
+     the merging blocks (10 of 16); then the exact keys with the mean
+     merge mode (ToMeConfig.merge_mode, which no config key reaches) from
+     the same inversion; one step's calls at full size with and without
+     --ldm, device ms and through the call, in turns;
+  29. its reference (reference_steps, 16x16);
+  30. LDM on SD2.1 PnP: configs/dog.yaml's keys with the fused sublayer and
+     --ldm from phase 11's inversion, LDM_PNP_STEPS steps: the sublayer
+     launches at the blocks that do not merge (6 a call) and small-KV at
+     the merging blocks' cross-attentions and the others' short
+     self-attentions (10 + 6), by the topology (ldm_topology);
+  31. its reference (3 lanes, injections on, the fused sublayer);
+  32. LDM on SDXL and its refiner: bench_sdxl's keys with --ldm from phase
+     17's inverted latents (the refiner inherits the keys): every call as
+     SDXL_LAUNCHES says (check_calls); one base step at full size with and
+     without --ldm;
+  33. its reference (one lane, 16x16, without the CPU's own matchings),
+     for the base and for the refiner (its 96-wide heads, 20 merging
+     blocks).
 ``python3 chip_smoke.py --cli-inputs DIR`` instead writes the inputs of the
 CLI runs of configs/flamingo.yaml and configs/breakdance.yaml on
 data/demo.mp4 (write_cli_inputs) and exits.
 Then the command's seconds and one JSON line with the kernels' numbers
 (launches: summed over the exact, serving, int8, ControlNet, PnP, LoRA,
-SD2-depth and the five SDXL paths, each counted from 0; ms,
+SD2-depth, the five SDXL paths and the paths of phases 25, 27, 28, 30 and
+32, each counted from 0; ms,
 plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes, for
 group_norm (the stats, apply and finalize entries) stats + apply a
@@ -220,8 +261,10 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import copy
+import dataclasses
 import functools
 import gc
+import inspect
 import json
 import os
 import subprocess
@@ -502,7 +545,7 @@ SUBLAYER_SHAPES = [  # (B, S, C, heads): SD2.1 PnP generation, 77 keys
     (12, 64, 1280, 20),
     # the refiner's widths in heads of 64 (12 and 24: three a cluster
     # rank), which no path here runs (the refiner's heads are 96 wide);
-    # the SDXL phases' rows come from sdxl_block_rows
+    # the SDXL phases' rows come from meta_rows
     (8, 4096, 768, 12),
     (8, 1024, 1536, 24),
 ]
@@ -580,173 +623,153 @@ SDXL_LAUNCHES = {
 GN_FP32_ROWS = [(8, 128 * 128, 384, True, 1e-5, torch.float32)]
 
 
-def sdxl_merged_lens() -> tuple[int, int]:
-    """Tokens of SDXL's merged level-1 self-attention (64x64 a frame at
-    1024p) under sdxl_config's merging: after the local merge of a chunk,
-    and after the global merge against a bank of that length."""
-    from vidtome_torch.core.merge import quantize_r
-    from vidtome_torch.models.tome import ToMeConfig
+def meta_step(rec, unet, path: str, latent: int, lanes: int,
+              groups: list[int], tome, **kw) -> None:
+    """One step's UNet calls on the meta device under ``rec`` (a
+    ModuleLaunches), recorded under ``path``: chunk groups in turn, a group
+    of n chunks one call of lanes * n * chunk rows; with global merging the
+    first initialises the banks and the others merge against them, a group
+    of several chunks against each lane's bank repeated per chunk (as
+    Generator.ddim_sample)."""
+    from vidtome_torch.models.tome import ToMeCall
 
-    gene = sdxl_config()["generation"]
-    tome = ToMeConfig(frames=gene["chunk_size"],
-                      local_merge_ratio=gene["local_merge_ratio"],
-                      len_quantum=1024)
-    n = tome.merged_local_len((SDXL_SIZE // 16) ** 2)
-    r = quantize_r(n, min(n, int(n * gene["global_merge_ratio"])), n, 1024)
-    return n, 2 * n - r
-
-
-def sdxl_attention_rows() -> tuple[dict, dict]:
-    """The flash and small-KV rows of the SDXL phase, (B, H, Sq, Skv, D) ->
-    {path: launches a call}: the inversion's base calls (batch 4), a
-    generation call of the chunk that initialises the bank and of the one
-    that merges against it (2 lanes x 4 frames; levels 1 merged), the
-    refiner's, and the VAE's mid attention at 16384 tokens (encode batch 4,
-    decode batch 2)."""
-    n, g = sdxl_merged_lens()
-    both = {"SDXL init chunk": 60, "SDXL merge chunk": 60}
-    flash = {
-        (4, 10, 4096, 4096, 64): {"SDXL inversion": 10},
-        (4, 20, 1024, 1024, 64): {"SDXL inversion": 60},
-        (2, 10, n, n, 64): {"SDXL init chunk": 10},
-        (2, 10, g, g, 64): {"SDXL merge chunk": 10},
-        (8, 20, 1024, 1024, 64): both,
-        (2, 8, n, n, 96): {"refiner init chunk": 20},
-        (2, 8, g, g, 96): {"refiner merge chunk": 20},
-        (8, 16, 1024, 1024, 96): {"refiner init chunk": 20,
-                                  "refiner merge chunk": 20},
-        (4, 1, 16384, 16384, 512): {"VAE encode": 1},
-        (2, 1, 16384, 16384, 512): {"VAE decode": 1}}
-    small_kv = {
-        (4, 10, 4096, 77, 64): {"SDXL inversion": 10},
-        (4, 20, 1024, 77, 64): {"SDXL inversion": 60},
-        (8, 10, 4096, 77, 64): {"SDXL generation": 10},
-        (8, 20, 1024, 77, 64): {"SDXL generation": 60},
-        (8, 8, 4096, 77, 96): {"refiner": 20},
-        (8, 16, 1024, 77, 96): {"refiner": 20},
-        (8, 16, 256, 77, 96): {"refiner": 4},
-        (8, 16, 256, 256, 96): {"refiner": 4}}
-    return flash, small_kv
-
-
-def sdxl_match_rows() -> list[tuple]:
-    """Best match in the SDXL phase (level 1, C = 640 base, 768 refiner):
-    the local round (3 frames of 4096 tokens against 1) and the global
-    merge (the locally merged chunk against the bank), both lanes."""
-    n, _ = sdxl_merged_lens()
-    return [(2, 3 * 4096, 4096, c) for c in (640, 768)] + [
-        (2, n, n, c) for c in (640, 768)]
-
-
-def sdxl_gn_rows() -> dict:
-    """The GroupNorm inputs of one SDXL base UNet call of the inversion
-    (batch 4) and of the generation (batch 8), one refiner call (batch 8),
-    all at a 128x128 latent, and of one 1024p VAE decode (batch 2, the
-    generation's VAE batch) and encode (batch 4, the inversion's),
-    (B, rows, C, silu, eps) -> {path: norms a call}, read from a forward of
-    each module on the meta device (shapes only, no memory)."""
-    from vidtome_torch.models.layers import GroupNorm
-    from vidtome_torch.models.unet import (SDXL_REFINER_UNET, SDXL_UNET,
-                                           UNet2DConditionModel)
-    from vidtome_torch.models.vae import AutoencoderKL
-
-    rows = {}
-
-    def record(path, module, fn):
-        def pre(mod, args):
-            x = args[0]
-            key = (x.shape[0], int(np.prod(x.shape[1:-1])), x.shape[-1],
-                   mod.silu, mod.eps)
-            row = rows.setdefault(key, {})
-            row[path] = row.get(path, 0) + 1
-        hooks = [m.register_forward_pre_hook(pre) for m in module.modules()
-                 if isinstance(m, GroupNorm)]
-        with torch.no_grad():
-            fn()
-        for h in hooks:
-            h.remove()
-
-    lat = SDXL_SIZE // 8
-    with torch.device("meta"):
-        for path, cfg, B in (("SDXL inversion", SDXL_UNET, 4),
-                             ("SDXL UNet", SDXL_UNET, 8),
-                             ("refiner UNet", SDXL_REFINER_UNET, 8)):
-            unet = UNet2DConditionModel(cfg)
-            record(path, unet, lambda: unet(
-                torch.empty(B, lat, lat, 4), 1,
-                torch.empty(B, 77, cfg.cross_attention_dim),
-                add_text_embeds=torch.empty(B, cfg.addition_pooled_dim),
-                add_time_ids=torch.empty(B, cfg.addition_num_time_ids)))
-        vae = AutoencoderKL()
-        record("VAE decode", vae, lambda: vae.decode(
-            torch.empty(2, lat, lat, 4)))
-        record("VAE encode", vae, lambda: vae.encode(
-            torch.empty(4, SDXL_SIZE, SDXL_SIZE, 3)))
-    return rows
+    cfg = unet.config
+    chunk = tome.frames if tome is not None else 4
+    banks: dict = {}
+    if all(u is not unet for u in rec.unets.values()):
+        rec.watch(f"meta {len(rec.unets)}", unet)
+    rec.label = path
+    for g, n in enumerate(groups):
+        B = lanes * n * chunk
+        mode = "off"
+        if tome is not None and tome.merge_global:
+            mode = "init" if g == 0 else "merge"
+        if n > 1:
+            banks = {k: b.repeat_interleave(n, dim=0)
+                     for k, b in banks.items()}
+        call = None if tome is None else ToMeCall(
+            cfg=tome, local_draws=[0] * len(tome.rounds()), coin=0.0,
+            bank_mode=mode, banks=banks)
+        extra = dict(kw)
+        if cfg.addition_num_time_ids:
+            extra.update(
+                add_text_embeds=torch.empty(B, cfg.addition_pooled_dim,
+                                            dtype=torch.bfloat16),
+                add_time_ids=torch.empty(B, cfg.addition_num_time_ids))
+        if extra.get("cache_mode") == "shallow":
+            extra["deep_cache"] = torch.empty(
+                B, latent, latent, cfg.block_out_channels[1],
+                dtype=torch.bfloat16)
+        unet(torch.empty(B, latent, latent, cfg.in_channels,
+                         dtype=torch.bfloat16), 1,
+             torch.empty(B, 77, cfg.cross_attention_dim,
+                         dtype=torch.bfloat16),
+             tome_call=call, num_lanes=lanes, **extra)
+    rec.label = None
 
 
 @functools.cache
-def sdxl_block_rows() -> tuple[dict, dict]:
-    """The fused resnet and fused sublayer rows of the new SDXL phases,
-    (B, H, W, Cin, Cout) and (B, S, C, heads) -> {path: launches a call},
-    read from a forward of each UNet on the meta device at a 128x128
-    latent: every ResnetBlock2D of an SDXL call of the inversion (batch 4)
-    and of the generation (batch 8) and of a refiner call (batch 8), the
-    int8 and serving phases' shapes (the serving phase's shallow and
-    CFG-skip calls run level-0 blocks of these shapes); every
-    TransformerBlock of an SDXL generation call (batch 8, serving), a PnP
-    call (3 lanes x 4 frames) and a refiner call (batch 8)."""
-    from vidtome_torch.models.layers import ResnetBlock2D, TransformerBlock
-    from vidtome_torch.models.unet import (SDXL_REFINER_UNET, SDXL_UNET,
+def meta_rows(only: str = "") -> dict:
+    """The kernel shapes of the call kinds the SDXL phases (17-24, 32) and
+    phases 25-31 run, {kernel: {shape: {"<path> call <i>": launches a
+    call}}}, recorded by ModuleLaunches on forwards on the meta device
+    (shapes only, no memory), one step of each kind (meta_step); ``only``
+    keeps the kinds whose path holds it.  SDXL and its refiner at a
+    128x128 latent on bench_sdxl's keys: the inversion's unmerged calls
+    (batch 4), a generation step (2 lanes: the chunk that initialises the
+    banks, then the one that merges against them), both with fused
+    resnets as the int8 phases run them (paths " int8": the W8A8 resnet's
+    rows), PnP (3 base lanes, injections on and off; the refiner's 2) with
+    fused sublayers, the serving sidecar's full and shallow steps with
+    both lanes or the CFG-skip step's cond lane (fused resnets and
+    sublayers), --ldm; a 1024p VAE encode (batch 4) and decode (batch 2).
+    SD1.5 at a 64x64 latent: the serving inversion (batch 8); maxe3xbB's
+    full and shallow steps, both lanes or the cond lane, the first chunk's
+    call and the batched call of the other seven, and the sequential calls
+    of the same keys; the exact keys with ragged boundaries and with
+    --ldm.  SD2.1 PnP with --ldm and the fused sublayer (3 lanes,
+    injections on)."""
+    from vidtome_torch.models.unet import (SD15_UNET, SD21_UNET, SDXL_UNET,
+                                           SDXL_REFINER_UNET,
                                            UNet2DConditionModel)
+    from vidtome_torch.models.vae import AutoencoderKL
+    from vidtome_torch.pipeline.generator import stage_tome
 
-    resnets, blocks = {}, {}
+    def tome(cfg, pnp=False):
+        return stage_tome(cfg["generation"], pnp)
 
-    def pre_resnet(path):
-        def hook(mod, args):
-            B, H, W, Ci = args[0].shape
-            row = resnets.setdefault((B, H, W, Ci, mod.conv1.out_channels),
-                                     {})
-            row[path] = row.get(path, 0) + 1
-        return hook
-
-    def pre_block(path):
-        def hook(mod, args):
-            B, S, C = args[0].shape
-            row = blocks.setdefault((B, S, C, mod.attn2.heads), {})
-            row[path] = row.get(path, 0) + 1
-        return hook
-
-    lat = SDXL_SIZE // 8
-    with torch.device("meta"), torch.no_grad():
-        for path, cfg, B, want in (
-                ("SDXL inversion", SDXL_UNET, 4, (pre_resnet,)),
-                ("SDXL generation", SDXL_UNET, 8, (pre_resnet, pre_block)),
-                ("SDXL PnP", SDXL_UNET, 12, (pre_block,)),
-                ("refiner", SDXL_REFINER_UNET, 8, (pre_resnet, pre_block))):
-            unet = UNet2DConditionModel(cfg)
-            hooks = [m.register_forward_pre_hook(fn(path))
-                     for fn, kind in ((pre_resnet, ResnetBlock2D),
-                                      (pre_block, TransformerBlock))
-                     if fn in want
-                     for m in unet.modules() if isinstance(m, kind)]
-            unet(torch.empty(B, lat, lat, 4), 1,
-                 torch.empty(B, 77, cfg.cross_attention_dim),
-                 add_text_embeds=torch.empty(B, cfg.addition_pooled_dim),
-                 add_time_ids=torch.empty(B, cfg.addition_num_time_ids))
-            for h in hooks:
-                h.remove()
-    return resnets, blocks
+    xl = SDXL_SIZE // 8
+    fused = {"resnet_mode": "fused"}
+    sub = {"sublayer_mode": "fused"}
+    pnp = {**sub, "attn_inject": True, "conv_inject": True}
+    # (path, UNet, latent, lanes, chunk groups, ToMeConfig, UNet kwargs)
+    kinds = [
+        ("SDXL inversion", "SDXL", xl, 1, [1], None, {}),
+        ("SDXL int8 inversion", "SDXL", xl, 1, [1], None, fused),
+        ("SDXL PnP", "SDXL", xl, 3, [1, 1], tome(sdxl_pnp_config(), True),
+         pnp),
+        ("SDXL PnP, no injection", "SDXL", xl, 3, [1, 1],
+         tome(sdxl_pnp_config(), True), sub),
+        ("refiner PnP stage", "refiner", xl, 2, [1, 1],
+         tome(sdxl_pnp_config()), sub)]
+    for name in ("SDXL", "refiner"):
+        kinds += [
+            (name, name, xl, 2, [1, 1], tome(sdxl_config()), {}),
+            (f"{name} int8", name, xl, 2, [1, 1], tome(sdxl_config()), fused),
+            (f"{name} LDM", name, xl, 2, [1, 1], tome(sdxl_ldm_config()), {})]
+        kinds += [(f"{name} serve {cache}, {lanes} lanes", name, xl, lanes,
+                   [1, 1], tome(sdxl_serve_config()),
+                   {**fused, **sub, "cache_mode": cache})
+                  for cache in ("full", "shallow") for lanes in (2, 1)]
+    kinds += [("SD1.5 inversion", "SD1.5", 64, 2, [1], None, {})]
+    kinds += [(f"SD1.5 maxe3xbB {cache}, {lanes} lanes, "
+               f"{'batched' if n > 1 else 'sequential'}", "SD1.5", 64, lanes,
+               [1, n], tome(chunk_batch_config()),
+               {**fused, "cache_mode": cache})
+              for cache in ("full", "shallow") for lanes in (2, 1)
+              for n in (BATCH_FRAMES // 4 - 1, 1)]
+    kinds += [
+        ("SD1.5 ragged", "SD1.5", 64, 2, [1, 1], tome(CONFIG), {}),
+        ("SD1.5 LDM", "SD1.5", 64, 2, [1, 1], tome(ldm(CONFIG)), {}),
+        ("SD2.1 PnP LDM", "SD2.1", 64, 3, [1, 1],
+         tome(ldm(pnp_config()), True), pnp)]
+    configs = {"SDXL": SDXL_UNET, "refiner": SDXL_REFINER_UNET,
+               "SD1.5": SD15_UNET, "SD2.1": SD21_UNET}
+    unets: dict = {}
+    with torch.device("meta"), torch.no_grad(), \
+            ModuleLaunches({}, count=False) as rec:
+        for path, name, latent, lanes, groups, t, kw in kinds:
+            if only in path:
+                if name not in unets:
+                    unets[name] = UNet2DConditionModel(
+                        configs[name]).to(torch.bfloat16)
+                meta_step(rec, unets[name], path, latent, lanes, groups, t,
+                          **kw)
+        if only in "VAE":
+            vae = AutoencoderKL().to(torch.bfloat16)
+            rec.watch("VAE encode", vae.encoder)
+            rec.watch("VAE decode", vae.decoder)
+            vae.encode(torch.empty(4, SDXL_SIZE, SDXL_SIZE, 3,
+                                   dtype=torch.bfloat16))
+            vae.decode(torch.empty(2, xl, xl, 4, dtype=torch.bfloat16))
+    rows: dict = {k: {} for k in KERNELS}
+    for path, calls in rec.calls.items():
+        for i, call in enumerate(calls):
+            for (kernel, shape), n in call["shapes"].items():
+                rows[kernel].setdefault(shape, {})[f"{path} call {i}"] = n
+    return rows
 
 
 def gn_rows() -> list[tuple]:
     """Phase 3's GroupNorm rows, ((B, rows, C, silu, eps, dtype), {path:
-    norms a call}): GN_SHAPES (bf16), every SDXL-phase shape (sdxl_gn_rows)
-    and GN_FP32_ROWS."""
+    norms a call}): GN_SHAPES (bf16), every shape of meta_rows (both
+    GroupNorm routes) and GN_FP32_ROWS."""
     rows = {(*row[:5], torch.bfloat16): (
         {"SD1.5 exact UNet": row[5]} if row[5] else {}) for row in GN_SHAPES}
-    for key, paths in sdxl_gn_rows().items():
-        rows.setdefault((*key, torch.bfloat16), {}).update(paths)
+    meta = meta_rows()
+    for key, paths in merged_rows(meta["full_group_norm"],
+                                  meta["group_norm"]).items():
+        rows.setdefault(key, {}).update(paths)
     rows.update({row: {} for row in GN_FP32_ROWS})
     return list(rows.items())
 
@@ -1048,7 +1071,8 @@ def merge_engine_times(dev, rng) -> None:
     U = S - r
 
     def plan():
-        return merge._build_plan(metric, a_idx, b_idx, r, True, [0], T, 0)
+        return merge._build_plan(metric, a_idx, b_idx, r, True,
+                                 dst_starts=[0], dst_run_len=T)
 
     def normalize():
         return metric / metric.float().norm(dim=-1, keepdim=True).clamp_min(
@@ -1158,10 +1182,15 @@ def phase_kernels(dev) -> KernelStats:
                                    resnet, sublayer)
 
     rng = np.random.default_rng(0)
+    # the rows' inputs are drawn on the card: at the batched call's 56 rows
+    # numpy's draws took seconds a row
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def f32(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
 
     def bf16(shape, scale=1.0, shift=0.0):
-        a = (rng.standard_normal(shape, np.float32) * scale + shift)
-        return torch.from_numpy(a).to(dev, torch.bfloat16)
+        return f32(*shape, scale=scale, shift=shift).bfloat16()
 
     def report(what, err, tol, ms, plain, library, bound, note=""):
         lib = "none" if library is None else f"{library:.3f} ms"
@@ -1171,13 +1200,26 @@ def phase_kernels(dev) -> KernelStats:
               f"({'bytes' if bound[0] >= bound[1] else 'operations'}){note}")
 
     stats = KernelStats()
+    t0 = time.perf_counter()
+    lap = {}
+
+    def mark(part):  # seconds of each part of the phase, printed last
+        nonlocal t0
+        torch.cuda.synchronize()
+        lap[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
     # (kernel, path) -> summed launches x (ms, device ms, bound, library)
     per_call = {}
-    sdxl_flash, sdxl_small = sdxl_attention_rows()
+    meta = meta_rows()
+    mark("rows (meta forwards)")
+    flash_rows = meta["flash_attention"]
+    small_rows = merged_rows(SMALL_KV_LAUNCHES, meta["small_kv_attention"])
     for name, shapes, a_call in (
-            ("flash_attention", FLASH_SHAPES + list(sdxl_flash), sdxl_flash),
-            ("small_kv_attention", SMALL_KV_SHAPES + list(sdxl_small),
-             {**SMALL_KV_LAUNCHES, **sdxl_small})):
+            ("flash_attention",
+             list(dict.fromkeys(FLASH_SHAPES + list(flash_rows))), flash_rows),
+            ("small_kv_attention",
+             list(dict.fromkeys(SMALL_KV_SHAPES + list(small_rows))),
+             small_rows)):
         fn = getattr(attention, name)
         for B, H, Sq, Skv, D in shapes:
             q, k, v = (bf16((B, H, Sq, D)), bf16((B, H, Skv, D)),
@@ -1223,16 +1265,16 @@ def phase_kernels(dev) -> KernelStats:
             torch.cuda.empty_cache()
     print_per_call(per_call, "SDPA device only")
     per_call.clear()
+    mark("attention")
 
     phase_group_norm(dev, rng, stats)
+    mark("GroupNorm")
 
-    def f32(*shape, scale=1.0, shift=0.0):
-        return torch.from_numpy(rng.standard_normal(shape, np.float32) * scale
-                                + shift).to(dev)
-
-    sdxl_resnets, sdxl_blocks = sdxl_block_rows()
-    for B, H, W, Ci, Co in RESNET_SHAPES + list(sdxl_resnets):
-        paths = sdxl_resnets.get((B, H, W, Ci, Co), {})
+    resnet_rows = meta["fused_resnet"]
+    # the W8A8 variant at the rows of the int8 paths (and the listed ones)
+    w8a8_rows = meta_rows(" int8")["fused_resnet"]
+    for B, H, W, Ci, Co in dict.fromkeys(RESNET_SHAPES + list(resnet_rows)):
+        paths = resnet_rows.get((B, H, W, Ci, Co), {})
         # the conv weights as ResnetBlock2D holds them: OIHW views of
         # packed [O, 3, 3, I] storage (channels_last)
         args = [bf16((B, H, W, Ci)), f32(B, Co, scale=0.3),
@@ -1290,6 +1332,11 @@ def phase_kernels(dev) -> KernelStats:
             for i, x in enumerate((1, ms, device, max(bound), lib)):
                 row[i] += n * x
         del args_f, got, xc, hc
+        if (B, H, W, Ci, Co) not in w8a8_rows and (
+                B, H, W, Ci, Co) not in RESNET_SHAPES:
+            del args
+            torch.cuda.empty_cache()
+            continue
         # W8A8: int8 weights packed, and each conv's static activation
         # scale taken once, as the int8 tables hold them (the resnet block
         # passes both, models/layers.py); the plain version in bf16 (the
@@ -1328,13 +1375,14 @@ def phase_kernels(dev) -> KernelStats:
                                  f"{(B, H, W, Ci, Co)}")
         stats.add("fused_resnet_w8a8", abs_err, ms, plain, None, bound,
                   device)
-        for path, n in paths.items():
+        for path, n in w8a8_rows.get((B, H, W, Ci, Co), {}).items():
             row = per_call.setdefault(("fused_resnet_w8a8", path),
                                       [0] + [0.0] * 4)
             for i, x in enumerate((1, ms, device, max(bound), bf16_device)):
                 row[i] += n * x
         del args
         torch.cuda.empty_cache()
+    mark("resnets")
     for name, library in (("fused_resnet", "cuDNN's two convolutions"),
                           ("fused_resnet_w8a8", "the bf16 block device only")):
         print_per_call({k: v for k, v in per_call.items() if k[0] == name},
@@ -1342,8 +1390,9 @@ def phase_kernels(dev) -> KernelStats:
     per_call.clear()
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for row in MATCH_SHAPES + sdxl_match_rows():
-        B, S, D, C = match_shape(row)
+    match_rows = [match_shape(r) for r in MATCH_SHAPES]
+    for row in dict.fromkeys(match_rows + list(meta["best_match"])):
+        B, S, D, C = row
         src = torch.nn.functional.normalize(f32(B, S, C), dim=-1).bfloat16()
         dst = torch.nn.functional.normalize(f32(B, D, C), dim=-1).bfloat16()
         srcf, dstf = src.float(), dst.float()
@@ -1382,9 +1431,11 @@ def phase_kernels(dev) -> KernelStats:
         del src, dst, srcf, dstf
         torch.cuda.empty_cache()
     merge_engine_times(dev, rng)
+    mark("best match, merge engine")
 
-    for B, S, C, heads in SUBLAYER_SHAPES + list(sdxl_blocks):
-        paths = sdxl_blocks.get((B, S, C, heads), {})
+    sub_rows = meta["fused_cross_sublayer"]
+    for B, S, C, heads in dict.fromkeys(SUBLAYER_SHAPES + list(sub_rows)):
+        paths = sub_rows.get((B, S, C, heads), {})
         args = sublayer_inputs(rng, dev, B, S, C)
         args_f = [a.float() for a in args]
         kw = dict(heads=heads, kv_len=77)
@@ -1425,15 +1476,17 @@ def phase_kernels(dev) -> KernelStats:
         del args, args_f
         torch.cuda.empty_cache()
     print_per_call(per_call, "the unfused bf16 chain device only")
+    mark("sublayer")
+    print(f"[kernel] phase 3 seconds by part: {lap}")
     return stats
 
 
-def make_frames(size: int = SIZE) -> np.ndarray:
-    """8 frames of a moving colour gradient with a moving disc, [0, 1]."""
+def make_frames(size: int = SIZE, n: int = N_FRAMES) -> np.ndarray:
+    """n frames of a moving colour gradient with a moving disc, [0, 1]."""
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     out = []
-    for i in range(N_FRAMES):
-        ph = i / N_FRAMES
+    for i in range(n):
+        ph = i / n
         disc = ((xx - 0.3 - 0.4 * ph) ** 2 + (yy - 0.6) ** 2) < 0.01
         r = np.where(disc, 0.9, 0.5 + 0.4 * np.sin(2 * np.pi * (xx + ph)))
         g = np.where(disc, 0.1, 0.5 + 0.4 * np.cos(2 * np.pi * yy))
@@ -1803,25 +1856,189 @@ def perturb_controlnet(controlnet, seed: int = 5) -> None:
             p.add_(noise.to(p.device, p.dtype))
 
 
-class LaunchesPerCall:
-    """The kernel launches of each call of ``module``, from its forward
-    hooks (read before and after every call)."""
+class ModuleLaunches:
+    """Every call of the modules ``unets`` ({path: module}: a UNet, a
+    ControlNet, a VAE encoder or decoder) inside the block, a list of
+    {batch, shapes, got, want} per path: its batch, the launches the
+    counters saw (``got``, with ``count``: on the card) and the ones its
+    module calls imply by the kernel wrappers' dispatch (``want``).  A call
+    implies: flash or small-KV for each CrossAttention call
+    (ops/attention.attention's rule: small-KV where it is built for the
+    head dim and the keys), flash for each VAE attention block, the
+    entries of VIDTOME_GN_MODE's route for each GroupNorm call, the fused
+    resnet (W8A8 where the call's int8 table holds conv1) and GroupNorm's
+    stats and finalize entries for each ResnetBlock2D called with
+    resnet_mode "fused" and no injection, the fused sublayer for each
+    TransformerBlock whose chain fuses, best match for each matching
+    (core/merge.best_match).  Every shape a kernel is given goes into
+    ``shapes`` ({kernel: Counter}) and, inside a call, into its call's."""
 
-    def __init__(self, module):
-        self.calls: list[dict] = []
-        self._handles = [module.register_forward_pre_hook(self._pre),
-                         module.register_forward_hook(self._post)]
+    def __init__(self, unets: dict, count: bool = True):
+        self.unets, self.count = dict(unets), count
+        self.calls = {path: [] for path in unets}
+        self.shapes = {k: collections.Counter() for k in KERNELS}
+        self.label = None  # records every call under this path when set
+        self._cur = None
 
-    def _pre(self, module, args):
-        self._before = read_launches()
+    def watch(self, path: str, unet) -> None:
+        """Record the calls of ``unet`` under ``path`` too."""
+        from vidtome_torch.models.layers import (CrossAttention, GroupNorm,
+                                                 ResnetBlock2D,
+                                                 TransformerBlock)
+        from vidtome_torch.models.vae import VAEAttentionBlock
 
-    def _post(self, module, args, out):
-        self.calls.append({k: v - self._before[k]
-                           for k, v in read_launches().items()})
+        self.unets[path] = unet
+        self.calls.setdefault(path, [])
+        self._handles += [
+            unet.register_forward_pre_hook(self._unet_pre(path),
+                                           with_kwargs=True),
+            unet.register_forward_hook(self._unet_post, with_kwargs=True)]
+        for m in unet.modules():
+            for kind, hook in ((CrossAttention, self._attention),
+                               (ResnetBlock2D, self._resnet),
+                               (TransformerBlock, self._block)):
+                if isinstance(m, kind):
+                    self._handles.append(m.register_forward_pre_hook(
+                        hook, with_kwargs=True))
+            for kind, hook in ((GroupNorm, self._group_norm),
+                               (VAEAttentionBlock, self._vae_attention)):
+                if isinstance(m, kind):
+                    self._handles.append(m.register_forward_pre_hook(hook))
 
-    def close(self) -> None:
+    def __enter__(self):
+        from vidtome_torch.core import merge
+
+        self._handles = []
+        for path, unet in list(self.unets.items()):
+            self.watch(path, unet)
+        self._best_match = merge.best_match
+
+        def best_match(src, dst):
+            self._add("best_match", (src.shape[0], src.shape[1],
+                                     dst.shape[1], src.shape[2]))
+            return self._best_match(src, dst)
+
+        merge.best_match = best_match
+        return self
+
+    def __exit__(self, *exc):
+        from vidtome_torch.core import merge
+
+        merge.best_match = self._best_match
         for h in self._handles:
             h.remove()
+
+    def _add(self, kernel: str, shape: tuple, n: int = 1) -> None:
+        self.shapes[kernel][shape] += 1
+        if self._cur is not None:
+            self._cur["want"][kernel] += n
+            self._cur["shapes"][(kernel, shape)] += 1
+
+    def _unet_pre(self, path):
+        def hook(mod, args, kwargs):
+            self._cur = {"path": self.label or path,
+                         "batch": args[0].shape[0],
+                         "want": collections.Counter(),
+                         "shapes": collections.Counter(),
+                         "before": read_launches() if self.count else None}
+        return hook
+
+    def _unet_post(self, mod, args, kwargs, out):
+        cur, self._cur = self._cur, None
+        got = None
+        if self.count:
+            now = read_launches()
+            got = {k: now[k] - cur["before"][k] for k in KERNELS}
+        self.calls.setdefault(cur["path"], []).append({
+            "batch": cur["batch"], "shapes": cur["shapes"], "got": got,
+            "want": {k: cur["want"][k] for k in KERNELS}})
+
+    @staticmethod
+    def _bound(mod, args, kwargs) -> dict:
+        bound = inspect.signature(type(mod).forward).bind(mod, *args,
+                                                          **kwargs)
+        bound.apply_defaults()
+        return bound.arguments
+
+    def _attention(self, mod, args, kwargs):
+        from vidtome_torch.ops.attention import small_kv_takes
+
+        x = args[0]
+        ctx = args[1] if len(args) > 1 else kwargs.get("context")
+        kv = x if ctx is None else ctx
+        name = ("small_kv_attention" if small_kv_takes(mod.head_dim,
+                                                       kv.shape[1])
+                else "flash_attention")
+        self._add(name, (x.shape[0], mod.heads, x.shape[1], kv.shape[1],
+                         mod.head_dim))
+
+    def _vae_attention(self, mod, args):
+        B, H, W, C = args[0].shape
+        self._add("flash_attention", (B, 1, H * W, H * W, C))
+
+    def _group_norm(self, mod, args):
+        from vidtome_torch.ops import groupnorm
+
+        x = args[0]
+        shape = (x.shape[0], int(np.prod(x.shape[1:-1])), x.shape[-1],
+                 mod.silu, mod.eps, x.dtype)
+        if groupnorm.route(groupnorm._gn_mode()) == ("full",):
+            self._add("full_group_norm", shape)
+        else:
+            self._add("group_norm", shape, 2)
+
+    def _resnet(self, mod, args, kwargs):
+        a = self._bound(mod, args, kwargs)
+        if a["resnet_mode"] != "fused" or a["inject"] is not None:
+            return
+        qt = a["qt"]
+        name = ("fused_resnet_w8a8"
+                if qt is not None and qt.get(mod.conv1) is not None
+                else "fused_resnet")
+        self._add(name, (*a["x"].shape, mod.conv1.out_channels))
+        if self._cur is not None:  # GN1's statistics, GN2's finalize
+            self._cur["want"]["group_norm"] += 2
+
+    def _block(self, mod, args, kwargs):
+        a = self._bound(mod, args, kwargs)
+        call = a["tome_call"]
+        cfg = call.cfg if call is not None else None
+        do_merge = (cfg is not None and mod.downsample <= cfg.max_downsample
+                    and cfg.frames > 1)
+        if mod._fused_sublayer_ok(a["sublayer_mode"], cfg, do_merge):
+            self._add("fused_cross_sublayer",
+                      (*a["x"].shape, mod.attn2.heads))
+
+    def check(self, tag: str, paths=None) -> None:
+        """Each call's counted launches equal the ones its module calls
+        imply."""
+        paths = list(self.calls) if paths is None else paths
+        odd = {p: [i for i, c in enumerate(self.calls[p])
+                   if c["got"] != c["want"]] for p in paths}
+        first = {p: self.calls[p][0]["got"] for p in paths if self.calls[p]}
+        print(f"[{tag}] UNet calls by path {({p: len(self.calls[p]) for p in paths})}; "
+              f"launches of the first call of each: {first}; calls whose "
+              f"launches differ from what their modules imply: "
+              f"{ {p: len(i) for p, i in odd.items()} }")
+        if any(odd.values()):
+            p = next(p for p, i in odd.items() if i)
+            c = self.calls[p][odd[p][0]]
+            raise AssertionError(f"[{tag}] {p} call {odd[p][0]}: launched "
+                                 f"{c['got']}, its modules imply "
+                                 f"{c['want']}")
+
+    def check_rows(self, tag: str) -> None:
+        """Every shape the run gave a kernel is a phase-3 row."""
+        rows = phase3_rows()
+        unchecked = [(k, sh, n) for k, c in self.shapes.items()
+                     for sh, n in c.items() if sh not in rows[k]]
+        print(f"[{tag}] kernel shapes the run gave, with their launches: "
+              + "; ".join(f"{k} {dict(c)}" for k, c in self.shapes.items()
+                          if c)
+              + f"; not a phase-3 row: {unchecked}")
+        if unchecked:
+            raise AssertionError(f"[{tag}] shapes phase 3 did not check: "
+                                 f"{unchecked}")
 
 
 def phase_controlnet(dev, bundle) -> dict:
@@ -1842,44 +2059,41 @@ def phase_controlnet(dev, bundle) -> dict:
     generator = Generator(bundle, cfg)
     times = {}
     stage = functools.partial(timed, times)
-    per_call = LaunchesPerCall(bundle.controlnet)
-    try:
-        with tempfile.TemporaryDirectory() as work_dir:
-            reset_launches()
-            latents, conds = stage("encode", lambda: inverter.encode(frames))
-            control_inv = stage("control_inv",
-                                lambda: inverter.control_images(frames))
-            inv_before = read_launches()
-            inverted = stage("invert", lambda: inverter.ddim_inversion(
-                latents, conds, control=control_inv))
-            inv_launches = {k: v - inv_before[k]
-                            for k, v in read_launches().items()}
-            n_inv_cn = len(per_call.calls)
-            generator.configure_frames(N_FRAMES)
-            pad = torch.as_tensor(generator.pad_src, device=dev)
-            control = stage("control", lambda: generator.load_control(
-                frames, frame_ids, work_dir))
-            cdir = Path(control_image_dir(work_dir, generator.control))
-            pngs = sorted(p.name for p in cdir.glob("*.png"))
-            again = generator.load_control(frames, frame_ids, work_dir)
-            name, prompt = next(iter(generator.prompt.items()))
-            context = stage("text", lambda: generator.context(prompt))
-            table = generator.fidx_table()
-            x0 = inverted[pad]
-            gen_before = read_launches()
-            clean = stage("generate", lambda: generator.ddim_sample(
-                x0, context, fidx_table=table, control=control[pad]))
-            gen_launches = {k: v - gen_before[k]
-                            for k, v in read_launches().items()}
-            out = stage("decode",
-                        lambda: generator.vae.decode(clean[:N_FRAMES]))
-            launches = read_launches()
-    finally:
-        per_call.close()
+    with ModuleLaunches({"ControlNet": bundle.controlnet}) as rec, \
+            tempfile.TemporaryDirectory() as work_dir:
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        control_inv = stage("control_inv",
+                            lambda: inverter.control_images(frames))
+        inv_before = read_launches()
+        inverted = stage("invert", lambda: inverter.ddim_inversion(
+            latents, conds, control=control_inv))
+        inv_launches = {k: v - inv_before[k]
+                        for k, v in read_launches().items()}
+        n_inv_cn = len(rec.calls["ControlNet"])
+        generator.configure_frames(N_FRAMES)
+        pad = torch.as_tensor(generator.pad_src, device=dev)
+        control = stage("control", lambda: generator.load_control(
+            frames, frame_ids, work_dir))
+        cdir = Path(control_image_dir(work_dir, generator.control))
+        pngs = sorted(p.name for p in cdir.glob("*.png"))
+        again = generator.load_control(frames, frame_ids, work_dir)
+        name, prompt = next(iter(generator.prompt.items()))
+        context = stage("text", lambda: generator.context(prompt))
+        table = generator.fidx_table()
+        x0 = inverted[pad]
+        gen_before = read_launches()
+        clean = stage("generate", lambda: generator.ddim_sample(
+            x0, context, fidx_table=table, control=control[pad]))
+        gen_launches = {k: v - gen_before[k]
+                        for k, v in read_launches().items()}
+        out = stage("decode",
+                    lambda: generator.vae.decode(clean[:N_FRAMES]))
+        launches = read_launches()
 
     inv_calls = sum(inverter.unet_calls.values())
     gen_calls = sum(generator.unet_calls.values())
-    cn_calls = per_call.calls
+    cn_calls = [c["got"] for c in rec.calls["ControlNet"]]
     want = {k: CONTROLNET_LAUNCHES.get(k, 0) for k in KERNELS}
     odd = [c for c in cn_calls if c != want]
     print(f"[controlnet] SD1.5 + canny ControlNet (random, zero convs "
@@ -2063,7 +2277,9 @@ def small_kv_blocks(unet, latent: int) -> int:
                for b in blocks)
 
 
-def phase_pnp(dev, bundle) -> dict:
+def phase_pnp(dev, bundle) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """Phase 11.  Returns the launches, the inverted latents and the
+    source table (for phase 30)."""
     from vidtome_torch.models.layers import TransformerBlock
     from vidtome_torch.pipeline.generator import Generator
     from vidtome_torch.pipeline.inverter import Inverter
@@ -2136,7 +2352,7 @@ def phase_pnp(dev, bundle) -> dict:
           f"{out.std().item():.4f}; stage seconds "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
     print(f"[pnp] kernel launches in this run: {launches}")
-    return launches
+    return launches, inverted, src
 
 
 def profiled_device_ms(fn, top: int = 0):
@@ -2490,7 +2706,7 @@ def phase_lora(dev, bundle) -> dict:
     without the adapter, then with it merged on load by the Generator; the
     merged weights must be W + delta within two bf16 roundings, each UNet
     and ControlNet call of the LoRA generation must launch what the same
-    call of the plain one did (``LaunchesPerCall``), which the topology
+    call of the plain one did (``ModuleLaunches``), which the topology
     gives, and the edit must change; then the int8 table of a LoRA
     generator must quantize the merged weights."""
     from vidtome_torch.ops.quant import quantize_weight
@@ -2502,81 +2718,79 @@ def phase_lora(dev, bundle) -> dict:
     frame_ids = list(range(N_FRAMES))
     times = {}
     stage = functools.partial(timed, times)
-    unet_calls = LaunchesPerCall(bundle.unet)
-    cn_calls = LaunchesPerCall(bundle.controlnet)
-    try:
-        with tempfile.TemporaryDirectory() as work_dir:
-            lora_path = os.path.join(work_dir, "pixelart.safetensors")
-            deltas = write_lora(bundle, lora_path)
-            cfg_plain, cfg_lora = (breakdance_config(None),
-                                   breakdance_config(lora_path))
-            inverter = Inverter(bundle, cfg_plain)
-            plain = Generator(bundle, cfg_plain)
-            # the weights as the stages run them, before the merge
-            saved = {m: m.weight.detach().clone() for m in deltas}
-            reset_launches()
-            latents, conds = stage("encode", lambda: inverter.encode(frames))
-            inverted = stage("invert", lambda: inverter.ddim_inversion(
-                latents, conds))
-            plain.configure_frames(N_FRAMES)
-            pad = torch.as_tensor(plain.pad_src, device=dev)
-            control = stage("control", lambda: plain.load_control(
-                frames, frame_ids, work_dir))
-            name, prompt = next(iter(plain.prompt.items()))
-            table = plain.fidx_table()
-            marks = [(len(unet_calls.calls), len(cn_calls.calls))]
-            out_plain = stage("generate_plain", lambda: plain.vae.decode(
-                plain.ddim_sample(inverted[pad], plain.context(prompt),
+    with ModuleLaunches({"UNet": bundle.unet,
+                         "ControlNet": bundle.controlnet}) as rec, \
+            tempfile.TemporaryDirectory() as work_dir:
+        lora_path = os.path.join(work_dir, "pixelart.safetensors")
+        deltas = write_lora(bundle, lora_path)
+        cfg_plain, cfg_lora = (breakdance_config(None),
+                               breakdance_config(lora_path))
+        inverter = Inverter(bundle, cfg_plain)
+        plain = Generator(bundle, cfg_plain)
+        # the weights as the stages run them, before the merge
+        saved = {m: m.weight.detach().clone() for m in deltas}
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        inverted = stage("invert", lambda: inverter.ddim_inversion(
+            latents, conds))
+        plain.configure_frames(N_FRAMES)
+        pad = torch.as_tensor(plain.pad_src, device=dev)
+        control = stage("control", lambda: plain.load_control(
+            frames, frame_ids, work_dir))
+        name, prompt = next(iter(plain.prompt.items()))
+        table = plain.fidx_table()
+        marks = [tuple(map(len, rec.calls.values()))]
+        out_plain = stage("generate_plain", lambda: plain.vae.decode(
+            plain.ddim_sample(inverted[pad], plain.context(prompt),
+                              fidx_table=table,
+                              control=control[pad])[:N_FRAMES]))
+        marks.append(tuple(map(len, rec.calls.values())))
+        generator = stage("merge", lambda: Generator(bundle, cfg_lora))
+        errs = []
+        for mod, delta in deltas.items():
+            want = saved[mod].float() + delta
+            got = mod.weight.detach().float()
+            # the delta rounded to bf16, then the sum: two bf16
+            # roundings (2^-9 relative each), bounded here by twice
+            # their sum
+            tol = 2.0 ** -8 * (delta.abs() + want.abs())
+            errs.append(((got - want).abs() - tol).max())
+        excess = torch.stack(errs).max().item()
+        generator.configure_frames(N_FRAMES)
+        marks.append(tuple(map(len, rec.calls.values())))
+        out = stage("generate", lambda: generator.vae.decode(
+            generator.ddim_sample(inverted[pad], generator.context(prompt),
                                   fidx_table=table,
                                   control=control[pad])[:N_FRAMES]))
-            marks.append((len(unet_calls.calls), len(cn_calls.calls)))
-            generator = stage("merge", lambda: Generator(bundle, cfg_lora))
-            errs = []
-            for mod, delta in deltas.items():
-                want = saved[mod].float() + delta
-                got = mod.weight.detach().float()
-                # the delta rounded to bf16, then the sum: two bf16
-                # roundings (2^-9 relative each), bounded here by twice
-                # their sum
-                tol = 2.0 ** -8 * (delta.abs() + want.abs())
-                errs.append(((got - want).abs() - tol).max())
-            excess = torch.stack(errs).max().item()
-            generator.configure_frames(N_FRAMES)
-            marks.append((len(unet_calls.calls), len(cn_calls.calls)))
-            out = stage("generate", lambda: generator.vae.decode(
-                generator.ddim_sample(inverted[pad], generator.context(prompt),
-                                      fidx_table=table,
-                                      control=control[pad])[:N_FRAMES]))
-            marks.append((len(unet_calls.calls), len(cn_calls.calls)))
-            launches = read_launches()
+        marks.append(tuple(map(len, rec.calls.values())))
+        launches = read_launches()
 
-            # int8: the unmerged weights back (the bundle then holds no
-            # LoRA), then a LoRA generator in int8
-            with torch.no_grad():
-                for mod, w in saved.items():
-                    mod.weight.copy_(w)
-            bundle.lora = None
-            int8 = Generator(bundle, {**cfg_lora, "generation": {
-                **cfg_lora["generation"], "quant": "int8"}})
-            probe = bundle.unet.get_submodule(LORA_PROBE)
-            entry = int8.qt.get(probe)
-            q, scale = quantize_weight(probe.weight)
-            deq = entry.weight.float() * entry.scale.reshape(-1, 1)
-            w0 = saved[probe].float()
-            merged = w0 + deltas[probe]
-            d_merged = (deq - merged).abs().mean().item()
-            d_plain = (deq - w0).abs().mean().item()
-            int8_ok = (torch.equal(entry.weight, q)
-                       and torch.equal(entry.scale, scale)
-                       and d_merged < d_plain)
-    finally:
-        unet_calls.close()
-        cn_calls.close()
+        # int8: the unmerged weights back (the bundle then holds no
+        # LoRA), then a LoRA generator in int8
+        with torch.no_grad():
+            for mod, w in saved.items():
+                mod.weight.copy_(w)
+        bundle.lora = None
+        int8 = Generator(bundle, {**cfg_lora, "generation": {
+            **cfg_lora["generation"], "quant": "int8"}})
+        probe = bundle.unet.get_submodule(LORA_PROBE)
+        entry = int8.qt.get(probe)
+        q, scale = quantize_weight(probe.weight)
+        deq = entry.weight.float() * entry.scale.reshape(-1, 1)
+        w0 = saved[probe].float()
+        merged = w0 + deltas[probe]
+        d_merged = (deq - merged).abs().mean().item()
+        d_plain = (deq - w0).abs().mean().item()
+        int8_ok = (torch.equal(entry.weight, q)
+                   and torch.equal(entry.scale, scale)
+                   and d_merged < d_plain)
 
     # each generation's own UNet and ControlNet calls, by the marks
     (u0, c0), (u1, c1), (u2, c2), (u3, c3) = marks
-    plain_unet, lora_unet = unet_calls.calls[u0:u1], unet_calls.calls[u2:u3]
-    plain_cn, lora_cn = cn_calls.calls[c0:c1], cn_calls.calls[c2:c3]
+    unet_calls, cn_calls = ([c["got"] for c in rec.calls[p]]
+                            for p in ("UNet", "ControlNet"))
+    plain_unet, lora_unet = unet_calls[u0:u1], unet_calls[u2:u3]
+    plain_cn, lora_cn = cn_calls[c0:c1], cn_calls[c2:c3]
     n_calls = sum(generator.unet_calls.values())
     want = unet_call_want(bundle.unet)
     want_cn = {k: CONTROLNET_LAUNCHES.get(k, 0) for k in KERNELS}
@@ -2656,37 +2870,35 @@ def phase_depth(dev, bundle) -> dict:
     frame_ids = list(range(N_FRAMES))
     times = {}
     stage = functools.partial(timed, times)
-    per_call = LaunchesPerCall(bundle.unet)
-    try:
-        with tempfile.TemporaryDirectory() as work_dir:
-            cfg["work_dir"] = work_dir
-            inverter = Inverter(bundle, cfg)
-            generator = Generator(bundle, cfg)
-            reset_launches()
-            latents, conds = stage("encode", lambda: inverter.encode(frames))
-            depth = stage("depth", lambda: stage_depth(
-                bundle, frames, frame_ids, work_dir))
-            cached = sorted(os.listdir(os.path.join(work_dir, "depth")))
-            inverted = stage("invert", lambda: inverter.ddim_inversion(
-                latents, conds, depth=depth))
-            n_inv = len(per_call.calls)
-            generator.configure_frames(N_FRAMES)
-            pad = torch.as_tensor(generator.pad_src, device=dev)
-            depth_gen = stage_depth(bundle, frames, frame_ids, work_dir)
-            name, prompt = next(iter(generator.prompt.items()))
-            context = stage("text", lambda: generator.context(prompt))
-            table = generator.fidx_table()
-            clean = stage("generate", lambda: generator.ddim_sample(
-                inverted[pad], context, fidx_table=table,
-                depth=depth_gen[pad]))
-            out = stage("decode",
-                        lambda: generator.vae.decode(clean[:N_FRAMES]))
-            launches = read_launches()
-    finally:
-        per_call.close()
+    with ModuleLaunches({"UNet": bundle.unet}) as rec, \
+            tempfile.TemporaryDirectory() as work_dir:
+        cfg["work_dir"] = work_dir
+        inverter = Inverter(bundle, cfg)
+        generator = Generator(bundle, cfg)
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        depth = stage("depth", lambda: stage_depth(
+            bundle, frames, frame_ids, work_dir))
+        cached = sorted(os.listdir(os.path.join(work_dir, "depth")))
+        inverted = stage("invert", lambda: inverter.ddim_inversion(
+            latents, conds, depth=depth))
+        n_inv = len(rec.calls["UNet"])
+        generator.configure_frames(N_FRAMES)
+        pad = torch.as_tensor(generator.pad_src, device=dev)
+        depth_gen = stage_depth(bundle, frames, frame_ids, work_dir)
+        name, prompt = next(iter(generator.prompt.items()))
+        context = stage("text", lambda: generator.context(prompt))
+        table = generator.fidx_table()
+        clean = stage("generate", lambda: generator.ddim_sample(
+            inverted[pad], context, fidx_table=table,
+            depth=depth_gen[pad]))
+        out = stage("decode",
+                    lambda: generator.vae.decode(clean[:N_FRAMES]))
+        launches = read_launches()
 
     want = unet_call_want(bundle.unet)
-    inv_calls, gen_calls = per_call.calls[:n_inv], per_call.calls[n_inv:]
+    calls = [c["got"] for c in rec.calls["UNet"]]
+    inv_calls, gen_calls = calls[:n_inv], calls[n_inv:]
     odd_inv = [c for c in inv_calls if c != want]
     odd_gen = [c for c in gen_calls
                if {**c, "best_match": 0} != want or c["best_match"] not in (2, 4)]
@@ -2802,12 +3014,9 @@ def phase_sdxl(dev, bundle):
     """sdxl_config on the SDXL base and its refiner through the port's
     Inverter and Generator.sample (drive_sdxl): every UNet call of each
     stage must launch what SDXL_LAUNCHES says, best match 1 or 2 times a
-    generation call (3 a step); every attention and GroupNorm shape the run
-    gives a kernel (read by hooks on the attention and GroupNorm modules of
-    the UNets and the VAE) must be a phase-3 row.  Returns the launches,
-    the refiner's bundle and the inverted latents."""
-    from vidtome_torch.models.layers import CrossAttention, GroupNorm
-    from vidtome_torch.ops.attention import SMALL_KV
+    generation call (3 a step); every shape the run gives a kernel in the
+    UNets and the VAE must be a phase-3 row (check_calls).  Returns the
+    launches, the refiner's bundle and the inverted latents."""
     from vidtome_torch.pipeline.generator import Generator
     from vidtome_torch.pipeline.inverter import Inverter
 
@@ -2817,41 +3026,9 @@ def phase_sdxl(dev, bundle):
     generator = timed(times, "build the refiner",
                       lambda: Generator(bundle, cfg))
     refiner = generator.refiner
-    shapes, gn_shapes = collections.Counter(), collections.Counter()
-
-    def record(mod, args, kwargs):
-        x = args[0]
-        ctx = args[1] if len(args) > 1 else kwargs.get("context")
-        kv = x if ctx is None else ctx
-        shapes[(x.shape[0], mod.heads, x.shape[1], kv.shape[1],
-                mod.head_dim)] += 1
-
-    def record_gn(mod, args):
-        x = args[0]
-        gn_shapes[(x.shape[0], int(np.prod(x.shape[1:-1])), x.shape[-1],
-                   mod.silu, mod.eps, x.dtype)] += 1
-
-    unets = (bundle.unet, refiner.bundle.unet)
-    hooks = [m.register_forward_pre_hook(record, with_kwargs=True)
-             for u in unets for m in u.modules()
-             if isinstance(m, CrossAttention)]
-    hooks += [m.register_forward_pre_hook(record_gn)
-              for u in (*unets, bundle.vae) for m in u.modules()
-              if isinstance(m, GroupNorm)]
-    try:
-        run = drive_sdxl(dev, bundle, generator, times, inverter=inverter)
-    finally:
-        for h in hooks:
-            h.remove()
-
-    best = {p: sum(c["best_match"] for c in cs) for p, cs in run.calls.items()}
-    sdxl_flash, sdxl_small = sdxl_attention_rows()
-    unchecked = [(sh, n) for sh, n in shapes.items()
-                 if sh not in (sdxl_flash if sh[3] > SMALL_KV
-                               else sdxl_small)]
-    gn_checked = {row for row, _ in gn_rows()}
-    gn_unchecked = [(sh, n) for sh, n in gn_shapes.items()
-                    if sh not in gn_checked]
+    run = drive_sdxl(dev, bundle, generator, times, inverter=inverter)
+    best = {p: sum(c["got"]["best_match"] for c in run.rec.calls[p])
+            for p in ("SDXL", "refiner")}
     print(f"[sdxl] SDXL + refiner (random), {N_FRAMES} frames "
           f"{SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS}+{SDXL_STEPS} DDIM steps, "
           f"the refiner from step {generator.split_step()}, "
@@ -2859,11 +3036,6 @@ def phase_sdxl(dev, bundle):
           f"inversion {dict(inverter.unet_calls)}, base "
           f"{dict(generator.unet_calls)}, refiner "
           f"{dict(refiner.unet_calls)}; best_match over the calls {best}")
-    print(f"[sdxl] attention shapes (B, heads, Sq, Skv, D) the run gave the "
-          f"kernels, with their launches: {dict(shapes)}; not a phase-3 row: "
-          f"{unchecked}")
-    print(f"[sdxl] GroupNorm shapes (B, rows, C, silu, eps, dtype) with their "
-          f"launches: {dict(gn_shapes)}; not a phase-3 row: {gn_unchecked}")
     if generator.split_step() != SDXL_SPLIT or run.table.shape[1] != 2:
         raise AssertionError("expected the refiner from step "
                              f"{SDXL_SPLIT} and 2 chunks")
@@ -2871,12 +3043,6 @@ def phase_sdxl(dev, bundle):
     if best["SDXL"] != 3 * SDXL_SPLIT or best["refiner"] != 3 * (
             SDXL_STEPS - SDXL_SPLIT):
         raise AssertionError(f"best_match launches {best}, 3 a step")
-    if unchecked:
-        raise AssertionError(f"attention shapes phase 3 did not check: "
-                             f"{unchecked}")
-    if gn_unchecked:
-        raise AssertionError(f"GroupNorm shapes phase 3 did not check: "
-                             f"{gn_unchecked}")
     print_run("sdxl", run, times)
     return run.launches, refiner.bundle, run.inverted
 
@@ -2939,62 +3105,16 @@ def phase_sdxl_reference(dev, bundle, refiner) -> None:
                                  "small-KV kernel")
 
 
-class KernelShapes:
-    """The shapes the run gives the fused resnet kernels ((variant, B, H,
-    W, Cin, Cout)) and the fused sublayer kernel ((B, S, C, heads)), with
-    their launches, recorded by wrapping the wrappers' launch functions
-    inside the block."""
-
-    def __init__(self):
-        self.resnet = collections.Counter()
-        self.sublayer = collections.Counter()
-
-    def __enter__(self):
-        from vidtome_torch.ops import resnet, sublayer
-
-        self._saved = resnet._launch, sublayer._launch
-        res_launch, sub_launch = self._saved
-
-        def res(*args, quant=None):
-            name = "fused_resnet" if quant is None else "fused_resnet_w8a8"
-            self.resnet[(name, *args[0].shape, args[4].shape[0])] += 1
-            return res_launch(*args, quant=quant)
-
-        def sub(*args):
-            self.sublayer[(*args[0].shape, args[11])] += 1
-            return sub_launch(*args)
-
-        resnet._launch, sublayer._launch = res, sub
-        return self
-
-    def __exit__(self, *exc):
-        from vidtome_torch.ops import resnet, sublayer
-
-        resnet._launch, sublayer._launch = self._saved
-
-    def unchecked(self) -> list:
-        """The recorded shapes that are not phase-3 rows (both resnet
-        variants run at every RESNET_SHAPES and sdxl_block_rows row)."""
-        resnets, blocks = sdxl_block_rows()
-        res_rows = set(RESNET_SHAPES) | set(resnets)
-        sub_rows = set(SUBLAYER_SHAPES) | set(blocks)
-        return ([(sh, n) for sh, n in self.resnet.items()
-                 if sh[1:] not in res_rows]
-                + [(sh, n) for sh, n in self.sublayer.items()
-                   if sh not in sub_rows])
-
-
 def drive_sdxl(dev, bundle, generator, times: dict, inverter=None,
                inverted=None) -> types.SimpleNamespace:
     """One edit of the SDXL phases' 8 frames through the port's Inverter
     (or from the given ``inverted`` latents) and Generator.sample, the base
     and then the refiner (under PnP the base reads the inversion's saved
     latents), the launch counters set to 0 before and read after.  Returns
-    the launches, each UNet call's launches by path ("SDXL inversion",
-    "SDXL", "refiner"; LaunchesPerCall), the shapes the run gave the fused
-    resnet and sublayer kernels (KernelShapes), the chunk table, the
-    inverted latents and the frames; the stage seconds go into ``times``,
-    the base and refiner stages apart."""
+    the launches, the ModuleLaunches of the UNets (paths "SDXL inversion",
+    "SDXL", "refiner") and of the VAE's encoder and decoder, the chunk
+    table, the inverted latents and the frames; the stage seconds go into
+    ``times``, the base and refiner stages apart."""
     stage = functools.partial(timed, times)
     refiner_unet = generator.refiner.bundle.unet
     split_at = []
@@ -3005,18 +3125,19 @@ def drive_sdxl(dev, bundle, generator, times: dict, inverter=None,
             split_at.append(time.perf_counter())
 
     hook = refiner_unet.register_forward_pre_hook(at_split)
-    per_call = {"SDXL": LaunchesPerCall(bundle.unet),
-                "refiner": LaunchesPerCall(refiner_unet)}
     try:
-        with KernelShapes() as shapes:
+        with ModuleLaunches({"SDXL": bundle.unet, "refiner": refiner_unet,
+                             "VAE encode": bundle.vae.encoder,
+                             "VAE decode": bundle.vae.decoder}) as rec:
             reset_launches()
             if inverter is not None:
                 frames = make_frames(SDXL_SIZE)
                 latents, conds = stage("encode",
                                        lambda: inverter.encode(frames))
+                rec.label = "SDXL inversion"
                 inverted = stage("invert", lambda: inverter.ddim_inversion(
                     latents, conds))
-            n_inv = len(per_call["SDXL"].calls)
+                rec.label = None
             generator.configure_frames(N_FRAMES)
             pad = torch.as_tensor(generator.pad_src, device=dev)
             table = generator.fidx_table()
@@ -3033,22 +3154,15 @@ def drive_sdxl(dev, bundle, generator, times: dict, inverter=None,
             launches = read_launches()
     finally:
         hook.remove()
-        for c in per_call.values():
-            c.close()
     times["base stage"] = split_at[0] - t0
     times["refiner stage"] = times["generate"] - times["base stage"]
-    calls = {"SDXL": per_call["SDXL"].calls[n_inv:],
-             "refiner": per_call["refiner"].calls}
-    if inverter is not None:
-        calls["SDXL inversion"] = per_call["SDXL"].calls[:n_inv]
     if tuple(out.shape) != (N_FRAMES, SDXL_SIZE, SDXL_SIZE, 3):
         raise AssertionError(f"frames shape {tuple(out.shape)}")
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError("SDXL frames not finite or outside [0, 1]")
     if not torch.isfinite(inverted).all():
         raise AssertionError("SDXL inverted latents not finite")
-    return types.SimpleNamespace(launches=launches, calls=calls,
-                                 shapes=shapes, table=table,
+    return types.SimpleNamespace(launches=launches, rec=rec, table=table,
                                  inverted=inverted, out=out)
 
 
@@ -3107,32 +3221,26 @@ def sdxl_wants(bundle, refiner, inversion: bool = True,
 def check_calls(tag: str, run, wants: dict) -> None:
     """Every UNet call of a drive_sdxl run against ``wants`` ({path:
     [(launches, best-match counts allowed)], one a call}): the number of
-    calls and each call's launches; and every shape given the fused
-    resnet and sublayer kernels a phase-3 row."""
+    calls and each call's launches, which must also be the ones its module
+    calls imply (ModuleLaunches.check); and every shape the run gave a
+    kernel a phase-3 row."""
     odd = {}
+    calls = {p: [c["got"] for c in run.rec.calls[p]] for p in wants}
     for path, want in wants.items():
-        calls = run.calls[path]
-        if len(calls) != len(want):
-            raise AssertionError(f"[{tag}] {path}: {len(calls)} UNet calls, "
-                                 f"want {len(want)}")
-        odd[path] = [i for i, (c, (w, best)) in enumerate(zip(calls, want))
+        if len(calls[path]) != len(want):
+            raise AssertionError(f"[{tag}] {path}: {len(calls[path])} UNet "
+                                 f"calls, want {len(want)}")
+        odd[path] = [i for i, (c, (w, best)) in enumerate(zip(calls[path],
+                                                              want))
                      if {k: v for k, v in c.items() if k != "best_match"} != w
                      or c["best_match"] not in best]
-    unchecked = run.shapes.unchecked()
-    print(f"[{tag}] launches of the first UNet call of each path: "
-          f"{ {p: cs[0] for p, cs in run.calls.items() if cs} }; calls that "
-          f"differ from what they must launch: "
-          f"{ {p: len(i) for p, i in odd.items()} }")
-    print(f"[{tag}] fused resnet shapes (variant, B, H, W, Cin, Cout) and "
-          f"sublayer shapes (B, S, C, heads) with their launches: "
-          f"{dict(run.shapes.resnet)} {dict(run.shapes.sublayer)}; not a "
-          f"phase-3 row: {unchecked}")
+    print(f"[{tag}] calls that differ from what the topology says they "
+          f"must launch: {({p: len(i) for p, i in odd.items()})}")
     if any(odd.values()):
         raise AssertionError(f"[{tag}] launches per UNet call differ: "
                              f"{ {p: i[:3] for p, i in odd.items()} }")
-    if unchecked:
-        raise AssertionError(f"[{tag}] shapes phase 3 did not check: "
-                             f"{unchecked}")
+    run.rec.check(tag, list(wants))
+    run.rec.check_rows(tag)
 
 
 def print_run(tag: str, run, times: dict) -> None:
@@ -3519,13 +3627,618 @@ def phase_sdxl_lora(dev, bundle, inverted) -> dict:
     check_calls("sdxl lora plain", plain_run,
                 sdxl_wants(bundle, generator.refiner, inversion=False))
     check_calls("sdxl lora", run, {
-        p: [({k: v for k, v in c.items() if k != "best_match"},
-             (c["best_match"],)) for c in cs]
-        for p, cs in plain_run.calls.items()})
+        p: [({k: v for k, v in c["got"].items() if k != "best_match"},
+             (c["got"]["best_match"],)) for c in plain_run.rec.calls[p]]
+        for p in ("SDXL", "refiner")})
     if not diff > 0.05:
         raise AssertionError("the LoRA does not change the edit")
     print_run("sdxl lora", run, times)
     return {k: v + plain_run.launches[k] for k, v in run.launches.items()}
+
+
+# ---------------------------------------------------------------------------
+# The gated-off generation modes (phases 25-29): batched chunks, ragged chunk
+# boundaries, LDM-variant merging.
+# ---------------------------------------------------------------------------
+
+BATCH_FRAMES = 32        # phase 25: bench.py's clip, 8 chunks of 4
+RAGGED_FRAMES = (10, 8)  # phase 26: 4 chunks in 12 slots; 3, one of them
+#                          from the waste slot's chunk of padding
+LDM_KEYS = {"merge_crossattn": True, "merge_ff": True}  # bench.py's --ldm
+LDM_PNP_STEPS = 50
+
+
+def chunk_batch_config() -> dict:
+    """bench.py's SERVE_PROFILES["maxe3xbB"]: configs/serve.yaml's keys
+    (serve_config, SERVE_STEPS DDIM steps) plus chunk_batch: true."""
+    cfg = serve_config()
+    cfg["generation"]["chunk_batch"] = True
+    return cfg
+
+
+def ragged_config() -> dict:
+    """The exact path's keys at STEPS DDIM steps with chunk_boundaries:
+    ragged."""
+    cfg = exact_config(STEPS)
+    cfg["generation"]["chunk_boundaries"] = "ragged"
+    return cfg
+
+
+def ldm(cfg: dict) -> dict:
+    """``cfg`` with bench.py's --ldm keys (merge_crossattn, merge_ff) in
+    generation."""
+    cfg = copy.deepcopy(cfg)
+    cfg["generation"].update(LDM_KEYS)
+    return cfg
+
+
+def sdxl_ldm_config() -> dict:
+    """bench_sdxl's keys with --ldm (sdxl_config: the refiner inherits the
+    generation keys)."""
+    return ldm(sdxl_config())
+
+
+def merged_rows(*tables) -> dict:
+    """Row tables ({shape: {path: launches a call}}) joined, in order."""
+    out: dict = {}
+    for table in tables:
+        for shape, paths in table.items():
+            out.setdefault(shape, {}).update(paths)
+    return out
+
+
+@functools.cache
+def phase3_rows() -> dict:
+    """{kernel: set of shapes} phase 3 holds against the plain versions."""
+    meta = meta_rows()
+    gn = {row for row, _ in gn_rows()}
+    return {
+        "flash_attention": set(FLASH_SHAPES) | set(meta["flash_attention"]),
+        "small_kv_attention": set(SMALL_KV_SHAPES)
+        | set(meta["small_kv_attention"]),
+        "full_group_norm": gn, "group_norm": gn,
+        "fused_resnet": set(RESNET_SHAPES) | set(meta["fused_resnet"]),
+        "fused_resnet_w8a8": set(RESNET_SHAPES)
+        | set(meta_rows(" int8")["fused_resnet"]),
+        "best_match": {match_shape(r) for r in MATCH_SHAPES}
+        | set(meta["best_match"]),
+        "fused_cross_sublayer": set(SUBLAYER_SHAPES)
+        | set(meta["fused_cross_sublayer"])}
+
+
+def print_stats(tag: str, generator, unet) -> None:
+    """The merge statistics of the last step's UNet calls
+    (ToMeConfig.collect_stats): per merging block, the tokens its
+    self-attention saw against the tokens it was given."""
+    from vidtome_torch.logging_utils import collect_tome_stats
+
+    for pos, stats in sorted(generator.tome_stats.items()):
+        blocks = collect_tome_stats(stats, unet)
+        print(f"[{tag}] ToMe stats, last step, call at chunk {pos} "
+              f"(block: merged_len / seq_len): "
+              + ", ".join(f"{k.replace('transformer_blocks.', 'tb')}: "
+                          f"{v['merged_len']}/{v['seq_len']}"
+                          for k, v in blocks.items()))
+    if not generator.tome_stats:
+        raise AssertionError(f"[{tag}] no merge statistics collected")
+
+
+def with_stats(generator):
+    """``generator`` with ToMeConfig.collect_stats on."""
+    generator.tome = dataclasses.replace(generator.tome, collect_stats=True)
+    return generator
+
+
+def check_frames(tag: str, out, n: int, size: int = SIZE) -> None:
+    if tuple(out.shape) != (n, size, size, 3):
+        raise AssertionError(f"[{tag}] frames shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"[{tag}] frames not finite or outside [0, 1]")
+
+
+def step_inputs(unet, lanes: int, rows: list[int], latent: int, seed: int):
+    """Seeded inputs of a step's UNet calls (CPU, fp32): per call of B
+    rows x [B, latent, latent, 4] and the lane contexts repeated per frame,
+    on the SDXL family with the lanes' pooled embeds and the time ids of a
+    1024p frame (the refiner's aesthetic score 2.5 on every lane but the
+    last, 6.0 there)."""
+    cfg = unet.config
+    rng = np.random.default_rng(seed)
+    lane_ctx = torch.from_numpy(rng.standard_normal(
+        (lanes, 77, cfg.cross_attention_dim), np.float32))
+    lane_kw = {}
+    if cfg.addition_num_time_ids:
+        ids = ([SDXL_SIZE, SDXL_SIZE, 0, 0, SDXL_SIZE, SDXL_SIZE]
+               if cfg.addition_num_time_ids == 6 else
+               [SDXL_SIZE, SDXL_SIZE, 0, 0, 2.5])
+        ids = np.tile(np.float32(ids), (lanes, 1))
+        if cfg.addition_num_time_ids == 5:
+            ids[-1, 4] = 6.0
+        lane_kw = {"add_text_embeds": torch.from_numpy(rng.standard_normal(
+            (lanes, cfg.addition_pooled_dim), np.float32)),
+                   "add_time_ids": torch.from_numpy(ids)}
+    out = []
+    for B in rows:
+        per_lane = B // lanes
+        out.append((torch.from_numpy(rng.standard_normal(
+            (B, latent, latent, 4), np.float32)),
+            lane_ctx.repeat_interleave(per_lane, dim=0),
+            {k: v.repeat_interleave(per_lane, dim=0)
+             for k, v in lane_kw.items()}))
+    return out
+
+
+def plans_on(cache: dict, dev) -> dict:
+    """A ``share_match`` plan cache with every plan's tensors on ``dev``."""
+    def move(plan):
+        return dataclasses.replace(plan, **{
+            f.name: getattr(plan, f.name).to(dev)
+            for f in dataclasses.fields(plan)
+            if isinstance(getattr(plan, f.name), torch.Tensor)})
+    return {key: {k: ([move(p) for p in v] if isinstance(v, list)
+                      else move(v)) for k, v in entry.items()}
+            for key, entry in cache.items()}
+
+
+def step_calls(dev, unet, tome, lanes: int, groups: list[int], latent: int,
+               dtype, plan_caches=None, **kw) -> tuple[list, list]:
+    """A step's UNet calls on ``dev`` in ``dtype`` (step_inputs, fixed
+    draws), each group of n chunks one call, the first initialising the
+    banks and the others merging against them repeated per chunk, as
+    Generator.ddim_sample runs them.  ``plan_caches`` (one a call) hands
+    each call the matchings of another run (``share_match``: every block
+    then takes them).  Returns the outputs (fp32, on the CPU) and each
+    call's plan cache."""
+    from vidtome_torch.models.tome import ToMeCall
+
+    if not tome.share_match:
+        raise ValueError("step_calls hands plans over through share_match")
+    rows = [lanes * n * tome.frames for n in groups]
+    banks: dict = {}
+    outs, caches = [], []
+    with torch.inference_mode():
+        for g, (n, (x, ctx, add)) in enumerate(zip(
+                groups, step_inputs(unet, lanes, rows, latent, 4))):
+            if n > 1:
+                banks = {k: b.repeat_interleave(n, dim=0)
+                         for k, b in banks.items()}
+            call = ToMeCall(cfg=tome, local_draws=[1] * len(tome.rounds()),
+                            coin=0.7 if g % 2 else 0.3,
+                            bank_mode="init" if g == 0 else "merge",
+                            banks=banks)
+            if plan_caches is not None:
+                call.plan_cache = plans_on(plan_caches[g], dev)
+            add = {k: v.to(dev) for k, v in add.items()}
+            outs.append(unet(x.to(dev, dtype), 501, ctx.to(dev, dtype),
+                             tome_call=call, num_lanes=lanes, **add,
+                             **kw).float().cpu())
+            caches.append(call.plan_cache)
+    return outs, caches
+
+
+def reference_steps(tag: str, dev, unet, tome, lanes: int, groups,
+                    latent: int, own: bool = True, **kw) -> list:
+    """step_calls on the card (bf16 kernels) and on a CPU fp32 copy of
+    ``unet`` with the card's matchings (a bf16 metric and an fp32 one pick
+    different best matches where two scores are within bf16 rounding, and
+    a token merged into another dst moves the output by more than
+    REF_TOL: the matching is phase 3's best-match rows' and the CPU parity
+    tests' to check), each call's max rel err held to REF_TOL, printed with
+    the launches the card's calls made and (``own``), printed only, the
+    error against the CPU's own matchings."""
+    cpu = copy.deepcopy(unet).to("cpu", torch.float32)
+    before = read_launches()
+    got, caches = step_calls(dev, unet, tome, lanes, groups, latent,
+                             torch.bfloat16, **kw)
+    ran = {k: v - before[k] for k, v in read_launches().items()}
+    want, _ = step_calls("cpu", cpu, tome, lanes, groups, latent,
+                         torch.float32, plan_caches=caches, **kw)
+    own = step_calls("cpu", cpu, tome, lanes, groups, latent,
+                     torch.float32, **kw)[0] if own else []
+    del cpu
+    gc.collect()
+    errs = [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    own = [((g - w).abs().max() / w.abs().max()).item()
+           for g, w in zip(got, own)]
+    print(f"[{tag}] reference: {latent}x{latent} latent, {lanes} lane(s), "
+          f"calls of {[lanes * n * tome.frames for n in groups]} rows (the "
+          f"later ones against the first's banks, repeated per chunk): card "
+          f"bf16 kernels vs CPU fp32 plain with the card's matchings max rel "
+          f"err {[float(f'{e:.3g}') for e in errs]} (tol {REF_TOL}); with "
+          f"the CPU's own matchings (printed only) "
+          f"{[float(f'{e:.3g}') for e in own]}; kernels launched on the "
+          f"card {ran}")
+    if not max(errs) < REF_TOL:
+        raise AssertionError(f"[{tag}] card vs CPU reference rel err {errs}")
+    if not (ran["best_match"] and ran["small_kv_attention"]):
+        raise AssertionError(f"[{tag}] the reference calls merged nothing "
+                             f"or ran no small-KV kernel")
+    return errs
+
+
+def step_device_ms(tag: str, dev, unet, tome, lanes: int, groups,
+                   latent: int, **kw) -> list:
+    """Each call of a step (as step_calls, at full size on the card): its
+    device ms summed over its kernels (torch.profiler) and its ms through
+    the call (CUDA events, the host's gaps included)."""
+    from vidtome_torch.models.tome import ToMeCall
+
+    rows = [lanes * n * tome.frames for n in groups]
+    banks: dict = {}
+    out = []
+    for g, (n, (x, ctx, add)) in enumerate(zip(
+            groups, step_inputs(unet, lanes, rows, latent, 6))):
+        x, ctx = x.to(dev, torch.bfloat16), ctx.to(dev, torch.bfloat16)
+        add = {k: v.to(dev) for k, v in add.items()}
+        given = {k: b.repeat_interleave(n, dim=0) if n > 1 else b
+                 for k, b in banks.items()}
+
+        def call(x=x, ctx=ctx, add=add, given=given, g=g):
+            with torch.inference_mode():
+                c = ToMeCall(cfg=tome, local_draws=[1] * len(tome.rounds()),
+                             coin=0.7, bank_mode="init" if g == 0 else "merge",
+                             banks=dict(given))
+                unet(x, 501, ctx, tome_call=c, num_lanes=lanes, **add, **kw)
+                return c.banks
+        made = call()
+        if g == 0:
+            banks = made
+        try:
+            device = profiled_device_ms(call)
+        except Exception as exc:  # a measurement only: say so, go on
+            print(f"[{tag}] device time not measured ({exc!r})")
+            device = None
+        out.append((x.shape[0], device, cuda_time(call, 3)))
+        del x, ctx
+    torch.cuda.empty_cache()
+    print(f"[{tag}] one step's UNet calls at {latent}x{latent}, {lanes} lanes "
+          f"(rows, device ms summed over its kernels by torch.profiler, ms "
+          f"through the call by CUDA events): "
+          + ", ".join(f"({B}, {d if d is None else round(d, 3)}, {w:.3f})"
+                      for B, d, w in out))
+    return out
+
+
+def phase_chunk_batch(dev, bundle) -> tuple[dict, object]:
+    """Phase 25: bench.py's maxe3xbB (configs/serve.yaml's keys plus
+    chunk_batch) on SD1.5, BATCH_FRAMES frames: the serving inversion, then
+    generation with chunks 2..8 of every step in one UNet call.  Returns
+    the launches and the generation's ToMeConfig."""
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = chunk_batch_config()
+    frames = make_frames(n=BATCH_FRAMES)
+    inverter = Inverter(bundle, cfg)
+    generator = with_stats(Generator(bundle, cfg))
+    times = {}
+    stage = functools.partial(timed, times)
+    with ModuleLaunches({"SD1.5": bundle.unet}) as rec:
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        inverted = stage("invert", lambda: inverter.ddim_inversion(latents,
+                                                                   conds))
+        n_inv = len(rec.calls["SD1.5"])
+        generator.configure_frames(BATCH_FRAMES)
+        _, prompt = next(iter(generator.prompt.items()))
+        context = stage("text", lambda: generator.text.embed_cfg(
+            prompt, generator.negative_prompt))
+        table = generator.fidx_table()
+        x0 = inverted[torch.as_tensor(generator.pad_src, device=dev)]
+        clean = stage("generate", lambda: generator.ddim_sample(
+            x0, context, fidx_table=table))
+        out = stage("decode", lambda: generator.vae.decode(
+            clean[:BATCH_FRAMES]))
+        launches = read_launches()
+
+    K = table.shape[1]
+    modes = generator.mode_masks()
+    deep, cfgm, run = modes[:, 0], modes[:, 1], modes[:, 2]
+    # 2 calls a step that runs the UNet: the first chunk, then the other
+    # K - 1 in one call; the CFG-skip steps run the cond lane alone
+    want_rows = []
+    for i in range(SERVE_STEPS):
+        if run[i]:
+            lanes = 2 if cfgm[i] else 1
+            want_rows += [4 * lanes, 4 * lanes * (K - 1)]
+    rows = [c["batch"] for c in rec.calls["SD1.5"][n_inv:]]
+    want_kinds = expected_calls(modes, 2, cfg=True)
+    got_kinds = {k: v for k, v in generator.unet_calls.items() if v}
+    print(f"[batch] SD1.5, {BATCH_FRAMES} frames {SIZE}x{SIZE}, "
+          f"{SERVE_STEPS}+{SERVE_STEPS} DDIM steps, {K} chunks, bench.py's "
+          f"maxe3xbB (serve.yaml + chunk_batch); UNet calls: inversion "
+          f"{dict(inverter.unet_calls)}, generation {got_kinds} (mode table, "
+          f"2 a step: {want_kinds}); rows of the generation's calls "
+          f"{dict(collections.Counter(rows))}")
+    if K != BATCH_FRAMES // 4 or rows != want_rows:
+        raise AssertionError(f"[batch] {K} chunks and calls of rows "
+                             f"{rows[:6]}..., want 2 a step: 8 and 56, or 4 "
+                             f"and 28 on CFG-skip steps")
+    if got_kinds != want_kinds or not all(
+            k in got_kinds for k in ("full", "shallow", "cfg_skip",
+                                     "eps_skip")):
+        raise AssertionError(f"[batch] UNet calls per kind {got_kinds}, "
+                             f"want {want_kinds}, every kind")
+    rec.check("batch")
+    rec.check_rows("batch")
+    check_frames("batch", out, BATCH_FRAMES)
+    print_stats("batch", generator, bundle.unet)
+
+    # the same keys, each chunk one call (not counted): 8 calls a step
+    seq = Generator(bundle, serve_config())
+    seq.configure_frames(BATCH_FRAMES)
+    seq_times = {}
+    with ModuleLaunches({"SD1.5": bundle.unet}) as rec_seq:
+        ref = timed(seq_times, "generate", lambda: seq.ddim_sample(
+            x0, context, fidx_table=table))
+    rec_seq.check("batch, sequential")
+    rec_seq.check_rows("batch, sequential")
+    ran = sum(v for k, v in seq.unet_calls.items()
+              if k in ("full", "shallow"))
+    if ran != K * int(run.sum()):
+        raise AssertionError(f"[batch] the sequential run made {ran} UNet "
+                             f"calls, want {K} a step")
+    ref = seq.vae.decode(ref[:BATCH_FRAMES])
+    mse = ((out.float() - ref.float()) ** 2).mean().item()
+    print(f"[batch] stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; the same keys without chunk_batch ({K} calls a step): "
+          f"generate {seq_times['generate']:.3f}; PSNR batched vs "
+          f"sequential frames (star vs chain banks, random weights: printed "
+          f"only) {10 * np.log10(1.0 / max(mse, 1e-20)):.2f} dB")
+    print(f"[batch] kernel launches in this run: {launches}")
+    step_device_ms("batch", dev, bundle.unet, generator.tome, 2, [1, K - 1],
+                   SIZE // 8, resnet_mode="fused")
+    step_device_ms("batch, sequential", dev, bundle.unet, seq.tome, 2,
+                   [1, 1], SIZE // 8, resnet_mode="fused")
+    return launches, generator.tome
+
+
+def phase_ragged(dev, bundle) -> dict:
+    """Phase 27: the exact keys with chunk_boundaries: ragged at each of
+    RAGGED_FRAMES frames, STEPS+STEPS DDIM steps."""
+    from vidtome_torch.core import chunk as chunking
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = ragged_config()
+    total = {k: 0 for k in KERNELS}
+    for n in RAGGED_FRAMES:
+        frames = make_frames(n=n)
+        inverter = Inverter(bundle, cfg)
+        generator = with_stats(Generator(bundle, cfg))
+        times = {}
+        stage = functools.partial(timed, times)
+        with ModuleLaunches({"SD1.5": bundle.unet}) as rec:
+            reset_launches()
+            latents, conds = stage("encode", lambda: inverter.encode(frames))
+            inverted = stage("invert", lambda: inverter.ddim_inversion(
+                latents, conds))
+            n_inv = len(rec.calls["SD1.5"])
+            generator.configure_frames(n)
+            _, prompt = next(iter(generator.prompt.items()))
+            context = stage("text", lambda: generator.text.embed_cfg(
+                prompt, generator.negative_prompt))
+            table = generator.fidx_table()
+            pad = torch.as_tensor(generator.pad_src, device=dev)
+            clean = stage("generate", lambda: generator.ddim_sample(
+                inverted[pad], context, fidx_table=table))
+            out = stage("decode", lambda: generator.vae.decode(clean[:n]))
+            launches = read_launches()
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        host = chunking.build_fidx_table(
+            generator.n_padded, 4, np.random.default_rng(generator.seed),
+            STEPS, chunk_ord=generator.chunk_ord,
+            perm_div=generator.perm_div, merge_global=True, ragged=True,
+            n_frames=n)
+        K = 1 + -(-(n - 1) // 4)
+        rows = [c["batch"] for c in rec.calls["SD1.5"][n_inv:]]
+        waste = int((table[..., 1] == n).sum())
+        print(f"[ragged] {n} frames {SIZE}x{SIZE} in {generator.n_padded} "
+              f"slots, {STEPS}+{STEPS} DDIM steps, exact keys with ragged "
+              f"boundaries: {table.shape[1]} chunks a step (first chunks of "
+              f"{sorted({int((t[0, :, 1] < n).sum()) for t in table})} real "
+              f"frames), {waste} writes to the waste slot {n}; UNet calls: "
+              f"inversion {dict(inverter.unet_calls)}, generation "
+              f"{dict(generator.unet_calls)}; stage seconds "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        if not np.array_equal(table, host) or table.shape[1] != K:
+            raise AssertionError(f"[ragged] {n} frames: the table differs "
+                                 f"from the host's, or has not {K} chunks")
+        if rows != [8] * (K * STEPS) or generator.n_padded != 12 or not waste:
+            raise AssertionError(f"[ragged] {n} frames: generation calls of "
+                                 f"rows {rows}, want {K} of 8 a step; "
+                                 f"{generator.n_padded} slots")
+        rec.check(f"ragged {n}")
+        rec.check_rows(f"ragged {n}")
+        check_frames(f"ragged {n}", out, n)
+        print_stats(f"ragged {n}", generator, bundle.unet)
+    print(f"[ragged] kernel launches in this run: {total}")
+    return total
+
+
+def ldm_topology(unet, tome, latent: int) -> dict:
+    """What the LDM variant gives one UNet call: the TransformerBlocks
+    that merge (their cross-attention on the merged tokens, small-KV) and
+    the others, with those whose self-attention small-KV takes."""
+    from vidtome_torch.models.layers import TransformerBlock
+    from vidtome_torch.ops.attention import SMALL_KV
+
+    blocks = [m for m in unet.modules() if isinstance(m, TransformerBlock)]
+    merged = [b for b in blocks if b.downsample <= tome.max_downsample]
+    other = [b for b in blocks if b.downsample > tome.max_downsample]
+    return {"blocks": len(blocks), "merged": len(merged),
+            "unmerged": len(other),
+            "unmerged_small_self": sum((latent // b.downsample) ** 2
+                                       <= SMALL_KV for b in other)}
+
+
+def phase_ldm(dev, bundle) -> tuple[dict, object]:
+    """Phase 28: the exact keys with bench.py's --ldm on SD1.5: 8 frames,
+    STEPS+STEPS DDIM steps.  Returns the launches and the ToMeConfig."""
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    cfg = ldm(exact_config(STEPS))
+    frames = make_frames()
+    inverter = Inverter(bundle, cfg)
+    generator = with_stats(Generator(bundle, cfg))
+    times = {}
+    stage = functools.partial(timed, times)
+    with ModuleLaunches({"SD1.5": bundle.unet}) as rec:
+        reset_launches()
+        latents, conds = stage("encode", lambda: inverter.encode(frames))
+        inverted = stage("invert", lambda: inverter.ddim_inversion(latents,
+                                                                   conds))
+        n_inv = len(rec.calls["SD1.5"])
+        generator.configure_frames(N_FRAMES)
+        _, prompt = next(iter(generator.prompt.items()))
+        context = stage("text", lambda: generator.text.embed_cfg(
+            prompt, generator.negative_prompt))
+        table = generator.fidx_table()
+        clean = stage("generate", lambda: generator.ddim_sample(
+            inverted[torch.as_tensor(generator.pad_src, device=dev)],
+            context, fidx_table=table))
+        out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
+        launches = read_launches()
+    topo = ldm_topology(bundle.unet, generator.tome, SIZE // 8)
+    gen = rec.calls["SD1.5"][n_inv:]
+    # attention on merged tokens runs one row per chunk and lane
+    merged_cross = [sum(n for (k, sh), n in c["shapes"].items()
+                        if k == "small_kv_attention"
+                        and sh[0] * 4 == c["batch"]) for c in gen]
+    print(f"[ldm] SD1.5, {N_FRAMES} frames {SIZE}x{SIZE}, {STEPS}+{STEPS} "
+          f"DDIM steps, exact keys with merge_crossattn and merge_ff; "
+          f"transformer blocks {topo}; cross-attentions on merged tokens a "
+          f"generation call {sorted(set(merged_cross))}; UNet calls: "
+          f"inversion {dict(inverter.unet_calls)}, generation "
+          f"{dict(generator.unet_calls)}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    if set(merged_cross) != {topo["merged"]}:
+        raise AssertionError(f"[ldm] merged cross-attentions a call "
+                             f"{merged_cross}, want {topo['merged']}")
+    rec.check("ldm")
+    rec.check_rows("ldm")
+    check_frames("ldm", out, N_FRAMES)
+    print_stats("ldm", generator, bundle.unet)
+    print(f"[ldm] kernel launches in this run: {launches}")
+
+    # the mean merge mode, which only ToMeConfig.merge_mode reaches: the
+    # exact keys from the same inversion (launches counted with the LDM
+    # run's)
+    mean = with_stats(Generator(bundle, exact_config(STEPS)))
+    mean.tome = dataclasses.replace(mean.tome, merge_mode="mean")
+    mean.configure_frames(N_FRAMES)
+    with ModuleLaunches({"SD1.5": bundle.unet}) as rec:
+        before = read_launches()
+        clean = timed(times, "generate (mean merge)", lambda: mean.ddim_sample(
+            inverted[torch.as_tensor(mean.pad_src, device=dev)], context,
+            fidx_table=table))
+        launches = {k: v + launches[k] - before[k]
+                    for k, v in read_launches().items()}
+    print(f"[ldm] the exact keys with merge_mode mean: UNet calls "
+          f"{dict(mean.unet_calls)}; generate "
+          f"{times['generate (mean merge)']:.3f} s")
+    rec.check("mean")
+    rec.check_rows("mean")
+    check_frames("mean", mean.vae.decode(clean[:N_FRAMES]), N_FRAMES)
+    print_stats("mean", mean, bundle.unet)
+    plain = dataclasses.replace(generator.tome, merge_crossattn=False,
+                                merge_ff=False)
+    for tag, tome in (("ldm", generator.tome), ("ldm, plain", plain),
+                      ("ldm", generator.tome), ("ldm, plain", plain)):
+        step_device_ms(tag, dev, bundle.unet, tome, 2, [1, 1], SIZE // 8)
+    return launches, generator.tome
+
+
+def phase_ldm_pnp(dev, bundle, inverted, src) -> tuple[dict, object]:
+    """Phase 30: configs/dog.yaml's PnP keys with the fused sublayer and
+    bench.py's --ldm on SD2.1, from phase 11's inversion (its latents and
+    source table), LDM_PNP_STEPS DDIM steps.  Returns the launches and the
+    ToMeConfig."""
+    from vidtome_torch.pipeline.generator import Generator
+
+    cfg = ldm(pnp_config())
+    cfg["generation"]["n_timesteps"] = LDM_PNP_STEPS
+    generator = with_stats(Generator(bundle, cfg))
+    times = {}
+    stage = functools.partial(timed, times)
+    with ModuleLaunches({"SD2.1": bundle.unet}) as rec:
+        reset_launches()
+        generator.configure_frames(N_FRAMES)
+        _, prompt = next(iter(generator.prompt.items()))
+        context = stage("text", lambda: generator.context(prompt))
+        table = generator.fidx_table()
+        pad = torch.as_tensor(generator.pad_src, device=dev)
+        clean = stage("generate", lambda: generator.ddim_sample(
+            inverted[pad], context, fidx_table=table, src_table=src))
+        out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
+        launches = read_launches()
+    topo = ldm_topology(bundle.unet, generator.tome, SIZE // 8)
+    calls = rec.calls["SD2.1"]
+    sub = sorted({c["got"]["fused_cross_sublayer"] for c in calls})
+    small = sorted({c["got"]["small_kv_attention"] for c in calls})
+    want_small = topo["merged"] + topo["unmerged_small_self"]
+    print(f"[ldm pnp] SD2.1, {N_FRAMES} frames {SIZE}x{SIZE}, "
+          f"{LDM_PNP_STEPS} DDIM steps from phase 11's inversion, "
+          f"configs/dog.yaml's keys with the fused sublayer and "
+          f"merge_crossattn / merge_ff; transformer blocks {topo}; launches "
+          f"a UNet call: sublayer {sub} (want {topo['unmerged']}: the "
+          f"unmerged blocks), small-KV {small} (want {want_small}: the "
+          f"merged blocks' cross-attentions and the unmerged blocks' "
+          f"self-attentions over at most SMALL_KV tokens); UNet calls "
+          f"{dict(generator.unet_calls)}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    if sub != [topo["unmerged"]] or small != [want_small]:
+        raise AssertionError("[ldm pnp] sublayer / small-KV launches a call "
+                             "differ from the topology")
+    rec.check("ldm pnp")
+    rec.check_rows("ldm pnp")
+    check_frames("ldm pnp", out, N_FRAMES)
+    print_stats("ldm pnp", generator, bundle.unet)
+    print(f"[ldm pnp] kernel launches in this run: {launches}")
+    return launches, generator.tome
+
+
+def phase_sdxl_ldm(dev, bundle, inverted) -> tuple:
+    """Phase 32: bench_sdxl's keys with --ldm (sdxl_ldm_config) on SDXL and
+    its refiner from phase 17's inverted latents.  Returns the launches,
+    the base's ToMeConfig, the refiner's bundle and its ToMeConfig."""
+    from vidtome_torch.pipeline.generator import Generator
+
+    cfg = sdxl_ldm_config()
+    times = {}
+    generator = timed(times, "build the refiner",
+                      lambda: Generator(bundle, cfg))
+    refiner = generator.refiner
+    with_stats(generator)
+    with_stats(refiner)
+    run = drive_sdxl(dev, bundle, generator, times, inverted=inverted)
+    if not (refiner.tome.merge_crossattn and refiner.tome.merge_ff):
+        raise AssertionError("[sdxl ldm] the refiner did not inherit --ldm")
+    print(f"[sdxl ldm] SDXL + refiner, {N_FRAMES} frames "
+          f"{SDXL_SIZE}x{SDXL_SIZE}, {SDXL_STEPS} DDIM steps from phase 17's "
+          f"inversion, the refiner from step {generator.split_step()}, "
+          f"bench_sdxl keys with merge_crossattn / merge_ff; transformer "
+          f"blocks: base {ldm_topology(bundle.unet, generator.tome, 128)}, "
+          f"refiner {ldm_topology(refiner.bundle.unet, refiner.tome, 128)}; "
+          f"UNet calls: base {dict(generator.unet_calls)}, refiner "
+          f"{dict(refiner.unet_calls)}")
+    check_calls("sdxl ldm", run, sdxl_wants(bundle, refiner,
+                                            inversion=False))
+    print_stats("sdxl ldm", generator, bundle.unet)
+    print_stats("sdxl ldm, refiner", refiner, refiner.bundle.unet)
+    print_run("sdxl ldm", run, times)
+    tome, refiner_bundle, refiner_tome = (generator.tome, refiner.bundle,
+                                          refiner.tome)
+    del refiner, generator
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = dataclasses.replace(tome, merge_crossattn=False, merge_ff=False)
+    for tag, t in (("sdxl ldm", tome), ("sdxl ldm, plain", plain)):
+        step_device_ms(tag, dev, bundle.unet, t, 2, [1, 1], SDXL_SIZE // 8)
+    return run.launches, tome, refiner_bundle, refiner_tome
 
 
 def write_cli_inputs(out_dir: str) -> None:
@@ -3579,11 +4292,22 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    name, _ = phase_device()
-    phase_build(dev)
-    torch.cuda.synchronize()
-    stats = phase_kernels(dev)
-    torch.cuda.synchronize()
+    seconds = {}
+
+    def step(tag, fn, *args, **kwargs):  # a phase, its seconds kept
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[tag] = round(time.perf_counter() - t, 1)
+        return out
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    name, _ = step("1", phase_device)
+    step("2", phase_build, dev)
+    stats = step("3", phase_kernels, dev)
 
     from vidtome_torch.models.registry import init_model
 
@@ -3593,104 +4317,96 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     print(f"[main] SD1.5 and a canny ControlNet, random weights, on the "
           f"card in {time.perf_counter() - t0:.1f} s")
-    exact = phase_main_path(dev, bundle)
-    torch.cuda.synchronize()
-    phase_reference(dev, bundle)
-    torch.cuda.synchronize()
-    launches = phase_serving(dev, bundle)
-    torch.cuda.synchronize()
-    int8 = phase_int8(dev, bundle)
-    torch.cuda.synchronize()
-    phase_int8_reference(dev, bundle)
-    torch.cuda.synchronize()
-    controlnet = phase_controlnet(dev, bundle)
-    torch.cuda.synchronize()
-    phase_controlnet_reference(dev, bundle)
-    torch.cuda.synchronize()
+    exact = step("4", phase_main_path, dev, bundle)
+    step("5", phase_reference, dev, bundle)
+    launches = step("6", phase_serving, dev, bundle)
+    int8 = step("7", phase_int8, dev, bundle)
+    step("8", phase_int8_reference, dev, bundle)
+    controlnet = step("9", phase_controlnet, dev, bundle)
+    step("10", phase_controlnet_reference, dev, bundle)
+    batch, tome = step("25", phase_chunk_batch, dev, bundle)
+    step("26", reference_steps, "batch", dev, bundle.unet, tome, 2, [1, 2],
+         16, resnet_mode="fused")
+    ragged = step("27", phase_ragged, dev, bundle)
+    ldm15, tome = step("28", phase_ldm, dev, bundle)
+    step("29", reference_steps, "ldm", dev, bundle.unet, tome, 2, [1, 1], 16)
 
     del bundle
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     t0 = time.perf_counter()
     bundle = init_model("2.1", weight_dtype="bf16", device=dev, seed=0)
     torch.cuda.synchronize()
     print(f"[pnp] SD2.1 random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s")
-    pnp = phase_pnp(dev, bundle)
-    torch.cuda.synchronize()
-    phase_pnp_call(dev, bundle)
-    torch.cuda.synchronize()
-    phase_reference_sd21(dev, bundle)
-    torch.cuda.synchronize()
+    pnp, inverted, src = step("11", phase_pnp, dev, bundle)
+    step("11 call", phase_pnp_call, dev, bundle)
+    step("12", phase_reference_sd21, dev, bundle)
+    ldm_pnp, tome = step("30", phase_ldm_pnp, dev, bundle, inverted, src)
+    step("31", reference_steps, "ldm pnp", dev, bundle.unet, tome, 3, [1, 1],
+         16, sublayer_mode="fused", attn_inject=True, conv_inject=True)
 
-    del bundle
-    gc.collect()
-    torch.cuda.empty_cache()
+    del bundle, inverted, src
+    free()
     with tempfile.TemporaryDirectory() as nets_dir:
         nets = write_control_nets(nets_dir)
-        phase_control_models(dev, nets)
-        torch.cuda.synchronize()
+        step("13", phase_control_models, dev, nets)
         t0 = time.perf_counter()
         bundle = init_model("1.5", weight_dtype="bf16", device=dev, seed=0,
                             control="softedge")
         torch.cuda.synchronize()
         print(f"[lora] SD1.5 and a softedge ControlNet, random weights, on "
               f"the card in {time.perf_counter() - t0:.1f} s")
-        lora = phase_lora(dev, bundle)
-        torch.cuda.synchronize()
+        lora = step("14", phase_lora, dev, bundle)
         for env, _ in nets.values():
             os.environ.pop(env, None)
 
     del bundle
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     t0 = time.perf_counter()
     bundle = init_model("depth", weight_dtype="bf16", device=dev, seed=0)
     torch.cuda.synchronize()
     print(f"[depth] SD2-depth random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s")
-    depth = phase_depth(dev, bundle)
-    torch.cuda.synchronize()
-    phase_depth_reference(dev, bundle)
-    torch.cuda.synchronize()
+    depth = step("15", phase_depth, dev, bundle)
+    step("16", phase_depth_reference, dev, bundle)
 
     del bundle
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     t0 = time.perf_counter()
     bundle = init_model("xl", weight_dtype="bf16", device=dev, seed=0)
     torch.cuda.synchronize()
     print(f"[sdxl] SDXL random weights on the card in "
           f"{time.perf_counter() - t0:.1f} s")
-    sdxl, refiner, inverted = phase_sdxl(dev, bundle)
-    torch.cuda.synchronize()
-    sdxl_call_times(dev, "sdxl", [("SDXL", bundle.unet, 8, {}),
-                                  ("refiner", refiner.unet, 8, {})])
-    torch.cuda.synchronize()
-    phase_sdxl_reference(dev, bundle, refiner)
+    sdxl, refiner, inverted = step("17", phase_sdxl, dev, bundle)
+    step("17 calls", sdxl_call_times, dev, "sdxl",
+         [("SDXL", bundle.unet, 8, {}), ("refiner", refiner.unet, 8, {})])
+    step("18", phase_sdxl_reference, dev, bundle, refiner)
     del refiner
-    gc.collect()
-    torch.cuda.empty_cache()
-    sdxl_int8, refiner = phase_sdxl_int8(dev, bundle)
-    torch.cuda.synchronize()
-    phase_sdxl_int8_reference(dev, bundle, refiner)
+    free()
+    sdxl_int8, refiner = step("19", phase_sdxl_int8, dev, bundle)
+    step("20", phase_sdxl_int8_reference, dev, bundle, refiner)
     del refiner
-    gc.collect()
-    torch.cuda.empty_cache()
-    sdxl_pnp = phase_sdxl_pnp(dev, bundle)
-    torch.cuda.synchronize()
-    phase_sdxl_pnp_reference(dev, bundle)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sdxl_serve = phase_sdxl_serving(dev, bundle, inverted)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sdxl_lora = phase_sdxl_lora(dev, bundle, inverted)
-    torch.cuda.synchronize()
+    free()
+    sdxl_pnp = step("21", phase_sdxl_pnp, dev, bundle)
+    step("22", phase_sdxl_pnp_reference, dev, bundle)
+    free()
+    sdxl_serve = step("23", phase_sdxl_serving, dev, bundle, inverted)
+    free()
+    # before phase 24, which leaves its LoRA merged into the bundle
+    sdxl_ldm, tome, refiner, refiner_tome = step(
+        "32", phase_sdxl_ldm, dev, bundle, inverted)
+    step("33", reference_steps, "sdxl ldm", dev, bundle.unet, tome, 1,
+         [1, 1], 16, own=False)
+    step("33 refiner", reference_steps, "sdxl ldm, refiner", dev,
+         refiner.unet, refiner_tome, 1, [1, 1], 16, own=False)
+    del refiner
+    free()
+    sdxl_lora = step("24", phase_sdxl_lora, dev, bundle, inverted)
     print(f"[main] chip_smoke.py's phases {time.perf_counter() - start:.1f} s "
-          f"(the builds included)")
-    for path in (exact, int8, controlnet, lora, pnp, depth, sdxl, sdxl_int8,
-                 sdxl_pnp, sdxl_serve, sdxl_lora):
+          f"(the builds included); seconds by phase: {seconds}")
+    for path in (exact, int8, controlnet, batch, ragged, ldm15, lora, pnp,
+                 ldm_pnp, depth, sdxl, sdxl_int8, sdxl_pnp, sdxl_serve,
+                 sdxl_lora, sdxl_ldm):
         launches = {k: launches[k] + path[k] for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

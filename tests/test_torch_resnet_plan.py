@@ -47,10 +47,11 @@ SD15 = sorted({(8, s, s, ci, co) for s, ci, co in [
     (16, 1920, 1280), (32, 1920, 640), (32, 1280, 640), (32, 960, 640),
     (64, 960, 320), (64, 640, 320)] for ci in (ci, co)})
 
-# the ResnetBlock2D shapes of chip_smoke.py's SDXL phases (sdxl_block_rows:
-# an SDXL call at batch 4 and 8, a refiner call at batch 8), (B, H, W, Ci,
-# Co): the refiner's 384 / 768 / 1536 output channels are no multiple of
-# 160 or 320, its groups 12, 24 or 48 channels wide
+# the ResnetBlock2D shapes of chip_smoke.py's int8 SDXL phase (meta_rows'
+# " int8" kinds: an SDXL call at batch 4 and 8, a refiner call at batch 8),
+# which phase 3 runs both variants at, (B, H, W, Ci, Co): the refiner's
+# 384 / 768 / 1536 output channels are no multiple of 160 or 320, its
+# groups 12, 24 or 48 channels wide
 SDXL = sorted({(B, s, s, ci, co) for B in (4, 8) for s, ci, co in [
     (128, 320, 320), (128, 640, 320), (128, 960, 320), (64, 320, 640),
     (64, 640, 640), (64, 960, 640), (64, 1280, 640), (64, 1920, 640),
@@ -104,7 +105,7 @@ def test_plan_at_sd15_blocks(shape):
 
 
 def test_sdxl_rows_are_the_pinned_ones():
-    assert set(chip_smoke.sdxl_block_rows()[0]) == set(SDXL)
+    assert set(chip_smoke.meta_rows(" int8")["fused_resnet"]) == set(SDXL)
 
 
 @pytest.mark.parametrize("w8a8", [False, True], ids=["bf16", "w8a8"])

@@ -204,12 +204,12 @@ def test_serve_yaml_builds_both_stages():
 ])
 def test_serve_yaml_still_refuses_unported(stage, key, value, monkeypatch,
                                           capsys):
-    """merge_ff, chunk_batch and ragged chunk boundaries are refused.  What
-    the port now runs behaves as in the JAX package: ``use_lora`` in
-    generation merges the adapter it names (none here: a warning, and the
-    weights stay), the top-level key is not read at all, and
-    ``inversion.control: openpose`` without a pose model fails at
-    construction."""
+    """Every option is ported now, and behaves as in the JAX package:
+    merge_ff, chunk_batch and ragged chunk boundaries build a generation
+    stage that runs them; ``use_lora`` in generation merges the adapter it
+    names (none here: a warning, and the weights stay), the top-level key
+    is not read at all, and ``inversion.control: openpose`` without a pose
+    model fails at construction."""
     bundle = init_model("tiny", weight_dtype="fp32", device="cpu")
     cfg = _serve_config()
     (cfg if stage == "top" else cfg[stage])[key] = value
@@ -229,8 +229,9 @@ def test_serve_yaml_still_refuses_unported(stage, key, value, monkeypatch,
         with pytest.raises(RuntimeError, match="VIDTOME_POSE_MODEL"):
             cls(bundle, cfg)
         return
-    with pytest.raises(NotImplementedError, match=key):
-        cls(bundle, cfg)
+    gen = cls(bundle, cfg)
+    assert {"merge_ff": gen.tome.merge_ff, "chunk_batch": gen.chunk_batch,
+            "chunk_boundaries": gen.ragged}[key]
 
 
 @pytest.mark.parametrize("key", ["cache_interval", "eps_schedule"])

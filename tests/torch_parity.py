@@ -10,6 +10,7 @@ the port as plain numbers.
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -55,6 +56,29 @@ def jax_draw_table(seed: int, steps: int, chunks: int, F: int,
             row.append(local + [coin])
         table.append(row)
     return np.asarray(table, np.float64)
+
+
+_JITTED: dict = {}
+
+
+def jax_apply(model, variables, x, t, ctx, key, bank_mode: str,
+              mutable: list[str], num_lanes: int = 2):
+    """One merged JAX UNet call under ``jax.jit`` (on the CPU a jitted
+    call compiles in a few seconds where the op-by-op one takes tens):
+    ``model.apply(variables, x, t, ctx, tome_call=ToMeCall(key,
+    bank_mode), num_lanes, mutable)``.  The jitted call is kept per model
+    and static argument, so another key or input reuses its executable."""
+    from vidtome_tpu.models.tome import ToMeCall
+
+    sig = (model, t, bank_mode, tuple(mutable), num_lanes)
+    if sig not in _JITTED:
+        def call(v, x, c, key):
+            return model.apply(v, x, jnp.asarray(t), c,
+                               tome_call=ToMeCall(key=key,
+                                                  bank_mode=bank_mode),
+                               num_lanes=num_lanes, mutable=mutable)
+        _JITTED[sig] = jax.jit(call)
+    return _JITTED[sig](variables, jnp.asarray(x), jnp.asarray(ctx), key)
 
 
 def port_tome(cfg) -> ToMeConfig:

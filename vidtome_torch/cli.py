@@ -31,6 +31,7 @@ import torch
 from vidtome_torch.config import load_config, save_config
 from vidtome_torch.io import artifacts
 from vidtome_torch.io.video import load_video, save_frames, save_video
+from vidtome_torch.logging_utils import get_logger, timed
 from vidtome_torch.models.registry import init_model
 from vidtome_torch.pipeline.common import get_frame_ids, stage_depth
 from vidtome_torch.pipeline.generator import Generator
@@ -116,19 +117,22 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("vidtome_torch.cli runs on a CUDA device; none found")
     t0 = time.perf_counter()
-    bundle = init_model(sd_version=str(config.get("sd_version", "1.5")),
-                        model_key=config.get("model_key", None),
-                        weight_dtype=str(config.get("float_precision", "bf16")),
-                        device="cuda", seed=int(config.get("seed", 123)),
-                        control=str(config["generation"].get("control",
-                                                             "none")),
-                        controlnet_root=config.get("controlnet_root", None))
+    with timed("model load"):
+        bundle = init_model(
+            sd_version=str(config.get("sd_version", "1.5")),
+            model_key=config.get("model_key", None),
+            weight_dtype=str(config.get("float_precision", "bf16")),
+            device="cuda", seed=int(config.get("seed", 123)),
+            control=str(config["generation"].get("control", "none")),
+            controlnet_root=config.get("controlnet_root", None))
     config["model_key"] = bundle.model_key
-    run_inversion(config, bundle)
-    run_generation(config, bundle)
+    with timed("inversion"):
+        run_inversion(config, bundle)
+    with timed("generation"):
+        run_generation(config, bundle)
     torch.cuda.synchronize()
-    print(f"[INFO] wall time {time.perf_counter() - t0:.3f} s on "
-          f"{torch.cuda.get_device_name(0)}")
+    get_logger().info("wall time %.3f s on %s", time.perf_counter() - t0,
+                      torch.cuda.get_device_name(0))
 
 
 if __name__ == "__main__":

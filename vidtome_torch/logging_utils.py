@@ -1,0 +1,59 @@
+"""Logging, stage timing and token-merging statistics.
+
+Counterpart of ``vidtome_tpu/logging_utils.py``: a logger on the stdlib
+``logging`` module with the reference's visible format (``[INFO] ...``), a
+context that logs a stage's wall seconds (the CLI's model load, inversion
+and generation, and its wall time), and the per-block merge statistics of
+a UNet call (the counterpart of the reference's collect_from_patch,
+patch.py:373-387).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import sys
+import time
+
+_configured = False
+
+
+def get_logger(name: str = "vidtome") -> logging.Logger:
+    global _configured
+    if not _configured:
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter("[%(levelname)s] %(message)s"))
+        root = logging.getLogger("vidtome")
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        root.propagate = False
+        _configured = True
+    return logging.getLogger(name)
+
+
+@contextlib.contextmanager
+def timed(label: str, logger: logging.Logger | None = None):
+    """Log the wall-clock seconds of a stage."""
+    log = logger or get_logger()
+    t0 = time.time()
+    yield
+    log.info("%s took %.2fs", label, time.time() - t0)
+
+
+def collect_tome_stats(stats: dict, model=None) -> dict[str, dict]:
+    """One UNet call's merge statistics (``ToMeCall.stats``: block ->
+    {seq_len, merged_len}) as {block path: {seq_len, merged_len,
+    compression}}, compression = merged_len / seq_len.  A block is named
+    by its module path in ``model`` (for example
+    ``down_blocks.0.attentions.0.transformer_blocks.0``); without a model,
+    or for a block outside it, by ``str`` of its key."""
+    names = {}
+    if model is not None:
+        names = {id(m): n for n, m in model.named_modules()}
+    out: dict[str, dict] = {}
+    for block, vals in stats.items():
+        vals = {k: int(v) for k, v in vals.items()}
+        if vals.get("seq_len"):
+            vals["compression"] = vals["merged_len"] / vals["seq_len"]
+        out[names.get(id(block), str(block))] = vals
+    return out

@@ -308,7 +308,16 @@ class TransformerBlock(nn.Module):
     """Transformer block with cross-frame token merging around attn1
     (reference patch.py:148-169): norm1 -> [join frames -> local merge ->
     global merge against the bank] -> attn1 -> unmerge -> residual ->
-    norm2 -> attn2 -> residual -> norm3 -> ff -> residual.
+    norm2 -> attn2 -> residual -> norm3 -> ff -> residual.  The merges
+    follow ``ToMeConfig.merge_mode``; a mode other than "replace" builds
+    every plan with its sorted indices (JAX ``layers.py:561-615``).
+
+    LDM variant (``merge_crossattn`` / ``merge_ff``, the reference's
+    LDM-path block, patch.py:104-114; JAX ``layers.py:670-712``): attn2
+    and / or ff run on the norm2 / norm3 tokens merged by the block's local
+    plans and are unmerged through them; the global plan stays attn1's.
+    The merged cross-attention reads ``context[::frames]``, one context row
+    per joined row (lane contexts are repeated per frame).
 
     ``attn_inject`` (PnP) shares lane 0's q and k in attn1, merged or not.
     ``sublayer_mode="fused"`` (config key ``generation.sublayer_mode`` /
@@ -343,24 +352,51 @@ class TransformerBlock(nn.Module):
                              "projections; this call has an int8 table")
         norm_x = self.norm1(x)
         cfg = tome_call.cfg if tome_call is not None else None
-        if (cfg is not None and self.downsample <= cfg.max_downsample
-                and cfg.frames > 1):
-            a1 = self._merged_attn1(norm_x, tome_call, attn_inject, num_lanes,
-                                    qt)
+        do_merge = (cfg is not None and self.downsample <= cfg.max_downsample
+                    and cfg.frames > 1)
+        plans = []
+        if do_merge:
+            a1, plans = self._merged_attn1(norm_x, tome_call, attn_inject,
+                                           num_lanes, qt)
         else:
             a1 = self.attn1(norm_x, share_qk=attn_inject, num_lanes=num_lanes,
                             qt=qt)
-        if sublayer_mode == "fused" and self._fused_sublayer_ok():
+        if self._fused_sublayer_ok(sublayer_mode, cfg, do_merge):
             x3, y3 = self._fused_sublayer(x, a1, context)
             return x3 + self.ff(y3)
         x = x + a1
-        x = x + self.attn2(self.norm2(x), context, qt=qt)
-        return x + self.ff(self.norm3(x), qt)
 
-    def _fused_sublayer_ok(self) -> bool:
+        def merged(fn, h, *args):  # fn on the locally merged tokens
+            F_ = cfg.frames
+            j = merge_ops.join_frames(h, F_)
+            for p in plans:
+                j = merge_ops.merge(j, p, cfg.merge_mode)
+            return merge_ops.split_frames(
+                merge_ops.unmerge_all(fn(j, *args), plans), F_)
+
+        h = self.norm2(x)
+        if do_merge and cfg.merge_crossattn and plans:
+            x = x + merged(lambda t, c: self.attn2(t, c, qt=qt), h,
+                           context[::cfg.frames])
+        else:
+            x = x + self.attn2(h, context, qt=qt)
+        h = self.norm3(x)
+        if do_merge and cfg.merge_ff and plans:
+            return x + merged(lambda t: self.ff(t, qt), h)
+        return x + self.ff(h, qt)
+
+    def _fused_sublayer_ok(self, sublayer_mode: str, cfg,
+                           do_merge: bool) -> bool:
+        """Whether the norm2 -> attn2 -> norm3 chain takes the fused
+        sublayer: ``sublayer_mode`` "fused", bf16 weights, ``heads *
+        head_dim == dim``, and not a merging block of the LDM variant,
+        whose attn2 / ff run merged (JAX ``layers.py:526-537``)."""
         attn = self.attn2
-        return (attn.to_q.weight.dtype == torch.bfloat16
-                and attn.heads * attn.head_dim == self.norm2.weight.shape[0])
+        if sublayer_mode != "fused" or attn.to_q.weight.dtype != torch.bfloat16:
+            return False
+        if attn.heads * attn.head_dim != self.norm2.weight.shape[0]:
+            return False
+        return not (do_merge and (cfg.merge_crossattn or cfg.merge_ff))
 
     def _fused_sublayer(self, x, a1, context):
         attn = self.attn2
@@ -373,9 +409,11 @@ class TransformerBlock(nn.Module):
             eps=self.norm2.eps)
 
     def _merged_attn1(self, norm_x: torch.Tensor, call: ToMeCall,
-                      attn_inject: bool, num_lanes: int,
-                      qt) -> torch.Tensor:
+                      attn_inject: bool, num_lanes: int, qt):
+        """attn1 on the merged tokens, unmerged; returns it with the local
+        plans."""
         cfg = call.cfg
+        mode = cfg.merge_mode
         F_ = cfg.frames
         joined = merge_ops.join_frames(norm_x, F_)
         # share_match: the first block at a resolution level matches; the
@@ -387,47 +425,53 @@ class TransformerBlock(nn.Module):
             plans = cached["plans"]
             tokens = joined
             for p in plans:
-                tokens = merge_ops.merge(tokens, p)
+                tokens = merge_ops.merge(tokens, p, mode)
         else:
             tokens, plans = merge_ops.compute_local_merge(
                 joined, F_, cfg.local_merge_ratio, call.local_draws,
                 target_stride=cfg.target_stride, align_batch=cfg.align_batch,
-                len_quantum=cfg.len_quantum)
+                mode=mode, len_quantum=cfg.len_quantum)
         local = tokens
         L = local.shape[1]
         global_plan = None
-        local_is_src = True
+        side = 0  # the partition of the local tokens in the global merge
         if cfg.merge_global and call.bank_mode == "init":
             call.banks[self] = local
         elif cfg.merge_global and call.bank_mode == "merge":
             # coin flip: which side plays src (reference patch.py:59-75)
-            local_is_src = call.coin > cfg.global_rand
+            side = 0 if call.coin > cfg.global_rand else 1
             bank = call.banks[self].to(local.dtype)
-            tokens_cat = torch.cat([local, bank] if local_is_src
+            tokens_cat = torch.cat([local, bank] if side == 0
                                    else [bank, local], dim=1)
             if cached is not None and "global_plan" in cached:
                 global_plan = cached["global_plan"]
             else:
                 global_plan = merge_ops.two_set_matching(
                     tokens_cat, src_len=L, ratio=cfg.global_merge_ratio,
-                    align_batch=cfg.align_batch, len_quantum=cfg.len_quantum)
+                    align_batch=cfg.align_batch,
+                    keep_sorted_indices=mode != "replace",
+                    len_quantum=cfg.len_quantum)
                 if cache is not None:
                     cache.setdefault(key, {})["global_plan"] = global_plan
-            tokens = merge_ops.merge(tokens_cat, global_plan)
+            tokens = merge_ops.merge(tokens_cat, global_plan, mode)
             # the new bank: the local partition of the merged tokens,
             # unmerged (reference patch.py:80)
-            full = merge_ops.unmerge(tokens, global_plan)
-            call.banks[self] = full[:, :L] if local_is_src else full[:, L:]
+            call.banks[self] = merge_ops.partition(
+                merge_ops.unmerge(tokens, global_plan), L, side)
         if cache is not None and cached is None:
             cache.setdefault(key, {})["plans"] = plans
+        if cfg.collect_stats:
+            call.stats[self] = {
+                "seq_len": norm_x.shape[0] * norm_x.shape[1],
+                "merged_len": tokens.shape[0] * tokens.shape[1]}
 
         out = self.attn1(tokens, share_qk=attn_inject, num_lanes=num_lanes,
                          qt=qt)
         if global_plan is not None:
-            full = merge_ops.unmerge(out, global_plan)
-            out = full[:, :L] if local_is_src else full[:, L:]
+            out = merge_ops.partition(merge_ops.unmerge(out, global_plan), L,
+                                      side)
         out = merge_ops.unmerge_all(out, plans)
-        return merge_ops.split_frames(out, F_)
+        return merge_ops.split_frames(out, F_), plans
 
 
 class Transformer2D(nn.Module):

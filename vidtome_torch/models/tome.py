@@ -33,7 +33,14 @@ class ToMeConfig:
     max_downsample: int = 2          # merge only at downsample <= this
     target_stride: int = 4
     align_batch: bool = False
+    merge_mode: str = "replace"      # "replace" or "mean" (core/merge.merge)
+    collect_stats: bool = False      # each merging block records its
+                                     # token counts in ToMeCall.stats
     share_match: bool = False        # one matching per resolution level
+    merge_crossattn: bool = False    # cross-attention on the locally
+                                     # merged tokens too (the reference's
+                                     # LDM-path block, patch.py:104-114)
+    merge_ff: bool = False           # the feed-forward likewise
     len_quantum: int | None = 1024   # see core/merge.quantize_r
 
     def rounds(self) -> list[int]:
@@ -94,6 +101,10 @@ class ToMeCall:
         against the bank and replace it).
     banks: block -> bank tensor, carried from chunk to chunk by the caller.
     plan_cache: ``share_match`` plans, keyed by (downsample, tokens, width).
+    stats: block -> {"seq_len", "merged_len"}, the tokens of its
+        self-attention input before and after merging, summed over the
+        batch; written by every merging block under ``cfg.collect_stats``
+        (``logging_utils.collect_tome_stats`` names the blocks).
     """
 
     cfg: ToMeConfig | None
@@ -102,6 +113,7 @@ class ToMeCall:
     bank_mode: str = "off"
     banks: dict = dataclasses.field(default_factory=dict)
     plan_cache: dict = dataclasses.field(default_factory=dict)
+    stats: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.bank_mode not in ("off", "init", "merge"):

@@ -89,14 +89,10 @@ class VAECoder:
                              latents)
 
 
-# Options of the JAX package that the port does not run yet, with the
-# values it does run: a config that turns one on is refused rather than run
-# without it.
+# Options of the JAX package with the values the port runs: a config that
+# sets another value is refused rather than run without it.
 _UNPORTED = {
     "control": ("none", "pnp") + tuple(CONTROLNET_DICT),
-    "chunk_batch": (False,),
-    "chunk_boundaries": ("rotate",), "merge_crossattn": (False,),
-    "merge_ff": (False,),
 }
 
 

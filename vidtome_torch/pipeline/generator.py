@@ -69,6 +69,29 @@ table and its text encoder, once per bundle (``ModelBundle.lora``: a
 second Generator with the same adapter merges nothing, one with another
 adapter raises).  The inversion never reads it.
 
+Chunk boundaries (``chunk_boundaries``, read lower-cased, JAX
+``generator.py:168-180``): ``rotate`` (the default) keeps every chunk
+``chunk_size`` real or padded frames and rotates the boundaries each step;
+``ragged`` gives the first chunk a random length and never wraps
+(``core/chunk.ragged_fidx``): a short chunk repeats its last frame and
+writes those slots to a waste slot past the real frames, so the padded
+latents hold at least one slot more than the frames (:meth:`configure_frames`)
+and a step may run more chunks than ``n_padded / chunk_size``.
+
+Batched chunks (``chunk_batch``, JAX ``generator.py:618-640``): after the
+first chunk's UNet call of a step, chunks 2..K run as one UNet call of
+``lanes * (K - 1) * chunk_size`` rows, lane-major, then chunk, then frame,
+so local merging still joins each chunk's frames.  Every batched chunk
+merges against the first chunk's bank (each lane's bank repeated per chunk
+with ``repeat_interleave``, as ``jnp.repeat``), and they share the draws of
+``DrawSource`` column 1; the batched call's banks are dropped.  It cannot
+be combined with ragged boundaries (ValueError, as in JAX): one batched
+scatter cannot order the waste slot's writes.
+
+LDM-variant merging (``merge_crossattn`` / ``merge_ff``, bench.py's
+``--ldm``): cross-attention and / or the feed-forward of every merging block
+run on the locally merged tokens too (``models/layers.TransformerBlock``).
+
 Randomness: the chunk schedule comes from ``np.random.default_rng(seed)`` as
 in the JAX package; the merge draws (dst frame per local round, global
 coin) come from a :class:`~vidtome_torch.models.tome.DrawSource`, by default
@@ -246,6 +269,24 @@ def parse_sublayer_mode(stage_cfg, config) -> str:
     return mode
 
 
+def stage_tome(gene, use_pnp: bool) -> ToMeConfig:
+    """The merging configuration of a generation stage's keys (JAX
+    ``generator.py:199-224``); PnP aligns the matchings over its lanes."""
+    return ToMeConfig(
+        frames=int(gene.get("chunk_size", 4)),
+        local_merge_ratio=float(gene.get("local_merge_ratio", 0.9)),
+        merge_global=bool(gene.get("merge_global", False)),
+        global_merge_ratio=float(gene.get("global_merge_ratio", 0.8)),
+        global_rand=float(gene.get("global_rand", 0.5)),
+        max_downsample=int(gene.get("max_downsample", 2)),
+        target_stride=int(gene.get("target_stride", 4)),
+        align_batch=use_pnp or bool(gene.get("align_batch", False)),
+        share_match=bool(gene.get("share_match", True)),
+        len_quantum=gene.get("len_quantum", 1024),
+        merge_crossattn=bool(gene.get("merge_crossattn", False)),
+        merge_ff=bool(gene.get("merge_ff", False)))
+
+
 class Generator:
     def __init__(self, bundle: ModelBundle, config):
         gene = config["generation"]
@@ -297,17 +338,19 @@ class Generator:
         self.chunk_ord, self.perm_div = chunking.parse_chunk_ord(
             str(gene.get("chunk_ord", "mix-4")))
         self.merge_global = bool(gene.get("merge_global", False))
-        self.tome = ToMeConfig(
-            frames=self.chunk_size,
-            local_merge_ratio=float(gene.get("local_merge_ratio", 0.9)),
-            merge_global=self.merge_global,
-            global_merge_ratio=float(gene.get("global_merge_ratio", 0.8)),
-            global_rand=float(gene.get("global_rand", 0.5)),
-            max_downsample=int(gene.get("max_downsample", 2)),
-            target_stride=int(gene.get("target_stride", 4)),
-            align_batch=use_pnp or bool(gene.get("align_batch", False)),
-            share_match=bool(gene.get("share_match", True)),
-            len_quantum=gene.get("len_quantum", 1024))
+        boundaries = str(gene.get("chunk_boundaries", "rotate")).lower()
+        if boundaries not in ("rotate", "ragged"):
+            raise ValueError(f"chunk_boundaries must be rotate|ragged, got "
+                             f"{boundaries!r}")
+        self.ragged = boundaries == "ragged"
+        self.chunk_batch = bool(gene.get("chunk_batch", False))
+        if self.chunk_batch and self.ragged:
+            raise ValueError(
+                "generation.chunk_batch requires chunk_boundaries: rotate "
+                "-- ragged mode routes duplicate scatter slots through the "
+                "waste slot sequentially, which a single batched scatter "
+                "cannot order.")
+        self.tome = stage_tome(gene, use_pnp)
         self.use_depth = bundle.use_depth
         resolve_precision(config, gene, bundle)
         if bool(gene.get("use_lora", False)):
@@ -334,6 +377,9 @@ class Generator:
         # deep cache), "cfg_skip" (uncond lane dropped) and "eps_skip"
         # (steps that ran no UNet)
         self.unet_calls: collections.Counter = collections.Counter()
+        # under ToMeConfig.collect_stats: the merge statistics of the last
+        # step's UNet calls, by chunk position (ToMeCall.stats)
+        self.tome_stats: dict = {}
         self._eps_align_warned = False
         self.refiner = None
         ref = gene.get("refiner", None)
@@ -357,16 +403,25 @@ class Generator:
                               float(ref.get("aesthetic_score", 6.0)))
 
     def configure_frames(self, n: int) -> None:
-        """Set n_frames / n_padded / pad_src for an n-frame clip."""
+        """Set n_frames / n_padded / pad_src for an n-frame clip.  Ragged
+        boundaries need a slot past the real frames for the duplicate
+        writes: a clip that fills its chunks gets one more chunk of padding
+        (JAX ``generator.py:928-938``)."""
         self.n_frames = n
         self.n_padded, self.pad_src = chunking.pad_to_chunks(n, self.chunk_size)
+        if self.ragged and self.n_padded == n:
+            self.n_padded += self.chunk_size
+            self.pad_src = np.minimum(np.arange(self.n_padded), n - 1)
 
     def fidx_table(self) -> np.ndarray:
-        """[steps, chunks, chunk_size, 2] chunk schedule of one sampling."""
+        """[steps, K, chunk_size, 2] chunk schedule of one sampling (K from
+        the boundaries: ``n_padded / chunk_size`` rotated, more when
+        ragged)."""
         return chunking.build_fidx_table(
             self.n_padded, self.chunk_size, np.random.default_rng(self.seed),
             self.scheduler.num_steps, chunk_ord=self.chunk_ord,
-            perm_div=self.perm_div, merge_global=self.merge_global)
+            perm_div=self.perm_div, merge_global=self.merge_global,
+            ragged=self.ragged, n_frames=self.n_frames)
 
     def draw_source(self, n_chunks: int) -> DrawSource:
         return DrawSource.from_generator(
@@ -492,9 +547,14 @@ class Generator:
                              f"{context.shape[0]}")
         if fidx_table is None:
             fidx_table = self.fidx_table()
-        n_chunks, F = fidx_table.shape[1], fidx_table.shape[2]
+        n_chunks, cs = fidx_table.shape[1], fidx_table.shape[2]
         if draws is None:
             draws = self.draw_source(n_chunks)
+        # the UNet calls of a step: (draw column, chunks it runs); under
+        # chunk_batch the first chunk, then chunks 2..K in one call
+        groups = [(c, [c]) for c in range(n_chunks)]
+        if self.chunk_batch and n_chunks > 1:
+            groups = [(0, [0]), (1, list(range(1, n_chunks)))]
         unet = self.bundle.unet
         gs = self.guidance_scale
         fidx_all = torch.as_tensor(fidx_table, dtype=torch.long,
@@ -510,6 +570,7 @@ class Generator:
                                 device=x.device)
         history = EpsHistory(self.eps_extrapolate)
         calls = self.unet_calls = collections.Counter()
+        self.tome_stats = {}
         for i in range(start, stop):
             if modes is not None and not modes[i, 2]:
                 # eps skip: no UNet, the DDIM update on the predicted eps
@@ -525,22 +586,34 @@ class Generator:
             # lane-major [[source*F;] uncond*F; cond*F]; a CFG skip drops
             # the uncond lane (row L - 2)
             lanes = [r for r in range(L) if not (cfg_skip and r == L - 2)]
-            ctx = context[lanes].repeat_interleave(F, dim=0)
-            add_kw = {k: v[lanes].repeat_interleave(F, dim=0)
-                      for k, v in add.items()}
             pnp = {}
             if self.use_pnp:
                 pnp = dict(attn_inject=i < self.pnp_attn_steps,
                            conv_inject=i < self.pnp_conv_steps)
             eps = torch.zeros_like(x)
             banks: dict = {}
-            for c in range(n_chunks):
+            lane_ctx = {}  # rows a call -> the lane contexts, per frame
+            for c, chunks in groups:
                 if self.merge_global:
                     mode = "init" if c == 0 else "merge"
                 else:
                     mode = "off"
+                if len(chunks) > 1:
+                    # every batched chunk merges against its lane's bank of
+                    # the first chunk: lane-major rows, so each bank row is
+                    # repeated per chunk (jnp.repeat, not a tiling)
+                    banks = {blk: b.repeat_interleave(len(chunks), dim=0)
+                             for blk, b in banks.items()}
                 call = draws.call(self.tome, i, c, mode, banks)
-                gather, scatter = fidx_all[i, c, :, 0], fidx_all[i, c, :, 1]
+                pairs = fidx_all[i, chunks].flatten(0, 1)
+                gather, scatter = pairs[:, 0], pairs[:, 1]
+                F = len(chunks) * cs
+                if F not in lane_ctx:
+                    lane_ctx[F] = (
+                        context[lanes].repeat_interleave(F, dim=0),
+                        {k: v[lanes].repeat_interleave(F, dim=0)
+                         for k, v in add.items()})
+                ctx, add_kw = lane_ctx[F]
                 x_chunk = x[gather]
                 deep_in = None
                 if cache_mode == "shallow":
@@ -567,6 +640,8 @@ class Generator:
                            num_lanes=len(lanes), qt=self.qt, **pnp,
                            **residuals, **add_kw)
                 calls["shallow" if cache_mode == "shallow" else "full"] += 1
+                if self.tome.collect_stats:
+                    self.tome_stats[c] = call.stats
                 if cfg_skip:
                     calls["cfg_skip"] += 1
                 if cache_mode == "full":
