@@ -236,6 +236,31 @@ Phases (any failure exits non-zero before the last line):
   33. its reference (one lane, 16x16, without the CPU's own matchings),
      for the base and for the refiner (its 96-wide heads, 20 merging
      blocks).
+  Phases 34-36 run on the SD1.5 bundle after phase 29:
+  34. native bundle: the bundle (random, with its canny ControlNet) saved
+     by models/checkpoint.save_bundle into a temporary directory and
+     loaded back onto the card by load_bundle: every tensor the same
+     shape, dtype, strides and bits, one merged step (2 UNet calls of 8
+     rows at 512x512) the same bits on both (and on the same UNet twice);
+     prints the save's and the load's seconds, init_model's random init and
+     the bundle's bytes on disk;
+  35. stages alone: a config over configs/demo.yaml (8 frames of
+     data/demo.mp4, STEPS+STEPS steps, temporary paths, tpu.profile_dir)
+     through `python -m vidtome_torch.pipeline.inverter`, then
+     `.generator`, as subprocesses that must exit 0 and leave the latents,
+     inversion_prompts.txt, the edited frames and one Chrome trace; the
+     trace's launches of each hand-written kernel of the exact path
+     (TRACE_SYMBOLS) must equal what ModuleLaunches reads over the same
+     config's generation in this process (cli.setup_from_argv,
+     run_inversion, run_generation), whose frames must agree with the
+     subprocess's (max |diff|, PSNR through `python -m vidtome_torch.eval`,
+     >= 35 dB); prints the loop's wall untraced and traced;
+  36. tools: tools/parity_run.run_parity on the bundle (8 frames, 512x512,
+     GATE_STEPS steps, the int8 and serve_maxe3xb profiles checked) and
+     tools/quality_gate's main for GATES_RUN (1 seed, 8 frames,
+     GATE_STEPS steps): each gate's dB and its record's backend, the
+     card's name and power limit.  Random weights: the dB measure how far
+     a lever moves the output, not perceptual quality.
 ``python3 chip_smoke.py --cli-inputs DIR`` instead writes the inputs of the
 CLI runs of configs/flamingo.yaml and configs/breakdance.yaml on
 data/demo.mp4 (write_cli_inputs) and exits.
@@ -265,6 +290,7 @@ import dataclasses
 import functools
 import gc
 import inspect
+import io
 import json
 import os
 import subprocess
@@ -439,8 +465,12 @@ def int8_config() -> dict:
     INV_SERVE_PROFILES["int8_fused"] (quant: int8, resnet_mode: fused), and
     configs/serve.yaml's generation keys with bench.py's
     SERVE_PROFILES["maxe3x"] (serve.yaml's schedules, merge ratios and fused
-    resnet blocks, plus quant: int8)."""
+    resnet blocks, plus quant: int8); the profiles from the port's copy of
+    bench.py's tables, vidtome_torch/tools/profiles.py."""
     import yaml
+
+    from vidtome_torch.tools.profiles import (INV_SERVE_PROFILES,
+                                              SERVE_PROFILES)
 
     with open(ROOT / "configs" / "default.yaml") as f:
         default = yaml.safe_load(f)
@@ -449,9 +479,10 @@ def int8_config() -> dict:
         **CONFIG["inversion"],
         **{k: v for k, v in default["inversion"].items()
            if k not in ("prompt", "save_path")},
-        "quant": "int8", "resnet_mode": "fused", "steps": INT8_STEPS,
+        **INV_SERVE_PROFILES["int8_fused"][0], "steps": INT8_STEPS,
         "save_steps": INT8_STEPS}
-    cfg["generation"].update(quant="int8", n_timesteps=INT8_STEPS)
+    cfg["generation"].update(SERVE_PROFILES["maxe3x"],
+                             n_timesteps=INT8_STEPS)
     return cfg
 
 
@@ -3474,16 +3505,14 @@ def phase_sdxl_pnp_reference(dev, bundle) -> None:
 
 def sdxl_serve_config() -> dict:
     """sdxl_config with bench.py's SDXL serve sidecar keys: its generation
-    keys with SERVE_PROFILES["maxe3xbs"] (bench.py:168: the deep, CFG and
-    eps step caches, linear eps extrapolation, local 0.95 / global 0.9
-    merging, fused resnet blocks and fused sublayers), which the refiner's
-    copy of the config carries too."""
+    keys with SERVE_PROFILES["maxe3xbs"] (tools/profiles.py, bench.py:168:
+    the deep, CFG and eps step caches, linear eps extrapolation, local 0.95
+    / global 0.9 merging, fused resnet blocks and fused sublayers), which
+    the refiner's copy of the config carries too."""
+    from vidtome_torch.tools.profiles import SERVE_PROFILES
+
     cfg = sdxl_config()
-    cfg["generation"].update(
-        cache_schedule="full:6,uniform:12", cfg_schedule="full:6,uniform:6",
-        eps_schedule="full:6,uniform:3", eps_extrapolate=True,
-        local_merge_ratio=0.95, global_merge_ratio=0.9, resnet_mode="fused",
-        sublayer_mode="fused")
+    cfg["generation"].update(SERVE_PROFILES["maxe3xbs"])
     return cfg
 
 
@@ -3649,10 +3678,13 @@ LDM_PNP_STEPS = 50
 
 
 def chunk_batch_config() -> dict:
-    """bench.py's SERVE_PROFILES["maxe3xbB"]: configs/serve.yaml's keys
-    (serve_config, SERVE_STEPS DDIM steps) plus chunk_batch: true."""
+    """bench.py's SERVE_PROFILES["maxe3xbB"] (tools/profiles.py: the keys
+    of configs/serve.yaml plus chunk_batch: true) over serve_config
+    (SERVE_STEPS DDIM steps)."""
+    from vidtome_torch.tools.profiles import SERVE_PROFILES
+
     cfg = serve_config()
-    cfg["generation"]["chunk_batch"] = True
+    cfg["generation"].update(SERVE_PROFILES["maxe3xbB"])
     return cfg
 
 
@@ -4241,6 +4273,283 @@ def phase_sdxl_ldm(dev, bundle, inverted) -> tuple:
     return run.launches, tome, refiner_bundle, refiner_tome
 
 
+# the tail of the port (phases 34-36): native bundles, the stages run
+# alone with a torch.profiler trace, the parity run and the quality gates
+GATE_STEPS = 10
+# int8, the step caches, and two modes the JAX package gates off: LDM
+# merging and ragged chunk boundaries (ragged the exact side there)
+GATES_RUN = ("int8", "ldm", "serve", "deepcache_w3", "chunk_ragged")
+PARITY_PROFILES = ("int8", "serve_maxe3xb")
+# the __global__ function of each hand-written kernel the exact path
+# launches, as a trace names it (the full GroupNorm entry launches
+# group_norm_kernel, as the stats and apply entries do, which the exact
+# path does not run)
+TRACE_SYMBOLS = {"flash_attention": "flash_fwd_kernel",
+                 "small_kv_attention": "small_kv_kernel",
+                 "full_group_norm": "group_norm_kernel",
+                 "best_match": "best_match_kernel"}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape, dtype, strides and bytes."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.stride() == b.stride()
+            and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                            b.reshape(-1).contiguous().view(torch.uint8)))
+
+
+def phase_checkpoint(dev, bundle, init_seconds: float) -> None:
+    """Phase 34: the SD1.5 bundle (random, with its canny ControlNet) saved
+    as a native bundle and loaded back onto the card: every tensor the same
+    bits, one merged step (two UNet calls: the bank initialised, then merged
+    against) the same bits on both; the save's and the load's seconds
+    beside init_model's random init, and the bundle's bytes on disk."""
+    from vidtome_torch.models.checkpoint import load_bundle, save_bundle
+    from vidtome_torch.pipeline.generator import stage_tome
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sd15-native")
+        t0 = time.perf_counter()
+        save_bundle(bundle, path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        back = load_bundle(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    mods = {"unet": "unet", "vae": "vae", "text": "text_encoder",
+            "controlnet": "controlnet"}
+    n = 0
+    for name, attr in mods.items():
+        sa = getattr(bundle, attr).state_dict()
+        sb = getattr(back, attr).state_dict()
+        odd = [k for k in sa if k not in sb or not same_bits(sa[k], sb[k])]
+        if odd or sa.keys() != sb.keys():
+            raise AssertionError(f"[checkpoint] {name}: {len(odd)} tensors "
+                                 f"differ after the round trip, e.g. "
+                                 f"{odd[:3]}")
+        if any(t.device.type != dev.type for t in sb.values()):
+            raise AssertionError(f"[checkpoint] {name} not on {dev}")
+        n += len(sa)
+    tome = stage_tome(CONFIG["generation"], use_pnp=False)
+    runs = [step_calls(dev, unet, tome, 2, [1, 1], SIZE // 8,
+                       torch.bfloat16)[0]
+            for unet in (bundle.unet, bundle.unet, back.unet)]
+    if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+        raise AssertionError("[checkpoint] two merged steps on the same "
+                             "UNet differ: the step is not deterministic")
+    if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[2])):
+        raise AssertionError("[checkpoint] a merged step on the loaded "
+                             "bundle differs from the original's")
+    print(f"[checkpoint] SD1.5 + canny ControlNet bf16 (text encoder fp32) "
+          f"saved in {save_s:.3f} s, {nbytes} bytes on disk "
+          f"({nbytes / 2 ** 30:.3f} GiB), loaded onto the card in "
+          f"{load_s:.3f} s (init_model's random init of the same stack "
+          f"{init_seconds:.3f} s); {n} tensors the same bits; a merged step "
+          f"(2 UNet calls of 8 rows, {SIZE}x{SIZE}) the same bits on both")
+    del back
+
+
+def stage_yaml(work: str, profile_dir: str | None) -> str:
+    """A config over configs/demo.yaml (its keys and default.yaml's
+    beneath them): 8 frames of data/demo.mp4, STEPS+STEPS DDIM steps, its
+    paths under ``work``, ``tpu.profile_dir`` if given; written to
+    ``<work>.yaml``, whose path it returns."""
+    import yaml
+
+    cfg = {"base_config": str(ROOT / "configs" / "demo.yaml"),
+           "input_path": str(ROOT / "data" / "demo.mp4"), "work_dir": work,
+           "inversion": {"n_frames": N_FRAMES, "steps": STEPS,
+                         "save_steps": STEPS},
+           "generation": {"n_timesteps": STEPS, "frame_range": [N_FRAMES]}}
+    if profile_dir:
+        cfg["tpu"] = {"profile_dir": profile_dir}
+    with open(work + ".yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    return work + ".yaml"
+
+
+def run_module(tag: str, *argv, timeout: int = 600) -> str:
+    """``python -m argv...`` from the checkout's root; fails the phase on a
+    non-zero exit.  Returns its standard output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    print(f"[{tag}] python -m {' '.join(argv)}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n",
+              file=sys.stderr)
+        raise AssertionError(f"[{tag}] {argv[0]} exited {proc.returncode}")
+    return proc.stdout
+
+
+def trace_kernels(path: str) -> collections.Counter:
+    """The launches of each hand-written kernel in a Chrome trace."""
+    import re
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    pats = {k: re.compile(rf"\b{s}\b") for k, s in TRACE_SYMBOLS.items()}
+    got = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k, pat in pats.items():
+                if pat.search(e.get("name", "")):
+                    got[k] += 1
+    return got
+
+
+def phase_stages(dev) -> None:
+    """Phase 35: the two stages alone, as subprocesses (python -m
+    vidtome_torch.pipeline.inverter, then .generator) on stage_yaml's
+    config with tpu.profile_dir, each must exit 0, leaving the latents,
+    inversion_prompts.txt and the edited frames; the trace must name each
+    hand-written kernel of the exact path as many times as ModuleLaunches
+    reads from the same config's generation in this process (cli's
+    setup_from_argv, run_inversion, run_generation: every call also
+    launching what its modules imply), and the subprocess's frames must
+    agree with this process's (max |diff|, and the PSNR through python -m
+    vidtome_torch.eval, >= 35 dB).  The generation loop's wall time traced
+    and untraced, here, both warm."""
+    import contextlib
+
+    from vidtome_torch import cli
+    from vidtome_torch.io.video import load_video
+    from vidtome_torch.pipeline.generator import Generator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sub = stage_yaml(os.path.join(tmp, "sub"), os.path.join(tmp, "trace"))
+        run_module("stages", "vidtome_torch.pipeline.inverter", "--config",
+                   sub)
+        log = run_module("stages", "vidtome_torch.pipeline.generator",
+                         "--config", sub)
+        lat = Path(tmp, "sub", "latents", "stable-diffusion-v1-5")
+        frames_sub = Path(tmp, "sub", "watercolor", "frames")
+        traces = sorted(Path(tmp, "trace").glob("*.json"))
+        have = {"latents": sorted(p.name for p in lat.glob("noisy_*.npy")),
+                "prompts": (lat / "inversion_prompts.txt").is_file(),
+                "frames": len(list(frames_sub.glob("*.png"))),
+                "traces": [p.name for p in traces]}
+        print(f"[stages] on disk: {have}")
+        if not (have["latents"] and have["prompts"]
+                and have["frames"] == N_FRAMES and len(traces) == 1):
+            raise AssertionError(f"[stages] missing outputs: {have}")
+        if f"profiler trace written to {traces[0]}" not in log:
+            raise AssertionError("[stages] the generator did not report "
+                                 "its trace")
+        traced_sub = float(log.split(f"{traces[0]} (")[1].split(" s")[0])
+        in_trace = trace_kernels(str(traces[0]))
+
+        # the same config in this process, untraced, then traced
+        here = stage_yaml(os.path.join(tmp, "here"), None)
+        with contextlib.chdir(ROOT), contextlib.redirect_stdout(io.StringIO()):
+            config, sd = cli.setup_from_argv(["--config", here])
+        cli.run_inversion(config, sd)
+        loops = []
+        plain_loop = Generator.ddim_sample
+
+        def timed_loop(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = plain_loop(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            loops.append(time.perf_counter() - t0)
+            return out
+
+        Generator.ddim_sample = timed_loop
+        try:
+            with ModuleLaunches({"SD1.5 stages": sd.unet}) as rec:
+                cli.run_generation(config, sd)
+            cli.run_generation(config, sd)  # timed without the hooks
+            traced_cfg = copy.deepcopy(config)
+            traced_cfg["tpu"] = {"profile_dir": os.path.join(tmp, "trace2")}
+            traced_cfg["generation"]["output_path"] = os.path.join(
+                tmp, "here-traced")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.run_generation(traced_cfg, sd)
+        finally:
+            Generator.ddim_sample = plain_loop
+        traced_here = float(buf.getvalue().split(" s traced)")[0]
+                            .rsplit("(", 1)[1])
+        rec.check("stages")
+        calls = rec.calls["SD1.5 stages"]
+        want = {k: sum(c["got"][k] for c in calls) for k in KERNELS}
+        got = {k: in_trace[k] for k in TRACE_SYMBOLS}
+        print(f"[stages] trace of the generator's loop: kernel launches "
+              f"{got}; ModuleLaunches over the {len(calls)} UNet calls of "
+              f"the same generation here {want}; per call "
+              + ", ".join(f"{k} {got[k] / len(calls):.1f} / "
+                          f"{want[k] / len(calls):.1f}" for k in got))
+        odd = [k for k in KERNELS if (want[k] > 0) != (k in TRACE_SYMBOLS)
+               or got.get(k, 0) != want[k]]
+        if odd:
+            raise AssertionError(f"[stages] trace launches {got} against "
+                                 f"{want}: {odd}")
+
+        frames_here = Path(config["generation"]["output_path"], "watercolor",
+                           "frames")
+        a = load_video(str(frames_sub), SIZE, SIZE)
+        b = load_video(str(frames_here), SIZE, SIZE)
+        out = run_module("stages", "vidtome_torch.eval", "--a",
+                         str(frames_sub), "--b", str(frames_here),
+                         "--height", str(SIZE), "--width", str(SIZE))
+        score = json.loads(out[out.index("{"):])
+        print(f"[stages] subprocess frames vs this process's: max |diff| "
+              f"{np.abs(a - b).max():.6f}, python -m vidtome_torch.eval: "
+              f"PSNR mean {score['psnr_mean']:.2f} dB (min "
+              f"{score['psnr_min']:.2f}), SSIM {score['ssim_mean']:.6f}")
+        if score["frames"] != N_FRAMES or score["psnr_mean"] < 35.0:
+            raise AssertionError(f"[stages] subprocess and in-process frames "
+                                 f"differ: {score}")
+        print(f"[stages] generation loop ({STEPS} steps, {len(calls)} UNet "
+              f"calls) wall here: untraced {loops[1]:.3f} s, traced "
+              f"{traced_here:.3f} s ({traced_here / loops[1]:.2f}x; "
+              f"{loops[2]:.3f} s with the trace's export); traced in the "
+              f"generator's subprocess {traced_sub:.3f} s (the process's "
+              f"first loop)")
+        del sd
+
+
+def phase_tools(dev, bundle) -> None:
+    """Phase 36: tools/parity_run.run_parity on the SD1.5 bundle (random
+    weights): 8 frames at 512x512, GATE_STEPS steps, the int8 and
+    serve_maxe3xb profiles checked against the exact bf16 edit; then
+    python -m vidtome_torch.tools.quality_gate's main for GATES_RUN, one
+    seed, 8 frames, GATE_STEPS steps: each gate's dB and its record's
+    backend (the card's name and power limit).  With random weights the dB
+    measure how far a lever moves the output, not perceptual quality."""
+    from vidtome_torch.tools import parity_run, quality_gate
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = parity_run._ensure_clip(None, tmp, N_FRAMES, SIZE)
+        t0 = time.perf_counter()
+        record = parity_run.run_parity(
+            bundle, os.path.join(tmp, "parity"), clip, frames=N_FRAMES,
+            steps=GATE_STEPS, size=SIZE, check_profiles=PARITY_PROFILES)
+        print(f"[tools] run_parity in {time.perf_counter() - t0:.1f} s: "
+              f"{json.dumps(record)}")
+        for name in PARITY_PROFILES:
+            if not np.isfinite(record[f"profile_{name}_psnr_db"]):
+                raise AssertionError(f"[tools] parity profile {name}")
+        if not np.isfinite(record["inversion_recon_psnr_db"]):
+            raise AssertionError("[tools] parity reconstruction")
+        records = quality_gate.main([
+            "--gate", ",".join(GATES_RUN), "--seeds", "1", "--frames",
+            str(N_FRAMES), "--steps", str(GATE_STEPS), "--size", str(SIZE),
+            "--work", tmp])
+        for rec in records:
+            with open(Path(tmp, "gates", f"{rec['gate']}.json")) as f:
+                saved = json.load(f)
+            print(f"[tools] gate {rec['gate']}: {rec['psnr_mean_db']} dB "
+                  f"({rec['elapsed_s']} s; backend {saved['backend']!r})")
+            if saved["psnr_mean_db"] != rec["psnr_mean_db"] or \
+                    "power limit not read" in saved["backend"]:
+                raise AssertionError(f"[tools] gate record {saved}")
+        if [r["gate"] for r in records] != list(GATES_RUN):
+            raise AssertionError(f"[tools] gates run: {records}")
+
+
 def write_cli_inputs(out_dir: str) -> None:
     """Inputs of the CLI runs of this slice's configs on data/demo.mp4
     (neither data/flamingo.mp4 nor data/breakdance.mp4 is shipped):
@@ -4315,8 +4624,9 @@ def main(argv: list[str]) -> int:
     bundle = init_model("1.5", weight_dtype="bf16", device=dev, seed=0,
                         control="canny")
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     print(f"[main] SD1.5 and a canny ControlNet, random weights, on the "
-          f"card in {time.perf_counter() - t0:.1f} s")
+          f"card in {init_s:.1f} s")
     exact = step("4", phase_main_path, dev, bundle)
     step("5", phase_reference, dev, bundle)
     launches = step("6", phase_serving, dev, bundle)
@@ -4330,6 +4640,12 @@ def main(argv: list[str]) -> int:
     ragged = step("27", phase_ragged, dev, bundle)
     ldm15, tome = step("28", phase_ldm, dev, bundle)
     step("29", reference_steps, "ldm", dev, bundle.unet, tome, 2, [1, 1], 16)
+    free()
+    step("34", phase_checkpoint, dev, bundle, init_s)
+    free()
+    step("35", phase_stages, dev)
+    free()
+    step("36", phase_tools, dev, bundle)
 
     del bundle
     free()

@@ -18,6 +18,19 @@ and ``generation.refiner`` (for example ``{sd_version: xl-refiner,
 denoising_start: 0.8}``) hands the last steps of every edit to the SDXL
 refiner.  The inversion writes the per-frame prompts beside the latents
 (``inversion_prompts.txt``).
+
+Each stage also runs alone, through the same preamble
+(:func:`setup_from_argv`), as in the JAX package:
+
+    python -m vidtome_torch.pipeline.inverter  --config configs/demo.yaml
+    python -m vidtome_torch.pipeline.generator --config configs/demo.yaml
+
+the generation from the latents a prior inversion cached.  The ``tpu``
+section: ``profile_dir`` traces the denoising loop (``torch.profiler``,
+``Generator.ddim_sample``); a ``mesh`` of more than one device and
+``multihost: true`` are refused until ``parallel/`` is ported;
+``use_pallas_attention`` selects nothing (the card always runs the
+port's kernels).
 """
 
 from __future__ import annotations
@@ -36,6 +49,53 @@ from vidtome_torch.models.registry import init_model
 from vidtome_torch.pipeline.common import get_frame_ids, stage_depth
 from vidtome_torch.pipeline.generator import Generator
 from vidtome_torch.pipeline.inverter import Inverter
+from vidtome_torch.utils import seed_everything
+
+
+def check_tpu(tpu_cfg) -> None:
+    """Refuse the ``tpu`` keys the port cannot honour yet: a ``mesh`` over
+    more than one device and ``multihost`` (ROADMAP.md, queue 1:
+    ``parallel/``)."""
+    if not tpu_cfg:
+        return
+    mesh = tpu_cfg.get("mesh") or {}
+    devices = int(mesh.get("data", 1)) * int(mesh.get("model", 1))
+    if devices > 1:
+        raise NotImplementedError(
+            f"tpu.mesh {dict(mesh)} spans {devices} devices; vidtome_torch "
+            f"runs on one card until parallel/ is ported (ROADMAP.md, "
+            f"queue 1)")
+    if tpu_cfg.get("multihost"):
+        raise NotImplementedError(
+            "tpu.multihost: vidtome_torch runs on one card until parallel/ "
+            "is ported (ROADMAP.md, queue 1)")
+
+
+def setup_from_argv(argv=None, device=None):
+    """The stages' shared preamble (JAX ``cli.py:18-49``): the config of
+    ``--config``, its ``tpu`` keys checked, the model bundle of
+    ``sd_version`` / ``model_key`` / ``generation.control`` /
+    ``float_precision`` / ``controlnet_root`` on ``device`` (the card
+    unless the caller passes another), ``config["model_key"]`` set to the
+    bundle's and the host RNGs seeded.  Returns (config, bundle)."""
+    config = load_config(argv)
+    check_tpu(config.get("tpu", None))
+    if device is None:
+        if not torch.cuda.is_available():
+            raise SystemExit("vidtome_torch runs on a CUDA device; none "
+                             "found")
+        device = "cuda"
+    with timed("model load"):
+        bundle = init_model(
+            sd_version=str(config.get("sd_version", "1.5")),
+            model_key=config.get("model_key", None),
+            weight_dtype=str(config.get("float_precision", "bf16")),
+            device=device, seed=int(config.get("seed", 123)),
+            control=str(config["generation"].get("control", "none")),
+            controlnet_root=config.get("controlnet_root", None))
+    config["model_key"] = bundle.model_key
+    seed_everything(int(config.get("seed", 123)))
+    return config, bundle
 
 
 def run_inversion(config, bundle):
@@ -113,19 +173,8 @@ def run_generation(config, bundle):
 
 
 def main(argv=None):
-    config = load_config(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("vidtome_torch.cli runs on a CUDA device; none found")
     t0 = time.perf_counter()
-    with timed("model load"):
-        bundle = init_model(
-            sd_version=str(config.get("sd_version", "1.5")),
-            model_key=config.get("model_key", None),
-            weight_dtype=str(config.get("float_precision", "bf16")),
-            device="cuda", seed=int(config.get("seed", 123)),
-            control=str(config["generation"].get("control", "none")),
-            controlnet_root=config.get("controlnet_root", None))
-    config["model_key"] = bundle.model_key
+    config, bundle = setup_from_argv(argv)
     with timed("inversion"):
         run_inversion(config, bundle)
     with timed("generation"):

@@ -5,13 +5,16 @@ A file is an 8-byte little-endian header length N, N bytes of JSON
 (``{name: {"dtype", "shape", "data_offsets": [begin, end]}, ...}``, with an
 optional ``"__metadata__"`` of strings), then the tensors' raw little-endian
 bytes, each at its offsets from the end of the header.  :func:`load_file`
-returns CPU tensors that share one buffer holding the file's data;
+returns CPU tensors over one copy-on-write memory map of the file (pages
+are read when a tensor is first touched, writes stay private);
 :func:`save_file` writes a file that ``safetensors.torch.load_file`` reads.
 """
 
 from __future__ import annotations
 
 import json
+import mmap
+import os
 import struct
 
 import torch
@@ -30,7 +33,10 @@ def load_file(path: str) -> dict[str, torch.Tensor]:
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
+        size = os.fstat(f.fileno()).st_size
+        data = (mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+                if size > 8 + n else bytearray())
+    base = 8 + n
     header.pop("__metadata__", None)
     out = {}
     for name, info in header.items():
@@ -43,7 +49,8 @@ def load_file(path: str) -> dict[str, torch.Tensor]:
         if count == 0:
             t = torch.empty(0, dtype=dtype)
         else:
-            t = torch.frombuffer(data, dtype=dtype, count=count, offset=begin)
+            t = torch.frombuffer(data, dtype=dtype, count=count,
+                                 offset=base + begin)
         out[name] = t.reshape(info["shape"])
     return out
 

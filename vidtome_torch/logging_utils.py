@@ -5,15 +5,19 @@ Counterpart of ``vidtome_tpu/logging_utils.py``: a logger on the stdlib
 context that logs a stage's wall seconds (the CLI's model load, inversion
 and generation, and its wall time), and the per-block merge statistics of
 a UNet call (the counterpart of the reference's collect_from_patch,
-patch.py:373-387).
+patch.py:373-387), and the ``tpu.profile_dir`` trace of a stage's loop
+(the counterpart of ``jax.profiler.start_trace`` / ``stop_trace``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import sys
 import time
+
+import torch
 
 _configured = False
 
@@ -38,6 +42,34 @@ def timed(label: str, logger: logging.Logger | None = None):
     t0 = time.time()
     yield
     log.info("%s took %.2fs", label, time.time() - t0)
+
+
+@contextlib.contextmanager
+def profile_trace(profile_dir: str, device, label: str):
+    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity on a CUDA ``device``) and write a Chrome trace
+    ``<profile_dir>/<label>_<pid>_<ns>.json``, also when the block raises;
+    prints where, with the traced block's wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if cuda:
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        prof.stop()
+        path = os.path.join(profile_dir, f"{label}_{os.getpid()}_"
+                                         f"{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        print(f"[INFO] profiler trace written to {path} ({seconds:.3f} s "
+              f"traced)")
 
 
 def collect_tome_stats(stats: dict, model=None) -> dict[str, dict]:

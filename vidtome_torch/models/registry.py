@@ -106,6 +106,8 @@ class ModelBundle:
     lora: tuple[str, float] | None = None
     # SDXL's second text encoder (bigG: penultimate states + pooled)
     text_encoder_2: CLIPTextModel | None = None
+    # built without a checkpoint (init_model's random weights)
+    random_weights: bool = False
 
     @property
     def use_depth(self) -> bool:
@@ -162,13 +164,16 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
 def init_model(sd_version: str = "1.5", model_key: str | None = None,
                weight_dtype: str = "bf16", device: str | torch.device = "cuda",
                seed: int = 0, control: str = "none",
-               controlnet_root: str | None = None) -> ModelBundle:
+               controlnet_root: str | None = None,
+               allow_random_weights: bool = True) -> ModelBundle:
     """Build the SD stack on ``device`` (reference utils/utils.py:19-67).
     ``weight_dtype``: 'bf16' (or 'fp16', which means bf16 here) or 'fp32'.
     ``control``: a key of ``CONTROLNET_DICT`` adds its ControlNet.  Random
     weights draw from ``seed`` + 0 (UNet), 1 (VAE), 2 (text encoder), 3
     (ControlNet) and 4 (SDXL's second encoder), as the JAX package's
-    seeds."""
+    seeds.  With ``allow_random_weights=False`` a ``model_key`` that is
+    not a directory raises ``FileNotFoundError`` (the checkpoint
+    converter's guard, JAX ``registry.py:262-264``)."""
     if control not in ("none", "pnp") and control not in CONTROLNET_DICT:
         raise ValueError(f"unknown control type {control!r} (choices: none, "
                          f"pnp, {', '.join(CONTROLNET_DICT)})")
@@ -190,6 +195,8 @@ def init_model(sd_version: str = "1.5", model_key: str | None = None,
     name = model_key or SD_MODEL_KEYS[sd_version]
     if have_weights:
         print(f"[INFO] loading stable diffusion from: {model_key}")
+    elif not allow_random_weights:
+        raise FileNotFoundError(f"checkpoint dir not found: {model_key!r}")
     else:
         print(f"[WARNING] no local checkpoint for {name!r} — initializing "
               "RANDOM weights (weight-free mode: development/benchmark only)")
@@ -235,7 +242,7 @@ def init_model(sd_version: str = "1.5", model_key: str | None = None,
         model_key=name, sd_version=sd_version, unet=mods["unet"],
         vae=mods["vae"], text_encoder=mods["text"], tokenizer=tokenizer,
         dtype=dtype, device=device, controlnet=controlnet,
-        text_encoder_2=mods.get("text2"))
+        text_encoder_2=mods.get("text2"), random_weights=not have_weights)
 
 
 def init_controlnet(control: str, config, controlnet_root: str | None,

@@ -156,6 +156,8 @@ class AutoencoderKL(nn.Module):
                  layers_per_block: int = 2, latent_channels: int = 4,
                  scaling_factor: float = SD_VAE_SCALING):
         super().__init__()
+        self.block_out_channels = tuple(block_out_channels)
+        self.layers_per_block = layers_per_block
         self.latent_channels = latent_channels
         self.scaling_factor = scaling_factor
         self.encoder = Encoder(block_out_channels, layers_per_block,

@@ -328,6 +328,7 @@ class Generator:
         self.size = ((float(config["height"]), float(config["width"]))
                      if bundle.needs_pooled else None)
         self.seed = int(config.get("seed", 123))
+        self.profile_dir = (config.get("tpu", None) or {}).get("profile_dir")
         self.n_timesteps = int(gene["n_timesteps"])
         self.guidance_scale = float(gene["guidance_scale"])
         self.negative_prompt = gene.get("negative_prompt", "")
@@ -506,14 +507,27 @@ class Generator:
             ids = [[h, w, 0.0, 0.0, h, w]] * ctx.shape[0]
         return ctx, pooled, torch.tensor(ids, device=ctx.device)
 
+    def ddim_sample(self, *args, **kwargs) -> torch.Tensor:
+        """:meth:`_ddim_sample`, under ``torch.profiler`` when the config
+        sets ``tpu.profile_dir`` (JAX ``generator.py:975-986``): a Chrome
+        trace of the loop in that directory (``logging_utils.profile_trace``;
+        an SDXL refiner stage writes its own beside the base's)."""
+        if not self.profile_dir:
+            return self._ddim_sample(*args, **kwargs)
+        from vidtome_torch.logging_utils import profile_trace
+
+        with profile_trace(self.profile_dir, self.bundle.device,
+                           "ddim_sample"):
+            return self._ddim_sample(*args, **kwargs)
+
     @torch.inference_mode()
-    def ddim_sample(self, x: torch.Tensor, context,
-                    fidx_table: np.ndarray | None = None,
-                    draws: DrawSource | None = None,
-                    src_table: torch.Tensor | None = None,
-                    control: torch.Tensor | None = None,
-                    depth: torch.Tensor | None = None, start: int = 0,
-                    stop: int | None = None) -> torch.Tensor:
+    def _ddim_sample(self, x: torch.Tensor, context,
+                     fidx_table: np.ndarray | None = None,
+                     draws: DrawSource | None = None,
+                     src_table: torch.Tensor | None = None,
+                     control: torch.Tensor | None = None,
+                     depth: torch.Tensor | None = None, start: int = 0,
+                     stop: int | None = None) -> torch.Tensor:
         """Denoise padded latents x [n_padded, h, w, 4] under the lane
         contexts (:meth:`context`) over steps ``start``..``stop`` of the
         schedule (all by default).  PnP needs ``src_table``
@@ -722,3 +736,20 @@ class Generator:
         print(f"[INFO] refiner stage: steps {split}..{r.scheduler.num_steps}")
         return r.ddim_sample(x, r.context(prompt, self.aesthetic),
                              fidx_table, draws, start=split)
+
+
+def main(argv=None, device=None):
+    """The generation stage alone (JAX ``generator.py:1112-1121``), from
+    the latents a prior inversion cached under ``generation.latents_path``
+    (else ``cli.run_generation``'s ``FileNotFoundError``):
+
+        python -m vidtome_torch.pipeline.generator --config configs/demo.yaml
+    """
+    from vidtome_torch.cli import run_generation, setup_from_argv
+
+    config, bundle = setup_from_argv(argv, device=device)
+    run_generation(config, bundle)
+
+
+if __name__ == "__main__":
+    main()

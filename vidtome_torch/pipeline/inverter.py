@@ -324,3 +324,20 @@ class Inverter:
             recon = self.vae.decode(self.ddim_sample(inverted, conds,
                                                      control, depth))
         return inverted, recon
+
+
+def main(argv=None, device=None):
+    """The inversion stage alone (JAX ``inverter.py:458-468``):
+
+        python -m vidtome_torch.pipeline.inverter --config configs/demo.yaml
+
+    ``cli.setup_from_argv``, then ``cli.run_inversion`` (the latents and
+    ``inversion_prompts.txt`` under ``inversion.save_path``)."""
+    from vidtome_torch.cli import run_inversion, setup_from_argv
+
+    config, bundle = setup_from_argv(argv, device=device)
+    run_inversion(config, bundle)
+
+
+if __name__ == "__main__":
+    main()
