@@ -79,7 +79,8 @@ Phases (any failure exits non-zero before the last line):
      built by init_model(control="canny"); its zero convs and the hint
      encoder's conv_out moved by 0.05 N(0, 1), else it adds nothing), the
      same clip through configs/demo-canny.yaml's keys over demo.yaml's and
-     default.yaml's at 50+50 DDIM steps with inversion.control: canny, so
+     default.yaml's at CONTROLNET_STEPS+CONTROLNET_STEPS DDIM steps with
+     inversion.control: canny, so
      both stages run it before every UNet call; the control images through
      the png cache in a temporary work_dir.  Every ControlNet call must
      launch flash 4 times, small-KV 10 and the full GroupNorm entry 27
@@ -121,7 +122,8 @@ Phases (any failure exits non-zero before the last line):
      LORA_ALPHA, on every attention projection, resnet conv and
      time_emb_proj and the text encoder's q/k/v/out, seeded) written with
      the port's safetensors writer; configs/breakdance.yaml's keys at
-     50+50 DDIM steps (the softedge images through the HED net of phase
+     LORA_STEPS+LORA_STEPS DDIM steps (the softedge images through the HED
+     net of phase
      13): the generation without the LoRA, then a Generator with use_lora
      merges it (the merged weights must be W + delta within two bf16
      roundings) and generates from the same latents (the frames must
@@ -132,7 +134,8 @@ Phases (any failure exits non-zero before the last line):
      a ControlNet call); then, the weights restored,
      a LoRA generator in int8 must quantize the merged weights (LORA_PROBE);
   15. SD2-depth path: the SD2.1 bundle freed, SD2-depth at full width with
-     random weights (seeded), configs/flamingo.yaml's keys at 50+50 DDIM
+     random weights (seeded), configs/flamingo.yaml's keys at
+     DEPTH_STEPS+DEPTH_STEPS DDIM
      steps, the proxy depth through the depth cache of a temporary
      work_dir concatenated as the fifth channel in both stages: every UNet
      call must launch flash, small-KV and the full GroupNorm entry as its
@@ -261,13 +264,40 @@ Phases (any failure exits non-zero before the last line):
      GATE_STEPS steps): each gate's dB and its record's backend, the
      card's name and power limit.  Random weights: the dB measure how far
      a lever moves the output, not perceptual quality.
+  Phase 37 runs right after phase 3, in ranks of its own
+  (vidtome_torch.parallel.launch.spawn: a card each over NCCL where as
+  many are visible, else card 0 shared over gloo; phase_mesh): two ranks,
+  full width, random weights (seeded alike), each run against a one-rank
+  run of the same config and seed on rank 0:
+  37. the mesh: (a) the exact keys (STEPS+STEPS) at {data: 2}; (b) the same
+     at {model: 2}; (c) configs/serve.yaml's keys (MESH_SERVE_STEPS) at
+     {data: 2}; (d) SD2.1 on configs/dog.yaml's PnP keys with the fused
+     sublayer (MESH_PNP_STEPS) at {data: 2} (12 rows) and {model: 2} (5
+     heads: 3 / 2); (e) one int8 UNet call (W8A8 fused resnets) at {model:
+     2}; (f) one SDXL and one refiner UNet call at 1024x1024 (batch 4) at
+     {model: 2}; (g) (a) at {data: 2, model: 2} over NCCL when four cards
+     are visible (else said not run); (h) `python -m vidtome_torch.cli` at
+     {data: 2}, its ranks self-started and under torchrun, against the CLI
+     on one rank, when two cards are visible (else said not run); (d data)
+     again with the one-rank run's matchings handed over, then its
+     generation alone from the one-rank run's inversion and matchings
+     (mesh_witness: how many calls matched otherwise, the inverted
+     latents' dB and each run's).  Every rank's UNet
+     calls launch what their modules imply (ModuleLaunches), every shape a
+     rank gives a kernel is a phase-3 row (meta_rows' mesh kinds,
+     mesh_kinds), every rank ends with the same latents (or output) bit
+     for bit, and the frames (or the output) are at least MESH_DB against
+     the one-rank run;
+     prints each rank's launches, peak memory, stage seconds and the
+     collectives' calls, ms and bytes a UNet call, and the dB and max
+     |diff| with the one-rank run's peak memory and seconds.
 ``python3 chip_smoke.py --cli-inputs DIR`` instead writes the inputs of the
 CLI runs of configs/flamingo.yaml and configs/breakdance.yaml on
 data/demo.mp4 (write_cli_inputs) and exits.
 Then the command's seconds and one JSON line with the kernels' numbers
 (launches: summed over the exact, serving, int8, ControlNet, PnP, LoRA,
 SD2-depth, the five SDXL paths and the paths of phases 25, 27, 28, 30 and
-32, each counted from 0; ms,
+32, each counted from 0, and phase 37's ranks; ms,
 plain_ms,
 library_ms and bound_ms summed over each kernel's phase-3 shapes, for
 group_norm (the stats, apply and finalize entries) stats + apply a
@@ -332,9 +362,9 @@ SUBLAYER_TOL = 5e-2  # absolute on x3, y3: x3 up to |6| rounds by 2^-6, and
 #                      y2, q, p, a are rounded in the kernel, not the plain
 PNP_STEPS = 50
 INT8_STEPS = 50
-CONTROLNET_STEPS = 50
-DEPTH_STEPS = 50
-LORA_STEPS = 50
+CONTROLNET_STEPS = 25  # these three 50 until PR 19: cut for phase 37's
+DEPTH_STEPS = 25       # time (widths kept)
+LORA_STEPS = 25
 LORA_RANK, LORA_ALPHA = 8, 4.0
 # the merged module whose int8 weight is held against W and W + delta
 LORA_PROBE = "down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_k"
@@ -391,9 +421,9 @@ CONFIG = {
 }
 
 
-def serve_config() -> dict:
+def serve_config(steps: int = SERVE_STEPS) -> dict:
     """CONFIG with configs/serve.yaml's inversion and generation keys as
-    written there (prompts aside), at SERVE_STEPS DDIM steps."""
+    written there (prompts aside), at ``steps`` DDIM steps."""
     import yaml
 
     with open(ROOT / "configs" / "serve.yaml") as f:
@@ -402,8 +432,8 @@ def serve_config() -> dict:
     for stage in ("inversion", "generation"):
         cfg[stage].update({k: v for k, v in serve[stage].items()
                            if k != "prompt"})
-    cfg["inversion"].update(steps=SERVE_STEPS, save_steps=SERVE_STEPS)
-    cfg["generation"]["n_timesteps"] = SERVE_STEPS
+    cfg["inversion"].update(steps=steps, save_steps=steps)
+    cfg["generation"]["n_timesteps"] = steps
     return cfg
 
 
@@ -414,9 +444,9 @@ def exact_config(steps: int) -> dict:
     return cfg
 
 
-def pnp_config() -> dict:
+def pnp_config(steps: int = PNP_STEPS) -> dict:
     """configs/dog.yaml's inversion and generation keys over default.yaml's
-    (dog.yaml's base_config), its first edit prompt only, at PNP_STEPS DDIM
+    (dog.yaml's base_config), its first edit prompt only, at ``steps`` DDIM
     steps, with generation.sublayer_mode: fused."""
     import yaml
 
@@ -431,8 +461,8 @@ def pnp_config() -> dict:
         cfg[stage] = {**default[stage], **dog[stage]}
     name, prompt = next(iter(dog["generation"]["prompt"].items()))
     cfg["generation"].update(prompt={name: prompt}, sublayer_mode="fused",
-                             n_timesteps=PNP_STEPS)
-    cfg["inversion"].update(steps=PNP_STEPS, save_steps=PNP_STEPS)
+                             n_timesteps=steps)
+    cfg["inversion"].update(steps=steps, save_steps=steps)
     return cfg
 
 
@@ -634,8 +664,8 @@ MATCH_SHAPES = [  # (B, S, D, C); a level: its global merge vs the bank
 # SDXL (bench.py's bench_sdxl workload): 1024x1024, the base for the first
 # SDXL_SPLIT of SDXL_STEPS steps and the refiner for the rest
 SDXL_SIZE = 1024
-SDXL_STEPS = 20
-SDXL_SPLIT = 16
+SDXL_STEPS = 14  # 20 until PR 19; cut for phase 37's time (widths kept;
+SDXL_SPLIT = 11  # step 9 still runs a shallow, CFG-skip serving call)
 # each SDXL UNet call of the SDXL phase, by the topology at a 128x128
 # latent: flash for the self-attentions of levels 1 and 2 and the mid block
 # (base: 10 + 50 + 10 blocks; refiner: 20 + 20), small-KV for every
@@ -655,14 +685,18 @@ GN_FP32_ROWS = [(8, 128 * 128, 384, True, 1e-5, torch.float32)]
 
 
 def meta_step(rec, unet, path: str, latent: int, lanes: int,
-              groups: list[int], tome, **kw) -> None:
+              groups: list[int], tome, mesh=None, **kw) -> None:
     """One step's UNet calls on the meta device under ``rec`` (a
     ModuleLaunches), recorded under ``path``: chunk groups in turn, a group
     of n chunks one call of lanes * n * chunk rows; with global merging the
     first initialises the banks and the others merge against them, a group
     of several chunks against each lane's bank repeated per chunk (as
-    Generator.ddim_sample)."""
+    Generator.ddim_sample).  With ``mesh`` (a vidtome_torch.parallel Mesh
+    without process groups, on the meta device) the calls of its rank: the
+    UNet sharded on its model axis by the caller, this rank's rows of
+    every call under its data axis (collectives give shapes only)."""
     from vidtome_torch.models.tome import ToMeCall
+    from vidtome_torch.pipeline.generator import call_rows
 
     cfg = unet.config
     chunk = tome.frames if tome is not None else 4
@@ -681,7 +715,9 @@ def meta_step(rec, unet, path: str, latent: int, lanes: int,
         call = None if tome is None else ToMeCall(
             cfg=tome, local_draws=[0] * len(tome.rounds()), coin=0.0,
             bank_mode=mode, banks=banks)
-        extra = dict(kw)
+        rows = call_rows(mesh, B)
+        extra = dict(kw, rows=rows)
+        B = B if rows is None else rows.per
         if cfg.addition_num_time_ids:
             extra.update(
                 add_text_embeds=torch.empty(B, cfg.addition_pooled_dim,
@@ -724,6 +760,7 @@ def meta_rows(only: str = "") -> dict:
                                            SDXL_REFINER_UNET,
                                            UNet2DConditionModel)
     from vidtome_torch.models.vae import AutoencoderKL
+    from vidtome_torch.parallel.mesh import shard_params
     from vidtome_torch.pipeline.generator import stage_tome
 
     def tome(cfg, pnp=False):
@@ -733,7 +770,8 @@ def meta_rows(only: str = "") -> dict:
     fused = {"resnet_mode": "fused"}
     sub = {"sublayer_mode": "fused"}
     pnp = {**sub, "attn_inject": True, "conv_inject": True}
-    # (path, UNet, latent, lanes, chunk groups, ToMeConfig, UNet kwargs)
+    # (path, UNet, latent, lanes, chunk groups, ToMeConfig, UNet kwargs,
+    # the mesh rank's place or None)
     kinds = [
         ("SDXL inversion", "SDXL", xl, 1, [1], None, {}),
         ("SDXL int8 inversion", "SDXL", xl, 1, [1], None, fused),
@@ -764,18 +802,28 @@ def meta_rows(only: str = "") -> dict:
         ("SD1.5 LDM", "SD1.5", 64, 2, [1, 1], tome(ldm(CONFIG)), {}),
         ("SD2.1 PnP LDM", "SD2.1", 64, 3, [1, 1],
          tome(ldm(pnp_config()), True), pnp)]
+    kinds = [k + (None,) for k in kinds] + mesh_kinds(tome)
     configs = {"SDXL": SDXL_UNET, "refiner": SDXL_REFINER_UNET,
                "SD1.5": SD15_UNET, "SD2.1": SD21_UNET}
     unets: dict = {}
+    with torch.device("meta"), torch.no_grad():
+        # every UNet (a mesh rank's: a sharded copy) before any hook
+        for path, name, *_, mesh in kinds:
+            if only in path and name not in unets:
+                unets[name] = UNet2DConditionModel(
+                    configs[name]).to(torch.bfloat16)
+        for path, name, *_, mesh in kinds:
+            key = (name, mesh.data, mesh.model, mesh.rank) if mesh else name
+            if only in path and key not in unets:
+                unets[key] = shard_params(mesh, copy.deepcopy(unets[name]))
     with torch.device("meta"), torch.no_grad(), \
             ModuleLaunches({}, count=False) as rec:
-        for path, name, latent, lanes, groups, t, kw in kinds:
+        for path, name, latent, lanes, groups, t, kw, mesh in kinds:
             if only in path:
-                if name not in unets:
-                    unets[name] = UNet2DConditionModel(
-                        configs[name]).to(torch.bfloat16)
-                meta_step(rec, unets[name], path, latent, lanes, groups, t,
-                          **kw)
+                key = ((name, mesh.data, mesh.model, mesh.rank) if mesh
+                       else name)
+                meta_step(rec, unets[key], path, latent, lanes, groups, t,
+                          mesh=mesh, **kw)
         if only in "VAE":
             vae = AutoencoderKL().to(torch.bfloat16)
             rec.watch("VAE encode", vae.encoder)
@@ -1302,8 +1350,10 @@ def phase_kernels(dev) -> KernelStats:
     mark("GroupNorm")
 
     resnet_rows = meta["fused_resnet"]
-    # the W8A8 variant at the rows of the int8 paths (and the listed ones)
-    w8a8_rows = meta_rows(" int8")["fused_resnet"]
+    # the W8A8 variant at the rows of the int8 paths (and the listed ones;
+    # phase 37's int8 call at {model: 2}: " W8A8")
+    w8a8_rows = merged_rows(meta_rows(" int8")["fused_resnet"],
+                            meta_rows(" W8A8")["fused_resnet"])
     for B, H, W, Ci, Co in dict.fromkeys(RESNET_SHAPES + list(resnet_rows)):
         paths = resnet_rows.get((B, H, W, Ci, Co), {})
         # the conv weights as ResnetBlock2D holds them: OIHW views of
@@ -2038,7 +2088,7 @@ class ModuleLaunches:
                     and cfg.frames > 1)
         if mod._fused_sublayer_ok(a["sublayer_mode"], cfg, do_merge):
             self._add("fused_cross_sublayer",
-                      (*a["x"].shape, mod.attn2.heads))
+                      (*a["x"].shape, mod.attn2.total_heads))
 
     def check(self, tag: str, paths=None) -> None:
         """Each call's counted launches equal the ones its module calls
@@ -2058,9 +2108,10 @@ class ModuleLaunches:
                                  f"{c['got']}, its modules imply "
                                  f"{c['want']}")
 
-    def check_rows(self, tag: str) -> None:
-        """Every shape the run gave a kernel is a phase-3 row."""
-        rows = phase3_rows()
+    def check_rows(self, tag: str, rows: dict | None = None) -> None:
+        """Every shape the run gave a kernel is a phase-3 row (``rows``:
+        phase3_rows(), passed to a process that did not run phase 3)."""
+        rows = phase3_rows() if rows is None else rows
         unchecked = [(k, sh, n) for k, c in self.shapes.items()
                      for sh, n in c.items() if sh not in rows[k]]
         print(f"[{tag}] kernel shapes the run gave, with their launches: "
@@ -2074,7 +2125,8 @@ class ModuleLaunches:
 
 def phase_controlnet(dev, bundle) -> dict:
     """configs/demo-canny.yaml on the SD1.5 bundle, both stages through the
-    ControlNet, 50+50 DDIM steps, the control images through the png
+    ControlNet, CONTROLNET_STEPS+CONTROLNET_STEPS DDIM steps, the control
+    images through the png
     cache."""
     import tempfile
 
@@ -2887,7 +2939,8 @@ def phase_lora(dev, bundle) -> dict:
 
 
 def phase_depth(dev, bundle) -> dict:
-    """configs/flamingo.yaml on SD2-depth, 50+50 DDIM steps, the proxy
+    """configs/flamingo.yaml on SD2-depth, DEPTH_STEPS+DEPTH_STEPS DDIM
+    steps, the proxy
     depth through the depth cache in a temporary work_dir: every UNet call
     of each kind must launch flash, small-KV and the full GroupNorm entry
     as the topology says (and best match 2 or 4 times a generation call,
@@ -3731,7 +3784,8 @@ def phase3_rows() -> dict:
         "full_group_norm": gn, "group_norm": gn,
         "fused_resnet": set(RESNET_SHAPES) | set(meta["fused_resnet"]),
         "fused_resnet_w8a8": set(RESNET_SHAPES)
-        | set(meta_rows(" int8")["fused_resnet"]),
+        | set(meta_rows(" int8")["fused_resnet"])
+        | set(meta_rows(" W8A8")["fused_resnet"]),
         "best_match": {match_shape(r) for r in MATCH_SHAPES}
         | set(meta["best_match"]),
         "fused_cross_sublayer": set(SUBLAYER_SHAPES)
@@ -4350,11 +4404,12 @@ def phase_checkpoint(dev, bundle, init_seconds: float) -> None:
     del back
 
 
-def stage_yaml(work: str, profile_dir: str | None) -> str:
+def stage_yaml(work: str, profile_dir: str | None,
+               mesh: dict | None = None) -> str:
     """A config over configs/demo.yaml (its keys and default.yaml's
     beneath them): 8 frames of data/demo.mp4, STEPS+STEPS DDIM steps, its
-    paths under ``work``, ``tpu.profile_dir`` if given; written to
-    ``<work>.yaml``, whose path it returns."""
+    paths under ``work``, ``tpu.profile_dir`` and ``tpu.mesh`` if given;
+    written to ``<work>.yaml``, whose path it returns."""
     import yaml
 
     cfg = {"base_config": str(ROOT / "configs" / "demo.yaml"),
@@ -4364,6 +4419,8 @@ def stage_yaml(work: str, profile_dir: str | None) -> str:
            "generation": {"n_timesteps": STEPS, "frame_range": [N_FRAMES]}}
     if profile_dir:
         cfg["tpu"] = {"profile_dir": profile_dir}
+    if mesh:
+        cfg["tpu"] = {"mesh": mesh}
     with open(work + ".yaml", "w") as f:
         yaml.safe_dump(cfg, f)
     return work + ".yaml"
@@ -4586,6 +4643,565 @@ def write_cli_inputs(out_dir: str) -> None:
     print(f"[cli] configs, LoRA and control nets written to {out}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: the mesh (vidtome_torch/parallel/), two ranks
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_STEPS = 20  # serve.yaml's schedules: 6 full steps, then cached
+MESH_PNP_STEPS = 10    # attention injection on 5 steps, conv on 8
+MESH_DB = 35.0         # frames (or a call's output) against the one-rank run
+
+
+def mesh_kinds(tome) -> list:
+    """meta_rows' kinds of phase 37: SD1.5's inversion and exact
+    generation at {data: 2}, {model: 2} and {data: 2, model: 2}; the
+    serving keys' calls at {data: 2}; SD2.1's inversion and PnP calls
+    (injections on and off, the fused sublayer) at {data: 2} and {model:
+    2}; one int8 call (fused W8A8 resnets) and one SDXL and one refiner
+    call (batch 4) at {model: 2}.  Rank 0's: these calls split evenly over
+    the ranks (rows, heads), so each rank gives the kernels rank 0's
+    shapes, except SD2.1's 5 heads at {model: 2} (3 and 2): there every
+    rank's.  Phase 37 holds each rank's shapes to these rows."""
+    from vidtome_torch.parallel.mesh import Mesh
+
+    def ranks(data, model, every=False):
+        return [Mesh(data, model, rank=r, device="meta")
+                for r in range(data * model if every else 1)]
+
+    xl = SDXL_SIZE // 8
+    fused = {"resnet_mode": "fused"}
+    sub = {"sublayer_mode": "fused"}
+    pnp = {**sub, "attn_inject": True, "conv_inject": True}
+    out = []
+    for data, model in ((2, 1), (1, 2), (2, 2)):
+        for m in ranks(data, model):
+            r = f"mesh {data}x{model} rank {m.rank}"
+            out += [(f"{r} SD1.5 inversion", "SD1.5", 64, 2, [1], None, {},
+                     m),
+                    (f"{r} SD1.5 exact", "SD1.5", 64, 2, [1, 1],
+                     tome(CONFIG), {}, m)]
+    for m in ranks(2, 1):
+        out += [(f"mesh 2x1 rank {m.rank} SD1.5 serve {cache}, {lanes} "
+                 f"lanes", "SD1.5", 64, lanes, [1, 1],
+                 tome(serve_config(MESH_SERVE_STEPS)),
+                 {**fused, "cache_mode": cache}, m)
+                for cache in ("full", "shallow") for lanes in (2, 1)]
+    for data, model in ((2, 1), (1, 2)):
+        for m in ranks(data, model, every=model > 1):
+            r = f"mesh {data}x{model} rank {m.rank}"
+            out += [(f"{r} SD2.1 inversion", "SD2.1", 64, 2, [1], None, {},
+                     m),
+                    (f"{r} SD2.1 PnP", "SD2.1", 64, 3, [1, 1],
+                     tome(pnp_config(MESH_PNP_STEPS), True), pnp, m),
+                    (f"{r} SD2.1 PnP, no injection", "SD2.1", 64, 3, [1, 1],
+                     tome(pnp_config(MESH_PNP_STEPS), True), sub, m)]
+    for m in ranks(1, 2):
+        r = f"mesh 1x2 rank {m.rank}"
+        out += [(f"{r} SD1.5 W8A8", "SD1.5", 64, 2, [1], None, fused, m),
+                (f"{r} SDXL", "SDXL", xl, 1, [1], None, {}, m),
+                (f"{r} refiner", "refiner", xl, 1, [1], None, {}, m)]
+    return out
+
+
+def frames_db(a: torch.Tensor, b: torch.Tensor, peak: float = 1.0) -> float:
+    """PSNR of ``a`` against ``b`` at ``peak``, in dB (inf when equal)."""
+    mse = ((a.float() - b.float()) ** 2).mean().item()
+    return float("inf") if mse == 0 else 10 * np.log10(peak ** 2 / mse)
+
+
+def taped_draws(table: np.ndarray, caches: list | None, dev):
+    """The Generator's draws (DrawSource of ``table``) with a tape of the
+    merging calls' ``share_match`` plan caches: ``caches`` None records
+    each call's cache (``.caches``, in call order), a list hands the calls
+    its caches in that order (the matchings of another run)."""
+    from vidtome_torch.models.tome import DrawSource
+
+    class Taped(DrawSource):
+        def __init__(self):
+            super().__init__(table)
+            self.replay = caches is not None
+            self.caches = list(caches) if self.replay else []
+
+        def call(self, *args, **kwargs):
+            call = super().call(*args, **kwargs)
+            if self.replay:
+                call.plan_cache = plans_on(self.caches.pop(0), dev)
+            else:
+                self.caches.append(call.plan_cache)
+            return call
+
+    return Taped()
+
+
+def plans_differ(a: list, b: list) -> int:
+    """How many calls of two plan tapes matched differently."""
+    def tensors(cache):
+        out = []
+        for key in sorted(cache, key=str):
+            entry = cache[key]
+            plans = list(entry.get("plans", []))
+            plans += [entry["global_plan"]] if "global_plan" in entry else []
+            out += [t.cpu() for p in plans for t in (
+                p.merge_gather, p.unmerge_gather, p.unm_idx)]
+        return out
+
+    if len(a) != len(b):
+        raise AssertionError(f"plan tapes of {len(a)} and {len(b)} calls")
+    return sum(not all(x.shape == y.shape and torch.equal(x, y)
+                       for x, y in zip(tensors(p), tensors(q)))
+               or len(tensors(p)) != len(tensors(q)) for p, q in zip(a, b))
+
+
+def mesh_edit(bundle, cfg: dict, mesh, size: int = SIZE,
+              plans: list | str | None = None,
+              given: dict | None = None) -> dict:
+    """One edit of ``make_frames()`` under ``cfg`` through the port's
+    Inverter and Generator (PnP from the inversion's saved latents) on
+    ``mesh`` (None: this rank alone): the clean latents, the frames, the
+    stage seconds, the UNet calls by kind, the peak memory and, on a mesh,
+    its ModuleLaunches and the collectives' calls and seconds.  ``plans``
+    "record" keeps the generation's plan tape (``"plans"``), a tape hands
+    its matchings to the generation's calls (taped_draws); ``given`` (the
+    ``inverted`` latents and PnP ``src`` table another run returned) takes
+    the place of this run's inversion."""
+    from vidtome_torch.pipeline.generator import Generator
+    from vidtome_torch.pipeline.inverter import Inverter
+
+    dev = bundle.device
+    frames = make_frames(size)
+    times: dict = {}
+    stage = functools.partial(timed, times)
+    torch.cuda.reset_peak_memory_stats(dev)
+    inverter = Inverter(bundle, cfg, mesh=mesh)
+    generator = Generator(bundle, cfg, mesh=mesh)
+    if mesh is not None:
+        mesh.stats.clear()
+    rec = ModuleLaunches({"UNet": bundle.unet}, count=mesh is not None)
+    with rec:
+        reset_launches()
+        if given is None:
+            latents, conds = stage("encode",
+                                   lambda: inverter.encode(frames))
+            inverted = stage("invert",
+                             lambda: inverter.ddim_inversion(latents, conds))
+        else:
+            inverted = given["inverted"].to(dev)
+        generator.configure_frames(N_FRAMES)
+        prompt = next(iter(generator.prompt.values()))
+        context = generator.context(prompt)
+        pad = torch.as_tensor(generator.pad_src, device=dev)
+        inputs = {}
+        if generator.use_pnp:
+            inputs["src_table"] = (inverter.source_table(
+                generator.scheduler.timesteps)[:, pad] if given is None
+                else given["src"].to(dev))
+        table = generator.fidx_table()
+        if plans is not None:
+            inputs["draws"] = taped_draws(
+                generator.draw_source(table.shape[1]).table,
+                None if plans == "record" else plans, dev)
+        clean = stage("generate", lambda: generator.ddim_sample(
+            inverted[pad], context, fidx_table=table, **inputs))
+        out = stage("decode", lambda: generator.vae.decode(clean[:N_FRAMES]))
+        launches = read_launches()
+    check_frames("mesh", out, N_FRAMES, size)
+    calls = {"inversion": dict(inverter.unet_calls),
+             "generation": dict(generator.unet_calls)}
+    return {"clean": clean, "frames": out, "times": times, "calls": calls,
+            "launches": launches, "rec": rec,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "collectives": dict(mesh.stats) if mesh is not None else {},
+            "plans": inputs["draws"].caches if plans == "record" else None,
+            "inverted": inverted, "src": inputs.get("src_table")}
+
+
+def mesh_same_bits(mesh, t: torch.Tensor) -> bool:
+    """Whether every rank of ``mesh`` holds ``t`` bit for bit."""
+    every = mesh.all_gather(t.contiguous()[None], "mesh")
+    return all(torch.equal(every[r], every[0]) for r in range(mesh.size))
+
+
+def mesh_report(tag: str, mesh, got: dict, ref, rows: dict, unet_calls: int,
+                out_dir: str, same: str, compare: str) -> dict:
+    """Phase 37's checks of one meshed run on this rank: each UNet call's
+    launches what its modules imply, every kernel shape a phase-3 row,
+    every rank's ``same`` output (the latents) the same bits; on rank 0
+    the dB (and max |diff|) of its ``compare`` output against the one-rank
+    run ``ref``, at least MESH_DB (frames at peak 1, a UNet call's output
+    at its max |ref|).  Writes this rank's record to ``out_dir`` and
+    returns it."""
+    rec = got.pop("rec")
+    rec.check(f"mesh {tag} rank {mesh.rank}")
+    rec.check_rows(f"mesh {tag} rank {mesh.rank}", rows)
+    if not mesh_same_bits(mesh, got[same].float()):
+        raise AssertionError(f"[mesh {tag}] the ranks' {same} differ")
+    kinds = collections.Counter(
+        json.dumps({k: v for k, v in c["got"].items() if v})
+        for c in rec.calls["UNet"])
+    record = {"tag": tag, "rank": mesh.rank, "shape": mesh.shape,
+              "launches_by_call": {k: n for k, n in kinds.items()},
+              "unet_calls": len(rec.calls["UNet"]),
+              "launches": got["launches"], "peak_gib": got["peak_gib"],
+              "times": got.get("times", {}), "calls": got.get("calls", {}),
+              "collective_calls": got["collectives"].get("calls", 0),
+              "collective_ms_a_call": 1e3 * got["collectives"].get(
+                  "seconds", 0.0) / max(1, unet_calls),
+              "collective_mib_a_call": got["collectives"].get("bytes", 0)
+              / 2 ** 20 / max(1, unet_calls)}
+    if ref is not None:
+        a, b = got[compare].float(), ref[compare].float()
+        peak = 1.0 if compare == "frames" else b.abs().max().item()
+        record.update(db=frames_db(a, b, peak),
+                      max_abs_diff=(a - b).abs().max().item(),
+                      ref_peak_gib=ref["peak_gib"],
+                      ref_times=ref.get("times", {}))
+        if not record["db"] >= MESH_DB:
+            raise AssertionError(f"[mesh {tag}] {record['db']:.2f} dB "
+                                 f"against one rank (want >= {MESH_DB})")
+    with open(os.path.join(out_dir, f"{tag}.rank{mesh.rank}.json"),
+              "w") as f:
+        json.dump(record, f)
+    return record
+
+
+def mesh_witness(tag: str, bundle, cfg: dict, mesh, ref, got: dict,
+                 out_dir: str) -> None:
+    """Witnesses of a data-axis edit's distance from the one-rank run, each
+    held like the run itself (launches, the ranks' latents the same bits,
+    at least MESH_DB): the edit again on ``mesh`` with the one-rank run's
+    matchings handed to every merging call (its plan tape), and its
+    generation alone from the one-rank run's inversion (inverted latents,
+    PnP source table) with those matchings, all from rank 0 through
+    ``out_dir``.  Rank 0 prints how many calls the meshed run matched
+    otherwise than one rank, its inverted latents' dB against one rank's,
+    and each run's frames' dB against one rank's, beside the one-rank
+    run's own sensitivity (``ref["nudged_db"]``, mesh_nudge)."""
+    path = os.path.join(out_dir, f"{tag}.ref.pt")
+    if mesh.rank == 0:
+        torch.save({"plans": [plans_on(c, "cpu") for c in ref["plans"]],
+                    "inverted": ref["inverted"].cpu(),
+                    "src": ref["src"].cpu()}, path)
+    mesh.barrier()
+    one = torch.load(path, weights_only=False)
+    runs = {"own matchings": got}
+    for what, given in (("one rank's matchings", None),
+                        ("one rank's inversion and matchings", one)):
+        run = mesh_edit(bundle, cfg, mesh, plans=one["plans"], given=given)
+        run.pop("rec").check(f"mesh {tag} witness rank {mesh.rank}")
+        if not mesh_same_bits(mesh, run["clean"].float()):
+            raise AssertionError(f"[mesh {tag} witness] the ranks' latents "
+                                 f"differ")
+        runs[what] = run
+    if mesh.rank != 0:
+        return
+    inv = frames_db(got["inverted"], ref["inverted"],
+                    ref["inverted"].abs().max().item())
+    dbs = {k: frames_db(r["frames"], ref["frames"]) for k, r in runs.items()}
+    worst = {k: (r["frames"].float() - ref["frames"].float()).abs().max()
+             for k, r in runs.items()}
+    print(f"[mesh] ({tag} witness) rank 0: "
+          f"{plans_differ(got['plans'], ref['plans'])} of "
+          f"{len(ref['plans'])} merging calls matched otherwise than one "
+          f"rank; inverted latents {inv:.2f} dB against one rank's; frames "
+          f"against one rank's: " + ", ".join(
+              f"{k} {dbs[k]:.2f} dB (max |diff| {worst[k].item():.3e})"
+              for k in runs) + f"; one rank's generation from its inversion "
+          f"moved by a bf16 step, against its own: {ref['nudged_db']:.2f} "
+          f"dB", flush=True)
+    low = {k: v for k, v in dbs.items() if not v >= MESH_DB}
+    if low:
+        raise AssertionError(f"[mesh {tag} witness] against one rank {low} "
+                             f"(want >= {MESH_DB})")
+
+
+def mesh_nudge(bundle, cfg: dict, ref: dict) -> float:
+    """The one-rank edit's own sensitivity: its generation again, alone on
+    this rank (``bundle`` unsharded), from ``ref``'s inversion with every
+    inverted latent moved by about one bf16 rounding step (a relative
+    2**-8, seeded normal) and ``ref``'s matchings; the frames' dB against
+    ``ref``'s."""
+    x = ref["inverted"]
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(0))
+    moved = (x.float() * (1 + 2 ** -8 * noise.to(x.device))).to(x.dtype)
+    out = mesh_edit(bundle, cfg, None, plans=ref["plans"],
+                    given={"inverted": moved, "src": ref["src"]})
+    return frames_db(out["frames"], ref["frames"])
+
+
+def mesh_call(unet, args: tuple, kwargs: dict, mesh, qt=None) -> dict:
+    """One UNet call on this rank of ``mesh`` (None: alone): its output
+    (gathered under a data axis), launches, ModuleLaunches and peak
+    memory."""
+    from vidtome_torch.pipeline.generator import call_rows
+
+    x = args[0]
+    rows = call_rows(mesh, x.shape[0])
+    own = (lambda a: a) if rows is None else rows.take
+    dev = x.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    if mesh is not None:
+        mesh.stats.clear()
+    rec = ModuleLaunches({"UNet": unet}, count=mesh is not None)
+    with rec, torch.inference_mode():
+        reset_launches()
+        out = unet(own(x), *args[1:2], own(args[2]), qt=qt, rows=rows,
+                   **{k: own(v) if isinstance(v, torch.Tensor) else v
+                      for k, v in kwargs.items()})
+        out = out if rows is None else rows.gather(out)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    return {"out": out.float(), "launches": launches, "rec": rec,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "collectives": dict(mesh.stats) if mesh is not None else {}}
+
+
+def mesh_rank(out_dir: str, devices: list[str], rows: dict,
+              runs: tuple[str, ...]) -> None:
+    """One rank of phase 37 (the process group exists): each of ``runs``
+    ("a".."g", see phase_mesh) against a one-rank run of the same config
+    and seed on rank 0, at full width with random weights."""
+    from vidtome_torch.models.registry import init_model
+    from vidtome_torch.ops.quant import quantize_unet
+    from vidtome_torch.parallel.mesh import make_mesh, shard_bundle
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    dev = torch.device(devices[rank])
+    lead = rank == 0
+
+    def edit_runs(sd: str, cfgs: dict, meshes: dict,
+                  witness: tuple = ()) -> None:
+        # the one-rank edits on rank 0 first, from an unsharded bundle; a
+        # fresh bundle (same seed) for each mesh; the runs in ``witness``
+        # record their plan tapes and run again with one rank's
+        def tape(k):
+            return "record" if k in witness else None
+
+        bundle = init_model(sd, weight_dtype="bf16", device=dev, seed=0)
+        refs = ({k: mesh_edit(bundle, cfgs[k], None, plans=tape(k))
+                 for k in meshes} if lead else {})
+        for k in witness if lead else ():
+            refs[k]["nudged_db"] = mesh_nudge(bundle, cfgs[k], refs[k])
+        for k in refs.values():
+            k.pop("rec")
+        by_mesh: dict = {}
+        for k, axes in meshes.items():
+            by_mesh.setdefault(axes, []).append(k)
+        for axes, keys in by_mesh.items():
+            mesh = make_mesh(*axes, devices)
+            if bundle.mesh is not None:
+                del bundle
+                gc.collect()
+                torch.cuda.empty_cache()
+                bundle = init_model(sd, weight_dtype="bf16", device=dev,
+                                    seed=0)
+            shard_bundle(bundle, mesh)
+            for k in keys:
+                got = mesh_edit(bundle, cfgs[k], mesh, plans=tape(k))
+                n = sum(v for c in got["calls"].values()
+                        for kind, v in c.items()
+                        if kind in ("full", "shallow"))
+                mesh_report(k, mesh, got, refs.get(k), rows, n, out_dir,
+                            "clean", "frames")
+                if k in witness:
+                    mesh_witness(k, bundle, cfgs[k], mesh, refs.get(k), got,
+                                 out_dir)
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if "a" in runs or "b" in runs or "c" in runs:
+        cfgs = {"a": CONFIG, "b": CONFIG,
+                "c": serve_config(MESH_SERVE_STEPS)}
+        meshes = {k: v for k, v in (("a", (2, 1)), ("c", (2, 1)),
+                                    ("b", (1, 2))) if k in runs}
+        edit_runs("1.5", cfgs, meshes)
+    if "d" in runs:
+        cfg = pnp_config(MESH_PNP_STEPS)
+        edit_runs("2.1", {"d data": cfg, "d model": cfg},
+                  {"d data": (2, 1), "d model": (1, 2)}, ("d data",))
+    if "g" in runs:
+        edit_runs("1.5", {"g": CONFIG}, {"g": (2, 2)})
+    if "e" in runs:
+        from vidtome_torch.tools.profiles import INV_SERVE_PROFILES
+
+        bundle = init_model("1.5", weight_dtype="bf16", device=dev, seed=0)
+        if INV_SERVE_PROFILES["int8_fused"][0] != {"quant": "int8",
+                                                    "resnet_mode": "fused"}:
+            raise AssertionError("bench.py's int8_fused keys changed")
+        latent, width = SIZE // 8, bundle.unet.config.cross_attention_dim
+        x, ctx = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in (
+            np.random.default_rng(5).standard_normal(s, np.float32)
+            for s in ((8, latent, latent, 4), (8, 77, width))))
+        args, kw = (x, 501, ctx), {"resnet_mode": "fused"}
+        with gn_mode("full"):
+            ref = (mesh_call(bundle.unet, args, kw, None,
+                             quantize_unet(bundle.unet)) if lead else None)
+            mesh = make_mesh(1, 2, devices)
+            shard_bundle(bundle, mesh)
+            got = mesh_call(bundle.unet, args, kw, mesh,
+                            quantize_unet(bundle.unet))
+            if ref is not None:
+                ref.pop("rec")
+            mesh_report("e", mesh, got, ref, rows, 1, out_dir, "out", "out")
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "f" in runs:
+        for sd, tag in (("xl", "f SDXL"), ("xl-refiner", "f refiner")):
+            bundle = init_model(sd, weight_dtype="bf16", device=dev, seed=0)
+            x, ctx, pooled, ids = sdxl_unet_args(dev, bundle.unet, 4,
+                                                 SDXL_SIZE // 8, 8)
+            args = (x.bfloat16(), 501, ctx.bfloat16())
+            kw = {"add_text_embeds": pooled, "add_time_ids": ids}
+            ref = mesh_call(bundle.unet, args, kw, None) if lead else None
+            if ref is not None:
+                ref.pop("rec")
+            mesh = make_mesh(1, 2, devices)
+            shard_bundle(bundle, mesh)
+            got = mesh_call(bundle.unet, args, kw, mesh)
+            mesh_report(tag, mesh, got, ref, rows, 1, out_dir, "out", "out")
+            del bundle, ref, got
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def mesh_cli() -> None:
+    """Phase 37 (h): ``python -m vidtome_torch.cli`` on stage_yaml's config
+    without a mesh (one rank), with ``tpu.mesh: {data: 2}`` (the entry
+    starts its two ranks itself, a card each over NCCL, each building its
+    mesh from the config, its card its rank's), and the same through
+    torchrun (``--standalone --nproc-per-node 2``: the ranks join the
+    launcher's group, each on its LOCAL_RANK's card).  Each must exit 0; a
+    meshed run reports the mesh on both ranks; its rank 0 alone writes the
+    latents, the prompt file and the frames, at least MESH_DB against the
+    one-rank run's."""
+    from vidtome_torch.io.video import load_video
+
+    runs = {"one rank": ("vidtome_torch.cli",),
+            "self-started": ("vidtome_torch.cli",),
+            "torchrun": ("torch.distributed.run", "--standalone",
+                         "--nproc-per-node", "2", "-m", "vidtome_torch.cli")}
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = {}
+        for tag, argv in runs.items():
+            work = os.path.join(tmp, tag.replace(" ", "-"))
+            cfg = stage_yaml(work, None,
+                             None if tag == "one rank" else {"data": 2})
+            log = run_module(f"mesh cli {tag}", *argv, "--config", cfg)
+            wall = [line for line in log.splitlines() if "wall time" in line]
+            print(f"[mesh] (h) CLI {tag}: {wall}")
+            if tag != "one rank":
+                want = ["device mesh: {'data': 2, 'model': 1} (rank "
+                        f"{r}: data {r}, model 0, on cuda:{r})"
+                        for r in range(2)]
+                if tag == "self-started":
+                    want.append("starting 2 ranks for tpu.mesh "
+                                "{'data': 2}")
+                missing = [w for w in want if w not in log]
+                if missing or len(wall) != 2:
+                    raise AssertionError(f"[mesh cli {tag}] {missing}, "
+                                         f"{len(wall)} wall lines")
+            lat = Path(work, "latents", "stable-diffusion-v1-5")
+            if not (lat / "inversion_prompts.txt").is_file():
+                raise AssertionError(f"[mesh cli {tag}] no prompt file")
+            frames[tag] = torch.from_numpy(load_video(
+                str(Path(work, "watercolor", "frames")), SIZE, SIZE))
+        for tag in ("self-started", "torchrun"):
+            db = frames_db(frames[tag], frames["one rank"])
+            print(f"[mesh] (h) CLI {tag} on {{data: 2}}: {db:.2f} dB against"
+                  f" one rank, max |diff| "
+                  f"{(frames[tag] - frames['one rank']).abs().max():.3e}")
+            if not db >= MESH_DB:
+                raise AssertionError(f"[mesh cli {tag}] {db:.2f} dB against "
+                                     f"one rank (want >= {MESH_DB})")
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 37: vidtome_torch.parallel on two ranks, the main path's
+    kernels on each (the counters read in the ranks' own processes).
+    Runs, each against a one-rank run of the same config and seed:
+      (a) the exact keys (CONFIG, STEPS+STEPS) at {data: 2};
+      (b) the same at {model: 2};
+      (c) configs/serve.yaml's keys (MESH_SERVE_STEPS) at {data: 2}: fused
+          resnets, the step caches, CFG-skip calls of 4 rows;
+      (d) SD2.1 on configs/dog.yaml's PnP keys with the fused sublayer
+          (MESH_PNP_STEPS) at {data: 2} (12 rows: lane 1 split over the
+          ranks) and at {model: 2} (5 heads split 3 / 2);
+      (e) one int8 UNet call (bench.py's int8_fused keys: W8A8 fused
+          resnets, VIDTOME_GN_MODE=full) at {model: 2};
+      (f) one SDXL and one refiner UNet call at 1024x1024 (batch 4) at
+          {model: 2}: the refiner's 96-wide heads 4 / 8 a rank;
+      (g) (a) at {data: 2, model: 2} over NCCL, when four cards are
+          visible;
+      (h) the CLI at {data: 2}, the ranks self-started and under torchrun
+          (mesh_cli), when two cards or more are visible.
+    (d data) also runs with the one-rank run's matchings handed over, and
+    its generation alone from the one-rank run's inversion and matchings
+    (mesh_witness).
+    Ranks get a card each over NCCL where as many are visible, else share
+    card 0 over gloo (collectives through host memory).  Each run: each
+    rank's launches per UNet call equal what its modules imply, every
+    kernel shape a phase-3 row, every rank's latents (or output) the same
+    bits, at least MESH_DB against the one-rank run.  Returns the ranks'
+    launches summed (of (a)-(g))."""
+    from vidtome_torch.parallel.launch import backend_for, rank_devices, spawn
+
+    rows = phase3_rows()
+    launches = collections.Counter()
+    plans = [(2, ("a", "b", "c", "d", "e", "f"))]
+    if torch.cuda.device_count() >= 4:
+        plans.append((4, ("g",)))
+    else:
+        print(f"[mesh] (g) not run: {torch.cuda.device_count()} card(s) "
+              f"visible, it needs 4")
+    for world, runs in plans:
+        devices = [str(d) for d in rank_devices(world)]
+        print(f"[mesh] runs {', '.join(runs)}: world size {world}, backend "
+              f"{backend_for(devices)}, devices {devices}")
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            spawn(mesh_rank, world, (out, devices, rows, runs), devices)
+            seconds = time.perf_counter() - t0
+            records = []
+            for name in sorted(os.listdir(out)):
+                if name.endswith(".json"):
+                    with open(os.path.join(out, name)) as f:
+                        records.append(json.load(f))
+        for r in records:
+            launches.update(r["launches"])
+            db = (f"; {r['db']:.2f} dB against one rank, max |diff| "
+                  f"{r['max_abs_diff']:.3e}, one-rank peak "
+                  f"{r['ref_peak_gib']:.2f} GiB, stage seconds "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in r["ref_times"].items())
+                  if "db" in r else "")
+            print(f"[mesh] ({r['tag']}) {r['shape']} rank {r['rank']}: "
+                  f"{r['unet_calls']} UNet calls, launches a call (calls: "
+                  f"launches) {r['launches_by_call']}; peak "
+                  f"{r['peak_gib']:.2f} GiB; stage seconds "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in r["times"].items())
+                  + f"; UNet calls {r['calls']}; collectives "
+                  f"{r['collective_calls']}, {r['collective_ms_a_call']:.2f}"
+                  f" ms and {r['collective_mib_a_call']:.1f} MiB a UNet call"
+                  + db)
+        want = {f"{t}.rank{k}" for t in runs for k in range(world)}
+        got = {f"{r['tag'].split()[0]}.rank{r['rank']}" for r in records}
+        if not want <= got:
+            raise AssertionError(f"[mesh] runs without a record: "
+                                 f"{sorted(want - got)}")
+        print(f"[mesh] world size {world}: {len(records)} records in "
+              f"{seconds:.1f} s")
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        mesh_cli()
+        print(f"[mesh] (h) {time.perf_counter() - t0:.1f} s")
+    else:
+        print(f"[mesh] (h) not run: {torch.cuda.device_count()} card(s) "
+              f"visible, it needs 2")
+    return {k: launches[k] for k in KERNELS}
+
+
 def main(argv: list[str]) -> int:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4617,6 +5233,8 @@ def main(argv: list[str]) -> int:
     name, _ = step("1", phase_device)
     step("2", phase_build, dev)
     stats = step("3", phase_kernels, dev)
+    free()
+    mesh = step("37", phase_mesh, dev)
 
     from vidtome_torch.models.registry import init_model
 
@@ -4722,7 +5340,7 @@ def main(argv: list[str]) -> int:
           f"(the builds included); seconds by phase: {seconds}")
     for path in (exact, int8, controlnet, batch, ragged, ldm15, lora, pnp,
                  ldm_pnp, depth, sdxl, sdxl_int8, sdxl_pnp, sdxl_serve,
-                 sdxl_lora, sdxl_ldm):
+                 sdxl_lora, sdxl_ldm, mesh):
         launches = {k: launches[k] + path[k] for k in KERNELS}
     missing = [k for k in KERNELS if launches[k] <= 0]
     if missing:

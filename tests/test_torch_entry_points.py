@@ -9,16 +9,20 @@ inversion writes the JAX ``Inverter``'s latents (fp32, within 1e-4 of max
 merging off (the two packages draw merges from different key chains),
 gives frames within the repo's 35 dB floor of the JAX generation's, and
 without cached latents raises ``cli.run_generation``'s error.  A
-``tpu.mesh`` over two devices and ``tpu.multihost`` are refused;
-``tpu.profile_dir`` writes a Chrome trace of the denoising loop (JSON,
+``tpu.mesh`` over two ranks runs each stage entry on two gloo ranks (their
+outputs held to the one-process run's), ``tpu.multihost`` joins a process
+group, and a mesh larger than the ranks is refused; the logger follows a
+redirected stdout; ``tpu.profile_dir`` writes a Chrome trace of the denoising loop (JSON,
 holding the UNet's ops) and leaves the frames as they were; on the SDXL
 two-stage path one for each stage's loop, as the JAX package traces them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
+import io
 import json
 import os
 
@@ -29,8 +33,12 @@ import yaml
 
 from tests.helpers import make_tiny_bundle, make_tiny_video
 from tests.torch_parity import port_bundle_from_jax, psnr
+from tests.torch_ranks import setup_rank
 from vidtome_torch import cli
 from vidtome_torch.io.video import load_video
+from vidtome_torch.logging_utils import get_logger
+from vidtome_torch.parallel.launch import spawn
+from vidtome_torch.parallel.mesh import make_mesh
 from vidtome_torch.pipeline import generator as t_generator
 from vidtome_torch.pipeline import inverter as t_inverter
 
@@ -39,6 +47,7 @@ torch.set_num_threads(2)
 N_FRAMES = 4
 SIZE = 64
 STEPS = 2
+RANKS_TIMEOUT = 120  # seconds for a spawn's ranks and each collective
 
 
 def _config(root: str, video: str, name: str) -> dict:
@@ -145,20 +154,147 @@ def test_generator_without_latents_raises(run, port_init, tmp_path):
         t_generator.main(_write(cfg, str(tmp_path / "c.yaml")), device="cpu")
 
 
+def _tiny_config(root: str, video: str, name: str, latents: str | None = None,
+                 tpu: dict | None = None) -> dict:
+    """A config of the tiny stack (random weights seeded alike in every
+    process) with local and global merging on, so that a data axis splits
+    merged calls."""
+    cfg = _config(root, video, name)
+    cfg["sd_version"] = "tiny"
+    cfg["generation"].update(local_merge_ratio=0.9, merge_global=True)
+    if latents is not None:
+        cfg["generation"]["latents_path"] = latents
+    cfg["tpu"].update(tpu or {})
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def one_process(tmp_path_factory):
+    """The tiny config's inversion and generation in this process: the
+    video, the latents dir and the frames."""
+    root = str(tmp_path_factory.mktemp("one"))
+    video = make_tiny_video(os.path.join(root, "video"), n_frames=N_FRAMES,
+                            size=SIZE)
+    cfg = _tiny_config(root, video, "one")
+    argv = _write(cfg, os.path.join(root, "one.yaml"))
+    t_inverter.main(argv, device="cpu")
+    t_generator.main(argv, device="cpu")
+    return video, cfg["inversion"]["save_path"], _frames_of(cfg)
+
+
+def _frames_of(cfg: dict) -> np.ndarray:
+    return load_video(os.path.join(cfg["generation"]["output_path"], "edit",
+                                   "frames"), SIZE, SIZE)
+
+
+def _latents_of(cfg: dict) -> dict:
+    d = os.path.join(cfg["inversion"]["save_path"], "tiny-test-model")
+    d = d if os.path.isdir(d) else glob.glob(
+        os.path.join(cfg["inversion"]["save_path"], "*"))[0]
+    return {os.path.basename(p): np.load(p) for p in glob.glob(
+        os.path.join(d, "noisy_latents_*.npy"))}
+
+
+@pytest.fixture
+def free_group():
+    """A 1-process gloo group's coordinator on a free port, the group
+    destroyed after the test."""
+    from vidtome_torch.parallel.launch import free_port
+
+    yield f"localhost:{free_port()}"
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
 @pytest.mark.parametrize("tpu", [{"mesh": {"data": 2}}, {"multihost": True},
                                  {"mesh": {"data": 1, "model": 2}}],
                          ids=["data2", "multihost", "model2"])
 @pytest.mark.parametrize("entry", ["inverter", "generator", "setup"])
-def test_multi_device_tpu_keys_are_refused(run, port_init, tmp_path, tpu,
-                                           entry):
-    cfg = _config(str(tmp_path), run[1], "mesh")
-    cfg["tpu"].update(tpu)
+def test_multi_device_tpu_keys_are_refused(one_process, tmp_path, tpu, entry,
+                                           capfd, free_group):
+    """What each entry does with the ``tpu`` keys that it refused before
+    ``parallel/`` was ported (the test keeps its name): a ``mesh`` of two
+    makes the stage entries start two gloo ranks on the CPU, whose rank 0
+    writes what the one-process run writes (the inversion's latents within
+    1e-5; the frames within test_pipeline_mesh's bars, 2e-3 of mean |diff|
+    on the data axis and 0.02 on the model axis), and makes ``setup``, the
+    in-rank preamble, build the mesh over the ranks it runs in, each on its
+    place; ``multihost: true`` with the manual keys joins a 1-process group
+    (tcp on a free port, world size 1, gloo) before the stage runs."""
+    video, latents, frames = one_process
+    if "multihost" in tpu:
+        tpu = {"multihost": True, "coordinator": free_group,
+               "num_processes": 1, "process_id": 0}
+    cfg = _tiny_config(str(tmp_path), video, "mesh", latents, tpu)
     argv = _write(cfg, str(tmp_path / "c.yaml"))
-    fn = {"inverter": t_inverter.main, "generator": t_generator.main,
-          "setup": cli.setup_from_argv}[entry]
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        fn(argv, device="cpu")
-    assert port_init == []  # refused before any model is built
+    if entry == "setup" and "mesh" in tpu:
+        out = str(tmp_path / "setup")
+        os.makedirs(out)
+        spawn(setup_rank, 2, (argv, out), ["cpu", "cpu"],
+              timeout=RANKS_TIMEOUT, collective_timeout=RANKS_TIMEOUT)
+        data, model = tpu["mesh"].get("data", 1), tpu["mesh"].get("model", 1)
+        for rank in range(2):
+            got = torch.load(os.path.join(out, f"{rank}.pt"))
+            assert got == {"shape": {"data": data, "model": model},
+                           "rank": rank, "world": 2, "backend": "gloo",
+                           "device": "cpu", "bundle_mesh": True,
+                           "heads": 2 // model}
+        return
+    if entry == "setup":
+        config, bundle = cli.setup_from_argv(argv, device="cpu")
+        assert torch.distributed.get_world_size() == 1
+        assert torch.distributed.get_backend() == "gloo"
+        assert bundle.mesh is None and config["sd_version"] == "tiny"
+        return
+    {"inverter": t_inverter.main, "generator": t_generator.main}[entry](
+        argv, device="cpu", timeout=RANKS_TIMEOUT)
+    printed = capfd.readouterr().out
+    if "mesh" in tpu:
+        shape = {"data": tpu["mesh"].get("data", 1),
+                 "model": tpu["mesh"].get("model", 1)}
+        assert f"starting 2 ranks for tpu.mesh {tpu['mesh']}" in printed
+        for rank in range(2):
+            assert f"device mesh: {shape} (rank {rank}:" in printed
+    else:
+        assert "torch.distributed initialized: process 0/1, backend gloo" \
+            in printed
+    if entry == "inverter":
+        got, want = _latents_of(cfg), _latents_of({"inversion": {
+            "save_path": latents}})
+        assert got and sorted(got) == sorted(want)
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name], rtol=0,
+                                       atol=1e-5)
+    else:
+        bar = 0.02 if tpu.get("mesh", {}).get("model", 1) > 1 else 2e-3
+        diff = np.abs(_frames_of(cfg) - frames).mean()
+        assert diff < bar, diff
+
+
+def test_mesh_larger_than_the_ranks_is_refused(one_process, tmp_path):
+    """``setup`` in one process with a 2-rank mesh and no process group,
+    and a mesh over more devices than there are."""
+    cfg = _tiny_config(str(tmp_path), one_process[0], "big", None,
+                       {"mesh": {"data": 2}})
+    with pytest.raises(ValueError, match="spans 2 ranks; this process "
+                                         "group has 1"):
+        cli.setup_from_argv(_write(cfg, str(tmp_path / "c.yaml")),
+                            device="cpu")
+    with pytest.raises(ValueError, match="need 2 devices for mesh"):
+        make_mesh(data=1, model=2)
+
+
+def test_get_logger_follows_stdout(capsys):
+    """The logger writes to the stdout of the moment it logs: a line logged
+    under another stdout goes there, not to the first one's."""
+    log = get_logger()
+    log.info("under the first")
+    assert "[INFO] under the first" in capsys.readouterr().out
+    other = io.StringIO()
+    with contextlib.redirect_stdout(other):
+        log.info("under the second")
+    assert other.getvalue() == "[INFO] under the second\n"
+    assert capsys.readouterr().out == ""
 
 
 def test_setup_needs_a_card_unless_asked(run, port_init, tmp_path):

@@ -27,10 +27,14 @@ Each stage also runs alone, through the same preamble
 
 the generation from the latents a prior inversion cached.  The ``tpu``
 section: ``profile_dir`` traces the denoising loop (``torch.profiler``,
-``Generator.ddim_sample``); a ``mesh`` of more than one device and
-``multihost: true`` are refused until ``parallel/`` is ported;
-``use_pallas_attention`` selects nothing (the card always runs the
-port's kernels).
+``Generator.ddim_sample``); ``mesh`` (``{data: D, model: M}``) runs both
+stages on D x M ranks, one process a card (``parallel/``): an entry point
+starts the ranks itself (``parallel/launch.run_entry``) unless torchrun
+or ``multihost`` (``coordinator`` / ``num_processes`` / ``process_id``,
+``parallel/distributed.py``) started them; rank 0 alone writes the
+latents, the prompt file, the frames and the video.
+``use_pallas_attention`` selects nothing (the card always runs the port's
+kernels).
 """
 
 from __future__ import annotations
@@ -40,51 +44,52 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vidtome_torch.config import load_config, save_config
 from vidtome_torch.io import artifacts
 from vidtome_torch.io.video import load_video, save_frames, save_video
 from vidtome_torch.logging_utils import get_logger, timed
 from vidtome_torch.models.registry import init_model
+from vidtome_torch.parallel.distributed import initialize_from_config
+from vidtome_torch.parallel.launch import run_entry
+from vidtome_torch.parallel.mesh import mesh_from_config, shard_bundle
 from vidtome_torch.pipeline.common import get_frame_ids, stage_depth
 from vidtome_torch.pipeline.generator import Generator
 from vidtome_torch.pipeline.inverter import Inverter
 from vidtome_torch.utils import seed_everything
 
 
-def check_tpu(tpu_cfg) -> None:
-    """Refuse the ``tpu`` keys the port cannot honour yet: a ``mesh`` over
-    more than one device and ``multihost`` (ROADMAP.md, queue 1:
-    ``parallel/``)."""
-    if not tpu_cfg:
-        return
-    mesh = tpu_cfg.get("mesh") or {}
-    devices = int(mesh.get("data", 1)) * int(mesh.get("model", 1))
-    if devices > 1:
-        raise NotImplementedError(
-            f"tpu.mesh {dict(mesh)} spans {devices} devices; vidtome_torch "
-            f"runs on one card until parallel/ is ported (ROADMAP.md, "
-            f"queue 1)")
-    if tpu_cfg.get("multihost"):
-        raise NotImplementedError(
-            "tpu.multihost: vidtome_torch runs on one card until parallel/ "
-            "is ported (ROADMAP.md, queue 1)")
+def writes(bundle) -> bool:
+    """Whether this process writes the stages' files: rank 0 of the
+    bundle's mesh, or the only process."""
+    return bundle.mesh is None or bundle.mesh.rank == 0
 
 
 def setup_from_argv(argv=None, device=None):
     """The stages' shared preamble (JAX ``cli.py:18-49``): the config of
-    ``--config``, its ``tpu`` keys checked, the model bundle of
-    ``sd_version`` / ``model_key`` / ``generation.control`` /
-    ``float_precision`` / ``controlnet_root`` on ``device`` (the card
-    unless the caller passes another), ``config["model_key"]`` set to the
-    bundle's and the host RNGs seeded.  Returns (config, bundle)."""
-    config = load_config(argv)
-    check_tpu(config.get("tpu", None))
+    ``--config``; the process group of ``tpu.multihost`` (or of a
+    launcher) and the mesh of ``tpu.mesh`` over it, this rank's device
+    then the mesh's; the model bundle of ``sd_version`` / ``model_key`` /
+    ``generation.control`` / ``float_precision`` / ``controlnet_root`` on
+    ``device`` (the card unless the caller passes another), sharded on the
+    mesh; ``config["model_key"]`` set to the bundle's and the host RNGs
+    seeded.  Returns (config, bundle); ``bundle.mesh`` is the mesh."""
+    config = load_config(argv, print_config=not dist.is_initialized()
+                         or dist.get_rank() == 0)
+    tpu = config.get("tpu", None)
+    # the process group first: the mesh is built over its ranks
+    initialize_from_config(tpu)
     if device is None:
         if not torch.cuda.is_available():
             raise SystemExit("vidtome_torch runs on a CUDA device; none "
                              "found")
         device = "cuda"
+    mesh = mesh_from_config(tpu, device)
+    if mesh is not None:
+        device = mesh.device
+        print(f"[INFO] device mesh: {mesh.shape} (rank {mesh.rank}: data "
+              f"{mesh.data_rank}, model {mesh.model_rank}, on {device})")
     with timed("model load"):
         bundle = init_model(
             sd_version=str(config.get("sd_version", "1.5")),
@@ -93,6 +98,8 @@ def setup_from_argv(argv=None, device=None):
             device=device, seed=int(config.get("seed", 123)),
             control=str(config["generation"].get("control", "none")),
             controlnet_root=config.get("controlnet_root", None))
+    if mesh is not None:
+        shard_bundle(bundle, mesh)
     config["model_key"] = bundle.model_key
     seed_everything(int(config.get("seed", 123)))
     return config, bundle
@@ -115,19 +122,27 @@ def run_inversion(config, bundle):
     if inverter.n_frames is not None:
         frames = frames[: int(inverter.n_frames)]
 
-    def save_latent(t, x):
-        artifacts.save_latent(save_dir, t, x.float().cpu().numpy())
+    writer = writes(bundle)
 
-    # the per-frame prompts beside the latents (JAX inverter.py:432-436)
-    with open(os.path.join(save_dir, "inversion_prompts.txt"), "w") as f:
-        f.write("\n".join(inverter.prompts(len(frames))))
+    def save_latent(t, x):
+        if writer:
+            artifacts.save_latent(save_dir, t, x.float().cpu().numpy())
+
+    if writer:  # the per-frame prompts beside the latents (JAX
+        # inverter.py:432-436)
+        with open(os.path.join(save_dir, "inversion_prompts.txt"), "w") as f:
+            f.write("\n".join(inverter.prompts(len(frames))))
     inverted, recon = inverter(frames, save_latent)
-    path = artifacts.save_latent(save_dir, ts[0],
-                                 inverted.float().cpu().numpy())
-    print(f"[INFO] inverted latent saved to: {path}")
-    save_config(config, save_dir, inv=True)
-    if recon is not None:
-        save_frames(recon.cpu().numpy(), os.path.join(save_dir, "recon_frames"))
+    if writer:
+        path = artifacts.save_latent(save_dir, ts[0],
+                                     inverted.float().cpu().numpy())
+        print(f"[INFO] inverted latent saved to: {path}")
+        save_config(config, save_dir, inv=True)
+        if recon is not None:
+            save_frames(recon.cpu().numpy(),
+                        os.path.join(save_dir, "recon_frames"))
+    if bundle.mesh is not None:  # the other ranks read what rank 0 wrote
+        bundle.mesh.barrier()
     return inverted
 
 
@@ -164,7 +179,7 @@ def run_generation(config, bundle):
     outputs = generator(table[0],
                         src_table=table if generator.use_pnp else None,
                         control=control, depth=depth)
-    for name, frames in outputs.items():
+    for name, frames in outputs.items() if writes(bundle) else ():
         out_dir = os.path.join(gene["output_path"], name)
         save_config(config, out_dir, gene=True)
         save_video(frames.cpu().numpy(), out_dir,
@@ -172,16 +187,41 @@ def run_generation(config, bundle):
     return outputs
 
 
-def main(argv=None):
+def run_both(config, bundle):
+    """Both stages, each timed, and their wall time."""
     t0 = time.perf_counter()
-    config, bundle = setup_from_argv(argv)
     with timed("inversion"):
         run_inversion(config, bundle)
     with timed("generation"):
         run_generation(config, bundle)
-    torch.cuda.synchronize()
+    name = "cpu"
+    if bundle.device.type == "cuda":
+        torch.cuda.synchronize(bundle.device)
+        name = torch.cuda.get_device_name(bundle.device)
     get_logger().info("wall time %.3f s on %s", time.perf_counter() - t0,
-                      torch.cuda.get_device_name(0))
+                      name)
+
+
+def run_stage(stage, argv=None, device=None):
+    """``stage(config, bundle)`` after :func:`setup_from_argv`, in this
+    process (one rank of a mesh, or the only one)."""
+    config, bundle = setup_from_argv(argv, device=device)
+    stage(config, bundle)
+
+
+def entry(stage, argv=None, device=None, timeout: float | None = None):
+    """An entry point's body: :func:`run_stage` of ``stage`` on the ranks of
+    ``tpu.mesh`` when it spans several (started here unless a launcher or
+    ``multihost`` started them; ``timeout`` seconds bound their run and
+    each of their collectives), else in this process."""
+    tpu = load_config(argv, print_config=False).get("tpu", None)
+    run_entry(run_stage, tpu, (stage, argv, device), device, timeout)
+
+
+def main(argv=None, device=None, timeout: float | None = None):
+    """``python -m vidtome_torch.cli --config x.yaml``: both stages
+    (:func:`entry`)."""
+    entry(run_both, argv, device, timeout)
 
 
 if __name__ == "__main__":

@@ -135,6 +135,16 @@ def _build_plan(metric: torch.Tensor, a_idx: torch.Tensor,
                      dst_run_len=dst_run_len, dst_prefix=dst_prefix)
 
 
+def plan_rows(plan: MergePlan, rows: slice) -> MergePlan:
+    """The plan of the batch rows ``rows`` of ``plan`` (a rank's joined
+    rows under the data axis of a mesh)."""
+    fields = ("merge_gather", "unmerge_gather", "a_idx", "b_idx", "unm_idx",
+              "src_idx", "dst_idx")
+    return dataclasses.replace(plan, **{
+        f: getattr(plan, f)[rows] for f in fields
+        if getattr(plan, f) is not None})
+
+
 MERGE_MODES = ("replace", "mean")
 
 

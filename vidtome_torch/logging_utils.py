@@ -22,10 +22,24 @@ import torch
 _configured = False
 
 
+class _StdoutHandler(logging.StreamHandler):
+    """A StreamHandler on the ``sys.stdout`` of the moment a record is
+    emitted, not of the moment it was made: a stdout redirected (or
+    captured) after the first log line still gets the next."""
+
+    @property
+    def stream(self):
+        return sys.stdout
+
+    @stream.setter
+    def stream(self, value):
+        pass
+
+
 def get_logger(name: str = "vidtome") -> logging.Logger:
     global _configured
     if not _configured:
-        handler = logging.StreamHandler(sys.stdout)
+        handler = _StdoutHandler()
         handler.setFormatter(logging.Formatter("[%(levelname)s] %(message)s"))
         root = logging.getLogger("vidtome")
         root.addHandler(handler)

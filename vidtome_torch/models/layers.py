@@ -28,6 +28,16 @@ PnP (``control: pnp``) rides the batch as lane-major blocks
 [source | uncond | cond]: :func:`inject_lane0` hands lane 0's values to
 every lane, for the q and k of the injected self-attentions and for the
 conv features of the injected resnet (JAX ``layers.py:344-430``).
+
+On a mesh (``parallel/mesh.py``): a Linear that ``shard_params`` made
+row-parallel sums its partial products over the model axis and adds its
+bias after the sum (int8: the dynamic activation scale is the max over
+the model axis, the int32 sums are summed exact); under the data axis a
+block is given this rank's rows and their :class:`~vidtome_torch.parallel.
+mesh.Rows` (``rows``), and gathers the whole batch where work crosses
+rows: the token merging of a block (its matching, plans and banks are the
+whole batch's, on every rank; attn1 runs on the joined rows that hold this
+rank's) and PnP's lane 0.
 """
 
 from __future__ import annotations
@@ -43,19 +53,24 @@ from vidtome_torch.ops.attention import attention
 from vidtome_torch.ops.groupnorm import group_norm
 from vidtome_torch.ops.resnet import fused_resnet, fused_resnet_w8a8
 from vidtome_torch.ops.sublayer import fused_cross_sublayer
+from vidtome_torch.parallel.mesh import take_rows
 
 RESNET_MODES = ("off", "fused")
 SUBLAYER_MODES = ("off", "fused")
 
 
-def inject_lane0(x: torch.Tensor, num_lanes: int,
-                 flag: bool = True) -> torch.Tensor:
+def inject_lane0(x: torch.Tensor, num_lanes: int, flag: bool = True,
+                 rows=None) -> torch.Tensor:
     """Every lane's rows replaced by lane 0's when ``flag`` is true.  The
     batch is lane-major, ``num_lanes`` blocks of equal size (reference
-    utils/pnp_utils.py:62-70,146-155)."""
+    utils/pnp_utils.py:62-70,146-155); under the data axis ``x`` is this
+    rank's ``rows`` of it, and lane 0's come from the whole batch."""
     if not flag or num_lanes < 2:
         return x
-    return _tile_lanes(x[:x.shape[0] // num_lanes], num_lanes)
+    if rows is None:
+        return _tile_lanes(x[:x.shape[0] // num_lanes], num_lanes)
+    return take_rows(rows.gather(x)[:rows.n // num_lanes],
+                     rows.lane0(num_lanes))
 
 
 def _tile_lanes(lane0: torch.Tensor, num_lanes: int) -> torch.Tensor:
@@ -80,17 +95,40 @@ def _bias(y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     return y if bias is None else y + bias.to(y.dtype)
 
 
+def _fp32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [N, K]^T accumulated and returned in fp32 (bf16
+    operands on the card stay bf16 in the GEMM)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        y = F.linear(x2.float(), w.float())
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
 class Linear(nn.Linear):
     """nn.Linear whose call takes the int8 product where the call's table
-    ``qt`` holds this layer (per-row or static activation scale)."""
+    ``qt`` holds this layer (per-row or static activation scale).  ``tp``
+    is its shard on the model axis (``parallel/mesh.TPShard``, None when
+    whole); a row-parallel shard sums its partial products over that axis
+    in fp32 and adds the bias once, after the sum, rounding to the
+    activations' dtype once, as the whole layer's GEMM does."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor, qt=None) -> torch.Tensor:
         e = qt.get(self) if qt is not None else None
+        tp = self.tp if self.tp is not None and self.tp.row_parallel else None
         if e is None:
-            return super().forward(x)
-        return _bias(quant_ops.int8_dense(x, e.weight, e.scale,
-                                          self.weight.dtype, e.act_scale),
-                     self.bias)
+            if tp is None:
+                return super().forward(x)
+            y = tp.reduce(_fp32_product(x, self.weight))
+            if self.bias is not None:
+                y = y + self.bias.float()
+            return y.to(x.dtype)
+        return _bias(quant_ops.int8_dense(
+            x, e.weight, e.scale, self.weight.dtype, e.act_scale,
+            reduce=None if tp is None else tp.reduce), self.bias)
 
 
 class Conv2d(nn.Conv2d):
@@ -179,7 +217,7 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
                 resnet_mode: str = "off", inject: bool | None = None,
-                num_lanes: int = 1, qt=None) -> torch.Tensor:
+                num_lanes: int = 1, qt=None, rows=None) -> torch.Tensor:
         if resnet_mode not in RESNET_MODES:
             raise ValueError(f"resnet_mode must be one of {RESNET_MODES}, "
                              f"got {resnet_mode!r}")
@@ -189,7 +227,7 @@ class ResnetBlock2D(nn.Module):
         h = h + self.time_emb_proj(F.silu(temb), qt)[:, None, None, :]
         h = self.conv2(self.norm2(h), qt)
         if inject:
-            h = inject_lane0(h, num_lanes)
+            h = inject_lane0(h, num_lanes, rows=rows)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x, qt)
         return x + h
@@ -250,7 +288,12 @@ class CrossAttention(nn.Module):
     ``share_qk`` (PnP source-attention injection): q and k come from lane
     0 for every lane, so all lanes reuse the source attention map on their
     own values (reference utils/pnp_utils.py:47-95).  Only lane 0's q and k
-    are projected then."""
+    are projected then: ``x[:B / num_lanes]``, or under the data axis
+    ``lane0`` = (lane 0's rows of the whole batch, each row of x's place
+    among them) (a self-attention's).
+
+    On the model axis (``parallel/mesh.shard_params``) ``heads`` is this
+    rank's share of :attr:`total_heads`."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: int | None = None):
@@ -262,9 +305,31 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, query_dim)])
 
+    @property
+    def total_heads(self) -> int:
+        """The heads of the layer, every model rank's together."""
+        tp = self.to_q.tp
+        return self.heads if tp is None else sum(tp.sizes) // self.head_dim
+
+    def whole_weights(self) -> tuple[torch.Tensor, ...]:
+        """The to_q, to_k, to_v and to_out.0 weights of every head: this
+        rank's own where the layer is whole, else gathered over the model
+        axis once and kept until a shard changes (a collective: every model
+        rank asks at once)."""
+        lins = (self.to_q, self.to_k, self.to_v, self.to_out[0])
+        if self.to_q.tp is None:
+            return tuple(lin.weight for lin in lins)
+        key = tuple((lin.weight.data_ptr(), lin.weight._version)
+                    for lin in lins)
+        cached = self.__dict__.get("_whole")
+        if cached is None or cached[0] != key:
+            cached = self.__dict__["_whole"] = (
+                key, tuple(lin.tp.gather(lin.weight) for lin in lins))
+        return cached[1]
+
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
                 share_qk: bool = False, num_lanes: int = 1,
-                qt=None) -> torch.Tensor:
+                qt=None, lane0=None) -> torch.Tensor:
         ctx = x if context is None else context
         B, S, _ = x.shape
 
@@ -272,7 +337,11 @@ class CrossAttention(nn.Module):
             return t.view(B, t.shape[1], self.heads,
                           self.head_dim).transpose(1, 2)
 
-        if share_qk and num_lanes > 1:
+        if share_qk and num_lanes > 1 and lane0 is not None:
+            src, index = lane0
+            q = take_rows(self.to_q(src, qt), index)
+            k = take_rows(self.to_k(src, qt), index)
+        elif share_qk and num_lanes > 1:
             q = _tile_lanes(self.to_q(x[:B // num_lanes], qt), num_lanes)
             k = _tile_lanes(self.to_k(ctx[:ctx.shape[0] // num_lanes], qt),
                             num_lanes)
@@ -327,7 +396,14 @@ class TransformerBlock(nn.Module):
     (``layers.py:526-537``): bf16 weights and ``heads * head_dim == dim``;
     the K/V projections of the text context stay two matmuls outside it
     (``layers.py:665-667``).  It reads the bf16 projections, so a call with
-    an int8 table ``qt`` refuses it."""
+    an int8 table ``qt`` refuses it.  On the model axis it runs on attn2's
+    whole weights (:meth:`CrossAttention.whole_weights`), as GSPMD gives an
+    opaque kernel call whole operands.
+
+    ``rows`` (the data axis): ``x`` and ``context`` are this rank's rows of
+    the batch; a merging block gathers the batch's norm1 tokens, matches
+    and merges them whole (the banks and plans are the batch's on every
+    rank) and runs attn1 on the joined rows that hold its rows."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  downsample: int):
@@ -343,7 +419,8 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 tome_call: ToMeCall | None = None,
                 attn_inject: bool = False, num_lanes: int = 1,
-                sublayer_mode: str = "off", qt=None) -> torch.Tensor:
+                sublayer_mode: str = "off", qt=None,
+                rows=None) -> torch.Tensor:
         if sublayer_mode not in SUBLAYER_MODES:
             raise ValueError(f"sublayer_mode must be one of "
                              f"{SUBLAYER_MODES}, got {sublayer_mode!r}")
@@ -357,10 +434,14 @@ class TransformerBlock(nn.Module):
         plans = []
         if do_merge:
             a1, plans = self._merged_attn1(norm_x, tome_call, attn_inject,
-                                           num_lanes, qt)
+                                           num_lanes, qt, rows)
         else:
+            lane0 = None
+            if rows is not None and attn_inject and num_lanes > 1:
+                lane0 = (rows.gather(norm_x)[:rows.n // num_lanes],
+                         rows.lane0(num_lanes))
             a1 = self.attn1(norm_x, share_qk=attn_inject, num_lanes=num_lanes,
-                            qt=qt)
+                            qt=qt, lane0=lane0)
         if self._fused_sublayer_ok(sublayer_mode, cfg, do_merge):
             x3, y3 = self._fused_sublayer(x, a1, context)
             return x3 + self.ff(y3)
@@ -368,16 +449,24 @@ class TransformerBlock(nn.Module):
 
         def merged(fn, h, *args):  # fn on the locally merged tokens
             F_ = cfg.frames
-            j = merge_ops.join_frames(h, F_)
+            j = merge_ops.join_frames(h if rows is None else rows.gather(h),
+                                      F_)
             for p in plans:
                 j = merge_ops.merge(j, p, cfg.merge_mode)
-            return merge_ops.split_frames(
-                merge_ops.unmerge_all(fn(j, *args), plans), F_)
+            if rows is None:
+                return merge_ops.split_frames(
+                    merge_ops.unmerge_all(fn(j, *args), plans), F_)
+            sl, local = rows.joined(F_)
+            own = [merge_ops.plan_rows(p, sl) for p in plans]
+            out = merge_ops.unmerge_all(fn(j[sl], *(a[sl] for a in args)),
+                                        own)
+            return take_rows(merge_ops.split_frames(out, F_), local)
 
         h = self.norm2(x)
         if do_merge and cfg.merge_crossattn and plans:
+            ctx = context if rows is None else rows.gather(context)
             x = x + merged(lambda t, c: self.attn2(t, c, qt=qt), h,
-                           context[::cfg.frames])
+                           ctx[::cfg.frames])
         else:
             x = x + self.attn2(h, context, qt=qt)
         h = self.norm3(x)
@@ -394,27 +483,30 @@ class TransformerBlock(nn.Module):
         attn = self.attn2
         if sublayer_mode != "fused" or attn.to_q.weight.dtype != torch.bfloat16:
             return False
-        if attn.heads * attn.head_dim != self.norm2.weight.shape[0]:
+        if attn.total_heads * attn.head_dim != self.norm2.weight.shape[0]:
             return False
         return not (do_merge and (cfg.merge_crossattn or cfg.merge_ff))
 
     def _fused_sublayer(self, x, a1, context):
         attn = self.attn2
-        ctx = context.to(attn.to_k.weight.dtype)
+        wq, wk, wv, wout = attn.whole_weights()
+        ctx = context.to(wk.dtype)
         return fused_cross_sublayer(
-            x.contiguous(), a1.contiguous(), attn.to_k(ctx), attn.to_v(ctx),
-            attn.to_q.weight, attn.to_out[0].weight, attn.to_out[0].bias,
+            x.contiguous(), a1.contiguous(), F.linear(ctx, wk),
+            F.linear(ctx, wv), wq, wout, attn.to_out[0].bias,
             self.norm2.weight, self.norm2.bias, self.norm3.weight,
-            self.norm3.bias, heads=attn.heads, kv_len=context.shape[1],
+            self.norm3.bias, heads=attn.total_heads, kv_len=context.shape[1],
             eps=self.norm2.eps)
 
     def _merged_attn1(self, norm_x: torch.Tensor, call: ToMeCall,
-                      attn_inject: bool, num_lanes: int, qt):
+                      attn_inject: bool, num_lanes: int, qt, rows=None):
         """attn1 on the merged tokens, unmerged; returns it with the local
-        plans."""
+        plans (the whole batch's)."""
         cfg = call.cfg
         mode = cfg.merge_mode
         F_ = cfg.frames
+        if rows is not None:
+            norm_x = rows.gather(norm_x)
         joined = merge_ops.join_frames(norm_x, F_)
         # share_match: the first block at a resolution level matches; the
         # others reuse its plans (layers.py:561-624 of the JAX package)
@@ -465,13 +557,25 @@ class TransformerBlock(nn.Module):
                 "seq_len": norm_x.shape[0] * norm_x.shape[1],
                 "merged_len": tokens.shape[0] * tokens.shape[1]}
 
+        own, lane0 = plans, None
+        if rows is not None:
+            # attn1 on the joined rows that hold this rank's rows
+            sl, picks = rows.joined(F_)
+            J = tokens.shape[0]
+            if attn_inject and num_lanes > 1:
+                lane0 = (tokens[:J // num_lanes],
+                         [j % (J // num_lanes) for j in range(J)[sl]])
+            tokens = tokens[sl]
+            own = [merge_ops.plan_rows(p, sl) for p in plans]
+            if global_plan is not None:
+                global_plan = merge_ops.plan_rows(global_plan, sl)
         out = self.attn1(tokens, share_qk=attn_inject, num_lanes=num_lanes,
-                         qt=qt)
+                         qt=qt, lane0=lane0)
         if global_plan is not None:
             out = merge_ops.partition(merge_ops.unmerge(out, global_plan), L,
                                       side)
-        out = merge_ops.unmerge_all(out, plans)
-        return merge_ops.split_frames(out, F_), plans
+        out = merge_ops.split_frames(merge_ops.unmerge_all(out, own), F_)
+        return (out if rows is None else take_rows(out, picks)), plans
 
 
 class Transformer2D(nn.Module):
@@ -495,12 +599,12 @@ class Transformer2D(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 tome_call: ToMeCall | None = None, attn_inject: bool = False,
                 num_lanes: int = 1, sublayer_mode: str = "off",
-                qt=None) -> torch.Tensor:
+                qt=None, rows=None) -> torch.Tensor:
         B, H, W, C = x.shape
         # a 1x1 convolution on NHWC is the dense layer on the tokens, so
         # both projections run on [B, H, W, C] and the reshapes are views
         h = self.proj_in(self.norm(x), qt).reshape(B, H * W, C)
         for blk in self.transformer_blocks:
             h = blk(h, context, tome_call, attn_inject, num_lanes,
-                    sublayer_mode, qt)
+                    sublayer_mode, qt, rows)
         return self.proj_out(h.reshape(B, H, W, C), qt) + x

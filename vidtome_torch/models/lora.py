@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from vidtome_torch.io.safetensors import load_file
+from vidtome_torch.parallel.mesh import shard_like
 
 
 def _kohya_to_dotted(name: str, mods: tuple[str, ...] | None = None) -> str:
@@ -148,6 +149,8 @@ def _merge_pairs(root: nn.Module, pairs: dict[str, dict], scale: float,
         if not isinstance(module, (nn.Linear, nn.Conv2d)):
             skipped.append(dotted)
             continue
+        # a layer sharded on a mesh's model axis takes its part of the delta
+        delta = shard_like(module, delta)
         weight = module.weight
         if tuple(weight.shape) != tuple(delta.shape):
             skipped.append(f"{dotted} (shape {_jax_layout(delta.shape)} vs "

@@ -108,6 +108,9 @@ class ModelBundle:
     text_encoder_2: CLIPTextModel | None = None
     # built without a checkpoint (init_model's random weights)
     random_weights: bool = False
+    # the mesh the UNet and ControlNet are sharded on
+    # (parallel/mesh.shard_bundle), None on one device
+    mesh: object = None
 
     @property
     def use_depth(self) -> bool:

@@ -193,7 +193,7 @@ class UNet2DConditionModel(nn.Module):
                 qt=None, down_residuals: Sequence[torch.Tensor] | None = None,
                 mid_residual: torch.Tensor | None = None,
                 add_text_embeds: torch.Tensor | None = None,
-                add_time_ids: torch.Tensor | None = None):
+                add_time_ids: torch.Tensor | None = None, rows=None):
         """x [B, H, W, Cin], t scalar timestep, context [B, S, Dctx]
         -> eps [B, H, W, Cout] in the weights' dtype.
 
@@ -225,7 +225,12 @@ class UNet2DConditionModel(nn.Module):
         ``mid_residual`` after the mid block and one of ``down_residuals``
         to every skip (their count must match); a shallow call adds them to
         the level-0 skips it recomputes, pairing the leading residuals with
-        them (the deep residuals' effect rides the cache)."""
+        them (the deep residuals' effect rides the cache).
+
+        ``rows`` (``parallel/mesh.Rows``, under the data axis of a mesh):
+        every input with a batch dim holds this rank's rows of the call,
+        the output too; the blocks that work across rows (merging, PnP's
+        lane 0) gather the batch through it."""
         if cache_mode not in ("off", "full", "shallow"):
             raise ValueError(f"cache_mode {cache_mode!r}")
         n_up = len(self.up_blocks)
@@ -248,7 +253,7 @@ class UNet2DConditionModel(nn.Module):
         h = self.conv_in(x.to(dtype), qt)
         skips = [h]
         blk_kw = dict(num_lanes=num_lanes, sublayer_mode=sublayer_mode,
-                      qt=qt)
+                      qt=qt, rows=rows)
         for blk in self.down_blocks if run_deep else self.down_blocks[:1]:
             for j, res in enumerate(blk.resnets):
                 h = res(h, temb, resnet_mode, qt=qt)
@@ -282,7 +287,7 @@ class UNet2DConditionModel(nn.Module):
             for j, res in enumerate(blk.resnets):
                 inj = conv_inject if (i == 1 and j == 1) else None
                 h = res(torch.cat([h, skips.pop()], dim=-1), temb, resnet_mode,
-                        inject=inj, num_lanes=num_lanes, qt=qt)
+                        inject=inj, num_lanes=num_lanes, qt=qt, rows=rows)
                 if len(blk.attentions):
                     pnp_here = i >= 2 or (i == 1 and j >= 1)
                     h = blk.attentions[j](

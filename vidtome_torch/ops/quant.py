@@ -62,21 +62,29 @@ CONTROLNET_EXCLUDE = (DEFAULT_EXCLUDE + r"|controlnet_down_blocks|"
 _STATIC_PAIRS = {"conv1": "norm1", "conv2": "norm2", "proj_in": "norm"}
 
 
-def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, reduce=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 of ``w`` (dense [N, K] or conv
-    OIHW, output channel first) -> (int8 of w's shape, fp32 scale [N])."""
+    OIHW, output channel first) -> (int8 of w's shape, fp32 scale [N]).
+    ``reduce(t, "max")`` (a row-parallel shard's, ``parallel/mesh``) makes
+    the amax the whole input row's, so the scale is the whole weight's."""
     wf = w.float()
-    amax = wf.abs().amax(dim=tuple(range(1, wf.ndim))).clamp_min(_EPS)
-    scale = amax / 127.0
+    amax = wf.abs().amax(dim=tuple(range(1, wf.ndim)))
+    if reduce is not None:
+        amax = reduce(amax, "max")
+    scale = amax.clamp_min(_EPS) / 127.0
     q = torch.round(wf / scale.view(-1, *[1] * (wf.ndim - 1)))
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
-def quantize_acts(x: torch.Tensor, dims: tuple[int, ...]
+def quantize_acts(x: torch.Tensor, dims: tuple[int, ...], reduce=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric int8: one scale per slice reduced over ``dims``,
-    amax on x's dtype -> (int8, fp32 scale broadcastable against x)."""
+    amax on x's dtype (``reduce(t, "max")`` takes it over a row-parallel
+    shard's model axis) -> (int8, fp32 scale broadcastable against x)."""
     amax = x.abs().amax(dim=dims, keepdim=True).float()
+    if reduce is not None:
+        amax = reduce(amax, "max")
     scale = amax.clamp_min(_EPS) / 127.0
     return _quantize(x, scale), scale
 
@@ -106,16 +114,22 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def int8_dense(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                out_dtype: torch.dtype,
-               act_scale: torch.Tensor | None = None) -> torch.Tensor:
+               act_scale: torch.Tensor | None = None,
+               reduce=None) -> torch.Tensor:
     """x [..., K] @ w_q[N, K]^T -> [..., N] in ``out_dtype``; per-row
-    dynamic activation scales, or the static ``act_scale``."""
+    dynamic activation scales, or the static ``act_scale``.  A
+    row-parallel shard (K a slice of the input) passes its ``reduce(t,
+    op)``: the row's scale is the max over the model axis and the int32
+    sums are summed over it, so every rank gets the whole product."""
     x2 = x.reshape(-1, x.shape[-1])
     if act_scale is None:
-        q, s = quantize_acts(x2, dims=(1,))
+        q, s = quantize_acts(x2, dims=(1,), reduce=reduce)
     else:
         s = act_scale
         q = _quantize(x2, s)
     y = _int_mm(q, w_q.t())
+    if reduce is not None:
+        y = reduce(y)
     y = (y.float() * (s * w_scale)).to(out_dtype)
     return y.reshape(*x.shape[:-1], w_q.shape[0])
 
@@ -234,7 +248,11 @@ def quantize_unet(root: nn.Module, exclude: str | None = DEFAULT_EXCLUDE,
     acts = _static_scales(root, names)
     entries = {}
     for name in names:
-        w_q, scale = quantize_weight(root.get_submodule(name).weight)
+        mod = root.get_submodule(name)
+        tp = getattr(mod, "tp", None)
+        w_q, scale = quantize_weight(
+            mod.weight, tp.reduce if tp is not None and tp.row_parallel
+            else None)
         if w_q.ndim == 4:  # packed once: [O, kh, kw, I], viewed as OIHW
             w_q = packed_conv_weight(w_q).permute(0, 3, 1, 2)
         entries[name] = QWeight(w_q, scale, acts.get(name))

@@ -97,6 +97,16 @@ in the JAX package; the merge draws (dst frame per local round, global
 coin) come from a :class:`~vidtome_torch.models.tome.DrawSource`, by default
 filled from ``torch.Generator().manual_seed(seed)``.  Both are rebuilt for
 every prompt, so every edit sees the same schedule and draws.
+
+A mesh (``mesh=``, else the bundle's, ``parallel/mesh.py``; JAX
+``generator.py:379-387``): the bundle is sharded on it once (the TP rules
+on the model axis) and every rank runs this loop on the same replicated
+latents, schedule and draws.  Under the data axis each UNet (and
+ControlNet) call runs this rank's rows of the call
+(``parallel/mesh.Rows``), and its eps and deep features are all-gathered,
+so every rank holds the caches whole: the chunk schedule puts other frames
+in a rank's rows at every step.  The refiner's Generator gets the mesh
+too.
 """
 
 from __future__ import annotations
@@ -117,6 +127,7 @@ from vidtome_torch.models.layers import RESNET_MODES, SUBLAYER_MODES
 from vidtome_torch.models.lora import apply_lora_bundle
 from vidtome_torch.models.registry import ModelBundle, init_model
 from vidtome_torch.models.tome import DrawSource, ToMeConfig
+from vidtome_torch.parallel.mesh import Rows, shard_bundle
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
                                            resolve_precision,
@@ -287,8 +298,14 @@ def stage_tome(gene, use_pnp: bool) -> ToMeConfig:
         merge_ff=bool(gene.get("merge_ff", False)))
 
 
+def call_rows(mesh, n: int) -> Rows | None:
+    """This rank's rows of a UNet call of ``n`` rows on ``mesh``'s data
+    axis (None without one)."""
+    return Rows(mesh, n) if mesh is not None and mesh.data > 1 else None
+
+
 class Generator:
-    def __init__(self, bundle: ModelBundle, config):
+    def __init__(self, bundle: ModelBundle, config, mesh=None):
         gene = config["generation"]
         self.use_pnp = use_pnp = gene.get("control", "none") == "pnp"
         # lane-major [source,] uncond, cond
@@ -358,6 +375,9 @@ class Generator:
             # merged before the int8 table is quantized and before the text
             # encoder runs, so that both see the adapted weights
             apply_lora_bundle(bundle, gene.get("lora", {}) or {})
+        self.mesh = mesh if mesh is not None else bundle.mesh
+        if self.mesh is not None:  # after the LoRA, before the int8 table
+            shard_bundle(bundle, self.mesh)
         # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
         self.qt = stage_quant_table(self.quant, bundle, "generation")
         self.cn_qt = (stage_controlnet_table(self.quant, bundle, "generation")
@@ -381,6 +401,9 @@ class Generator:
         # under ToMeConfig.collect_stats: the merge statistics of the last
         # step's UNet calls, by chunk position (ToMeCall.stats)
         self.tome_stats: dict = {}
+        # the step caches at the end of the last ddim_sample: "deep"
+        # [lanes, Fpad, h, w, C1] and "ucond" [Fpad, h, w, 4] (None where off)
+        self.caches: dict = {}
         self._eps_align_warned = False
         self.refiner = None
         ref = gene.get("refiner", None)
@@ -398,7 +421,7 @@ class Generator:
             ref_cfg = copy.deepcopy(config)
             ref_cfg["generation"]["control"] = "none"
             ref_cfg["generation"]["refiner"] = None
-            self.refiner = Generator(ref_bundle, ref_cfg)
+            self.refiner = Generator(ref_bundle, ref_cfg, mesh=self.mesh)
             self.refiner_start = float(ref.get("denoising_start", 0.8))
             self.aesthetic = (float(ref.get("negative_aesthetic_score", 2.5)),
                               float(ref.get("aesthetic_score", 6.0)))
@@ -640,19 +663,28 @@ class Generator:
                 if self.use_depth:
                     x_in = torch.cat([x_in, depth[gather].repeat(
                         len(lanes), 1, 1, 1).to(x_in.dtype)], -1)
+                # under the data axis this rank's rows of the call
+                rows = call_rows(self.mesh, x_in.shape[0])
+                own = (lambda a: a) if rows is None else rows.take
                 residuals = {}
                 if self.use_controlnet:
                     down, mid = self.bundle.controlnet(
-                        x_in, t, ctx, control[gather].repeat(len(lanes), 1,
-                                                             1, 1),
+                        own(x_in), t, own(ctx), own(control[gather].repeat(
+                            len(lanes), 1, 1, 1)),
                         conditioning_scale=self.control_scale, qt=self.cn_qt)
                     residuals = dict(down_residuals=down, mid_residual=mid)
-                out = unet(x_in, t, ctx, tome_call=call,
-                           cache_mode=cache_mode, deep_cache=deep_in,
+                out = unet(own(x_in), t, own(ctx), tome_call=call,
+                           cache_mode=cache_mode,
+                           deep_cache=None if deep_in is None else own(deep_in),
                            resnet_mode=self.resnet_mode,
                            sublayer_mode=self.sublayer_mode,
                            num_lanes=len(lanes), qt=self.qt, **pnp,
-                           **residuals, **add_kw)
+                           **residuals,
+                           **{k: own(v) for k, v in add_kw.items()},
+                           rows=rows)
+                if rows is not None:  # every rank holds the call's output
+                    out = (tuple(map(rows.gather, out))
+                           if cache_mode == "full" else rows.gather(out))
                 calls["shallow" if cache_mode == "shallow" else "full"] += 1
                 if self.tome.collect_stats:
                     self.tome_stats[c] = call.stats
@@ -677,6 +709,7 @@ class Generator:
             if self.eps_on:
                 history.push(eps.float(), i)
             x = ddim_step(x, eps, *sch.sample_alpha_pair(i)).to(x.dtype)
+        self.caches = {"deep": deep, "ucond": ucond}
         return x
 
     def __call__(self, init_latents: torch.Tensor,
@@ -738,17 +771,17 @@ class Generator:
                              fidx_table, draws, start=split)
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, timeout: float | None = None):
     """The generation stage alone (JAX ``generator.py:1112-1121``), from
     the latents a prior inversion cached under ``generation.latents_path``
     (else ``cli.run_generation``'s ``FileNotFoundError``):
 
         python -m vidtome_torch.pipeline.generator --config configs/demo.yaml
-    """
-    from vidtome_torch.cli import run_generation, setup_from_argv
 
-    config, bundle = setup_from_argv(argv, device=device)
-    run_generation(config, bundle)
+    on the ranks of ``tpu.mesh`` when it spans several (``cli.entry``)."""
+    from vidtome_torch.cli import entry, run_generation
+
+    entry(run_generation, argv, device, timeout)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,12 @@ CFG cache): the deep-feature cache (``cache_interval`` /
 INVERSION step order, which walks the noise schedule upward, so "full:K"
 front-loads refreshes at the LOW-noise end; ``cache_reverse: true`` flips
 both masks so "full:K" refreshes the high-noise end instead.
+
+A mesh (``mesh=``, else the bundle's; JAX ``inverter.py:38-42``,
+``:147-150``): the bundle is sharded on it once, and under its data axis
+each micro-batch's UNet (and ControlNet) call runs this rank's rows; the
+eps and the deep features are all-gathered, so the deep cache stays whole
+on every rank.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            stage_controlnet,
                                            stage_controlnet_table,
                                            stage_depth, stage_quant_table)
-from vidtome_torch.pipeline.generator import (EpsHistory,
+from vidtome_torch.parallel.mesh import shard_bundle
+from vidtome_torch.pipeline.generator import (EpsHistory, call_rows,
                                               parse_eps_extrapolate,
                                               parse_resnet_mode,
                                               parse_sublayer_mode,
@@ -62,7 +69,7 @@ def _pad_frames(a: torch.Tensor, n_target: int) -> torch.Tensor:
 
 
 class Inverter:
-    def __init__(self, bundle: ModelBundle, config):
+    def __init__(self, bundle: ModelBundle, config, mesh=None):
         inv = config["inversion"]
         if bundle.is_refiner:
             raise ValueError(
@@ -106,6 +113,9 @@ class Inverter:
             h, w = float(config["height"]), float(config["width"])
             self.time_ids = [h, w, 0.0, 0.0, h, w]
         resolve_precision(config, inv, bundle)
+        self.mesh = mesh if mesh is not None else bundle.mesh
+        if self.mesh is not None:  # before the int8 table
+            shard_bundle(bundle, self.mesh)
         # int8 (W8A8) serving: the stage's int8 table, passed per UNet call
         self.qt = stage_quant_table(self.quant, bundle, "inversion")
         self.cn_qt = (stage_controlnet_table(self.quant, bundle, "inversion")
@@ -229,23 +239,30 @@ class Inverter:
                     if depth is not None:
                         x_in = torch.cat([x_in, depth[b:b + bs].to(x.dtype)],
                                          -1)
+                    # under the data axis this rank's rows of the batch
+                    rows = call_rows(self.mesh, x_in.shape[0])
+                    own = (lambda a: a) if rows is None else rows.take
                     residuals = {}
                     if self.use_controlnet:
                         down, mid = self.bundle.controlnet(
-                            x_in, t, conds[b:b + bs],
-                            control[b:b + bs],
+                            own(x_in), t, own(conds[b:b + bs]),
+                            own(control[b:b + bs]),
                             conditioning_scale=self.control_scale,
                             qt=self.cn_qt)
                         residuals = dict(down_residuals=down,
                                          mid_residual=mid)
-                    out = unet(x_in, t, conds[b:b + bs],
+                    out = unet(own(x_in), t, own(conds[b:b + bs]),
                                cache_mode=mode,
-                               deep_cache=(deep[b:b + bs]
+                               deep_cache=(own(deep[b:b + bs])
                                            if mode == "shallow" else None),
                                resnet_mode=self.resnet_mode,
                                sublayer_mode=self.sublayer_mode, qt=self.qt,
                                **residuals,
-                               **{k: v[b:b + bs] for k, v in xl.items()})
+                               **{k: own(v[b:b + bs]) for k, v in xl.items()},
+                               rows=rows)
+                    if rows is not None:  # every rank holds the batch's
+                        out = (tuple(map(rows.gather, out))
+                               if mode == "full" else rows.gather(out))
                     calls["shallow" if mode == "shallow" else "full"] += 1
                     if mode == "full":
                         out, deep[b:b + bs] = out
@@ -326,17 +343,17 @@ class Inverter:
         return inverted, recon
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, timeout: float | None = None):
     """The inversion stage alone (JAX ``inverter.py:458-468``):
 
         python -m vidtome_torch.pipeline.inverter --config configs/demo.yaml
 
-    ``cli.setup_from_argv``, then ``cli.run_inversion`` (the latents and
-    ``inversion_prompts.txt`` under ``inversion.save_path``)."""
-    from vidtome_torch.cli import run_inversion, setup_from_argv
+    (the latents and ``inversion_prompts.txt`` under
+    ``inversion.save_path``), on the ranks of ``tpu.mesh`` when it spans
+    several (``cli.entry``)."""
+    from vidtome_torch.cli import entry, run_inversion
 
-    config, bundle = setup_from_argv(argv, device=device)
-    run_inversion(config, bundle)
+    entry(run_inversion, argv, device, timeout)
 
 
 if __name__ == "__main__":
