@@ -291,6 +291,18 @@ Phases (any failure exits non-zero before the last line):
      prints each rank's launches, peak memory, stage seconds and the
      collectives' calls, ms and bytes a UNet call, and the dB and max
      |diff| with the one-rank run's peak memory and seconds.
+  Phase 38 runs after phase 36:
+  38. cluster starts (phase_starts): `python -m vidtome_torch.cli` on (h)'s
+     config with tpu.multihost: true under a SLURM and an Open MPI start
+     (simulated by their variables alone: vidtome_torch.testing.start_env)
+     and torchrun, one rank each beside the plain CLI, all at once on card
+     0; with two cards or more the same starts at {data: 2}, a card a
+     rank.  Each must exit 0 and print its start line (process, world,
+     backend nccl, card, start), and write frames at least MESH_DB
+     against the plain run's (and, at {data: 2}, against (h)'s torchrun
+     run's), their dB and max |diff| printed; then (h)'s witness: one
+     rank's CLI edit from its inversion moved by a bf16 step (mesh_nudge),
+     against itself, in dB.
 ``python3 chip_smoke.py --cli-inputs DIR`` instead writes the inputs of the
 CLI runs of configs/flamingo.yaml and configs/breakdance.yaml on
 data/demo.mp4 (write_cli_inputs) and exits.
@@ -315,6 +327,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -4405,11 +4418,12 @@ def phase_checkpoint(dev, bundle, init_seconds: float) -> None:
 
 
 def stage_yaml(work: str, profile_dir: str | None,
-               mesh: dict | None = None) -> str:
+               mesh: dict | None = None, multihost: bool = False) -> str:
     """A config over configs/demo.yaml (its keys and default.yaml's
     beneath them): 8 frames of data/demo.mp4, STEPS+STEPS DDIM steps, its
-    paths under ``work``, ``tpu.profile_dir`` and ``tpu.mesh`` if given;
-    written to ``<work>.yaml``, whose path it returns."""
+    paths under ``work``, ``tpu.profile_dir``, ``tpu.mesh`` and
+    ``tpu.multihost`` if given; written to ``<work>.yaml``, whose path it
+    returns."""
     import yaml
 
     cfg = {"base_config": str(ROOT / "configs" / "demo.yaml"),
@@ -4417,10 +4431,9 @@ def stage_yaml(work: str, profile_dir: str | None,
            "inversion": {"n_frames": N_FRAMES, "steps": STEPS,
                          "save_steps": STEPS},
            "generation": {"n_timesteps": STEPS, "frame_range": [N_FRAMES]}}
-    if profile_dir:
-        cfg["tpu"] = {"profile_dir": profile_dir}
-    if mesh:
-        cfg["tpu"] = {"mesh": mesh}
+    tpu = {"profile_dir": profile_dir, "mesh": mesh, "multihost": multihost}
+    if any(tpu.values()):
+        cfg["tpu"] = {k: v for k, v in tpu.items() if v}
     with open(work + ".yaml", "w") as f:
         yaml.safe_dump(cfg, f)
     return work + ".yaml"
@@ -4429,16 +4442,63 @@ def stage_yaml(work: str, profile_dir: str | None,
 def run_module(tag: str, *argv, timeout: int = 600) -> str:
     """``python -m argv...`` from the checkout's root; fails the phase on a
     non-zero exit.  Returns its standard output."""
+    return run_modules({tag: (argv, {})}, timeout)[tag]
+
+
+def run_modules(runs: dict, timeout: int = 600) -> dict:
+    """``python -m argv...`` of each ``{tag: (argv, env)}`` from the
+    checkout's root, ``env`` over this process's environment, all started
+    together; fails the phase on a non-zero exit, or when one has not
+    exited within ``timeout`` seconds (the others are killed as soon as
+    one fails or the time is up).  Returns each one's standard output by
+    tag."""
+    procs, logs, ended = {}, {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT,
-                          capture_output=True, text=True, timeout=timeout)
-    print(f"[{tag}] python -m {' '.join(argv)}: exit {proc.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n",
-              file=sys.stderr)
-        raise AssertionError(f"[{tag}] {argv[0]} exited {proc.returncode}")
-    return proc.stdout
+    try:
+        for tag, (argv, env) in runs.items():
+            logs[tag] = (tempfile.TemporaryFile("w+"),
+                         tempfile.TemporaryFile("w+"))
+            procs[tag] = subprocess.Popen(
+                [sys.executable, "-m", *argv], cwd=ROOT,
+                env={**os.environ, **env}, stdout=logs[tag][0],
+                stderr=logs[tag][1], text=True)
+        while len(ended) < len(procs) and time.perf_counter() < t0 + timeout:
+            for tag, p in procs.items():
+                if tag not in ended and p.poll() is not None:
+                    ended[tag] = time.perf_counter() - t0
+            if any(procs[tag].returncode for tag in ended):
+                break
+            time.sleep(0.2)
+        out = {}
+        for tag, p in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            print(f"[{tag}] python -m {' '.join(runs[tag][0])}: exit "
+                  f"{p.returncode} in "
+                  f"{ended.get(tag, time.perf_counter() - t0):.1f} s"
+                  + ("" if tag in ended else " (killed)"))
+            stdout, stderr = logs[tag]
+            stdout.seek(0)
+            stderr.seek(0)
+            out[tag] = stdout.read()
+            if tag not in ended or p.returncode != 0:
+                print(out[tag][-4000:], stderr.read()[-4000:], sep="\n",
+                      file=sys.stderr)
+        failed = [t for t, p in procs.items() if t not in ended
+                  or p.returncode != 0]
+        if failed:
+            raise AssertionError(f"[{failed[0]}] {runs[failed[0]][0][0]} "
+                                 f"exited {procs[failed[0]].returncode}")
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for files in logs.values():
+            for f in files:
+                f.close()
 
 
 def trace_kernels(path: str) -> collections.Counter:
@@ -4754,21 +4814,23 @@ def plans_differ(a: list, b: list) -> int:
 
 def mesh_edit(bundle, cfg: dict, mesh, size: int = SIZE,
               plans: list | str | None = None,
-              given: dict | None = None) -> dict:
-    """One edit of ``make_frames()`` under ``cfg`` through the port's
-    Inverter and Generator (PnP from the inversion's saved latents) on
-    ``mesh`` (None: this rank alone): the clean latents, the frames, the
-    stage seconds, the UNet calls by kind, the peak memory and, on a mesh,
-    its ModuleLaunches and the collectives' calls and seconds.  ``plans``
-    "record" keeps the generation's plan tape (``"plans"``), a tape hands
-    its matchings to the generation's calls (taped_draws); ``given`` (the
-    ``inverted`` latents and PnP ``src`` table another run returned) takes
-    the place of this run's inversion."""
+              given: dict | None = None,
+              frames: np.ndarray | None = None) -> dict:
+    """One edit of ``frames`` (default ``make_frames()``) under ``cfg``
+    through the port's Inverter and Generator (PnP from the inversion's
+    saved latents) on ``mesh`` (None: this rank alone): the clean latents,
+    the frames, the stage seconds, the UNet calls by kind, the peak memory
+    and, on a mesh, its ModuleLaunches and the collectives' calls and
+    seconds.  ``plans`` "record" keeps the generation's plan tape
+    (``"plans"``), a tape hands its matchings to the generation's calls
+    (taped_draws); ``given`` (the ``inverted`` latents and PnP ``src``
+    table another run returned) takes the place of this run's
+    inversion."""
     from vidtome_torch.pipeline.generator import Generator
     from vidtome_torch.pipeline.inverter import Inverter
 
     dev = bundle.device
-    frames = make_frames(size)
+    frames = make_frames(size) if frames is None else frames
     times: dict = {}
     stage = functools.partial(timed, times)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5067,7 +5129,7 @@ def mesh_rank(out_dir: str, devices: list[str], rows: dict,
             torch.cuda.empty_cache()
 
 
-def mesh_cli() -> None:
+def mesh_cli() -> dict:
     """Phase 37 (h): ``python -m vidtome_torch.cli`` on stage_yaml's config
     without a mesh (one rank), with ``tpu.mesh: {data: 2}`` (the entry
     starts its two ranks itself, a card each over NCCL, each building its
@@ -5076,7 +5138,7 @@ def mesh_cli() -> None:
     launcher's group, each on its LOCAL_RANK's card).  Each must exit 0; a
     meshed run reports the mesh on both ranks; its rank 0 alone writes the
     latents, the prompt file and the frames, at least MESH_DB against the
-    one-rank run's."""
+    one-rank run's.  Returns the frames by run."""
     from vidtome_torch.io.video import load_video
 
     runs = {"one rank": ("vidtome_torch.cli",),
@@ -5116,9 +5178,10 @@ def mesh_cli() -> None:
             if not db >= MESH_DB:
                 raise AssertionError(f"[mesh cli {tag}] {db:.2f} dB against "
                                      f"one rank (want >= {MESH_DB})")
+    return frames
 
 
-def phase_mesh(dev) -> dict:
+def phase_mesh(dev) -> tuple[dict, dict | None]:
     """Phase 37: vidtome_torch.parallel on two ranks, the main path's
     kernels on each (the counters read in the ranks' own processes).
     Runs, each against a one-rank run of the same config and seed:
@@ -5145,7 +5208,8 @@ def phase_mesh(dev) -> dict:
     rank's launches per UNet call equal what its modules imply, every
     kernel shape a phase-3 row, every rank's latents (or output) the same
     bits, at least MESH_DB against the one-rank run.  Returns the ranks'
-    launches summed (of (a)-(g))."""
+    launches summed (of (a)-(g)) and (h)'s frames by run (None where it did
+    not run)."""
     from vidtome_torch.parallel.launch import backend_for, rank_devices, spawn
 
     rows = phase3_rows()
@@ -5192,14 +5256,141 @@ def phase_mesh(dev) -> dict:
                                  f"{sorted(want - got)}")
         print(f"[mesh] world size {world}: {len(records)} records in "
               f"{seconds:.1f} s")
+    cli_frames = None
     if torch.cuda.device_count() >= 2:
         t0 = time.perf_counter()
-        mesh_cli()
+        cli_frames = mesh_cli()
         print(f"[mesh] (h) {time.perf_counter() - t0:.1f} s")
     else:
         print(f"[mesh] (h) not run: {torch.cuda.device_count()} card(s) "
               f"visible, it needs 2")
-    return {k: launches[k] for k in KERNELS}
+    return {k: launches[k] for k in KERNELS}, cli_frames
+
+
+# ---------------------------------------------------------------------------
+# Phase 38: the CLI under cluster starts (vidtome_torch/parallel/distributed)
+# ---------------------------------------------------------------------------
+
+STARTS = ("slurm", "ompi", "torchrun")
+
+
+def start_runs(tmp: str, world: int) -> dict:
+    """run_modules' runs of phase 38 at ``world`` ranks: stage_yaml's config
+    with ``tpu.multihost: true`` (and ``tpu.mesh: {data: world}`` above
+    one) under each of STARTS, a SLURM and an Open MPI start simulated by
+    their variables alone (start_env), torchrun started as itself; at one
+    rank also the plain CLI.  Keyed "<start> <rank>" ("torchrun" starts
+    its ranks itself); each run's work dir is ``<tmp>/<start>-<world>``."""
+    from vidtome_torch.testing import cluster_ports, start_env
+
+    cli = ("vidtome_torch.cli", "--config")
+    mesh = {"data": world} if world > 1 else None
+    ports = dict(zip(STARTS[:2], cluster_ports(2)))
+    runs = {}
+    if world == 1:
+        runs["plain"] = (cli + (stage_yaml(os.path.join(tmp, "plain"),
+                                           None),), {})
+    for kind in STARTS:
+        cfg = stage_yaml(os.path.join(tmp, f"{kind}-{world}"), None, mesh,
+                         multihost=True)
+        if kind == "torchrun":
+            runs[kind] = (("torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(world), "-m") + cli
+                          + (cfg,), {})
+            continue
+        for rank in range(world):
+            runs[f"{kind} {rank}"] = (cli + (cfg,), start_env(
+                kind, world, rank, ports[kind]))
+    return runs
+
+
+def start_witness(tmp: str) -> float:
+    """(h)'s one-rank CLI edit (its config, weights, clip; setup_from_argv
+    as the CLI builds them) from its own inversion, every inverted latent
+    moved by about one bf16 step (mesh_nudge), against itself: dB."""
+    from vidtome_torch import cli
+    from vidtome_torch.io.video import load_video
+
+    argv = ["--config", stage_yaml(os.path.join(tmp, "witness"), None)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg, bundle = cli.setup_from_argv(argv)
+        clip = load_video(cfg["input_path"], SIZE, SIZE)[:N_FRAMES]
+    ref = mesh_edit(bundle, cfg, None, plans="record", frames=clip)
+    ref.pop("rec")
+    db = mesh_nudge(bundle, cfg, ref)
+    del bundle, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return db
+
+
+def phase_starts(h_frames: dict | None) -> None:
+    """Phase 38: ``python -m vidtome_torch.cli`` on stage_yaml's config (h's
+    depth, full width, 512x512) with ``tpu.multihost: true``, each start
+    as vidtome_torch.parallel.distributed resolves it (start_runs): a
+    one-task SLURM start, a one-rank Open MPI start and ``torchrun
+    --nproc-per-node 1``, beside the plain CLI, all four at once on card
+    0; each must exit 0, print its start line (process 0/1, backend nccl,
+    card 0, from its start) and write frames at least MESH_DB against the
+    plain run's.  With two cards or more the same three starts at {data:
+    2} on two ranks (a card each), whose frames must read at least MESH_DB
+    against the plain run's and against (h)'s torchrun run's
+    (``h_frames``).  Then (h)'s witness (start_witness), its dB printed."""
+    import re
+
+    from vidtome_torch.io.video import load_video
+
+    def check(tag: str, world: int, logs: dict, frames, ref: dict) -> None:
+        for rank in range(world):
+            log = logs[tag if tag == "torchrun" else f"{tag} {rank}"]
+            want = (f"initialized: process {rank}/{world}, backend nccl, "
+                    f"card {rank}, from {tag}")
+            line = re.search(rf"multi-host \S+ {re.escape(want)}[^\[\n]*",
+                             log)
+            if line is None:
+                raise AssertionError(f"[starts] {tag}: no {want!r}")
+            print(f"[starts] {tag}: {line.group()}")
+            if world > 1 and f"(rank {rank}: data {rank}, model 0, on " \
+                    f"cuda:{rank})" not in log:
+                raise AssertionError(f"[starts] {tag}: rank {rank}'s mesh")
+        for name, other in ref.items():
+            db = frames_db(frames, other)
+            print(f"[starts] {tag} on {world} rank(s): {db:.2f} dB against "
+                  f"{name}, max |diff| {(frames - other).abs().max():.3e}")
+            if not db >= MESH_DB:
+                raise AssertionError(f"[starts] {tag}: {db:.2f} dB against "
+                                     f"{name} (want >= {MESH_DB})")
+
+    def frames_of(work: str):
+        return torch.from_numpy(load_video(
+            str(Path(work, "watercolor", "frames")), SIZE, SIZE))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = run_modules(start_runs(tmp, 1))
+        plain = frames_of(os.path.join(tmp, "plain"))
+        wall = [line for line in logs["plain"].splitlines()
+                if "wall time" in line]
+        print(f"[starts] plain CLI on one rank: {wall}")
+        for kind in STARTS:
+            check(kind, 1, logs, frames_of(os.path.join(tmp, f"{kind}-1")),
+                  {"the plain one-rank CLI": plain})
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            logs = run_modules(start_runs(tmp, 2))
+            ref = {"the plain one-rank CLI": plain}
+            if h_frames is not None:
+                ref["(h)'s torchrun run"] = h_frames["torchrun"]
+            for kind in STARTS:
+                check(kind, 2, logs, frames_of(
+                    os.path.join(tmp, f"{kind}-2")), ref)
+        else:
+            print(f"[starts] the starts at {{data: 2}} not run: {cards} "
+                  f"card(s) visible, they need 2")
+        print(f"[starts] (h)'s witness: one rank's CLI edit from its "
+              f"inversion moved by a bf16 step, against its own: "
+              f"{start_witness(tmp):.2f} dB")
+    print(f"[starts] phase 38 {time.perf_counter() - t0:.1f} s")
 
 
 def main(argv: list[str]) -> int:
@@ -5234,7 +5425,7 @@ def main(argv: list[str]) -> int:
     step("2", phase_build, dev)
     stats = step("3", phase_kernels, dev)
     free()
-    mesh = step("37", phase_mesh, dev)
+    mesh, h_frames = step("37", phase_mesh, dev)
 
     from vidtome_torch.models.registry import init_model
 
@@ -5264,6 +5455,8 @@ def main(argv: list[str]) -> int:
     step("35", phase_stages, dev)
     free()
     step("36", phase_tools, dev, bundle)
+    free()
+    step("38", phase_starts, h_frames)
 
     del bundle
     free()

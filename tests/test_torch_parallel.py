@@ -416,8 +416,10 @@ def test_differing_weights_and_oversized_mesh_are_refused(ranks):
 def test_process_group_markers(monkeypatch):
     """``initialize_multihost``: an implicit call without a launcher's
     markers does nothing; ``multihost: true`` with nothing to say where
-    the ranks are raises; torchrun's RANK / WORLD_SIZE (and MASTER_ADDR /
-    PORT) are joined, a second call finds the group (idempotent)."""
+    the ranks are raises, and so does one whose keys leave the rank unset
+    with no start to give it; torchrun's RANK / WORLD_SIZE (and
+    MASTER_ADDR / PORT) are joined, a second call finds the group
+    (idempotent)."""
     import torch.distributed as dist
 
     from vidtome_torch.parallel import distributed as pd
@@ -430,7 +432,7 @@ def test_process_group_markers(monkeypatch):
     assert pd.initialize_from_config({"mesh": {"data": 1}}) is False
     with pytest.raises(RuntimeError, match="say where the ranks are"):
         pd.initialize_from_config({"multihost": True})
-    with pytest.raises(ValueError, match="go together"):
+    with pytest.raises(ValueError, match="process id"):
         pd.initialize_multihost("localhost:1", num_processes=1, force=True)
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")

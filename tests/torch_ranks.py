@@ -342,3 +342,12 @@ def setup_rank(argv: list[str], out_dir: str) -> None:
                 "backend": dist.get_backend(), "device": str(mesh.device),
                 "bundle_mesh": bundle.mesh is mesh, "heads": attn.heads},
                os.path.join(out_dir, f"{dist.get_rank()}.pt"))
+
+
+def local_rank_rank(out_dir: str) -> None:
+    """This rank's ``LOCAL_RANK`` as its process sees it, saved as
+    ``<rank>.txt``."""
+    import torch.distributed as dist
+
+    with open(os.path.join(out_dir, f"{dist.get_rank()}.txt"), "w") as f:
+        f.write(os.environ.get("LOCAL_RANK", ""))

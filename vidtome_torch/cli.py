@@ -31,6 +31,7 @@ section: ``profile_dir`` traces the denoising loop (``torch.profiler``,
 stages on D x M ranks, one process a card (``parallel/``): an entry point
 starts the ranks itself (``parallel/launch.run_entry``) unless torchrun
 or ``multihost`` (``coordinator`` / ``num_processes`` / ``process_id``,
+each unset one from torchrun, an Open MPI or a SLURM start:
 ``parallel/distributed.py``) started them; rank 0 alone writes the
 latents, the prompt file, the frames and the video.
 ``use_pallas_attention`` selects nothing (the card always runs the port's

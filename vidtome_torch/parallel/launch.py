@@ -7,7 +7,9 @@ NCCL where every rank has a card of its own, gloo where ranks share one or
 run on the CPU.  It waits for every rank; a rank that raises raises here,
 with its traceback, and the others are stopped.  The stage entry points
 start their ranks through it when ``tpu.mesh`` asks for more than one
-(:func:`run_entry`); under torchrun they join the launcher's instead.
+(:func:`run_entry`); under torchrun or ``tpu.multihost`` (a SLURM or an
+Open MPI start among them) they join the ranks that started them instead.
+Each rank it starts has its ``LOCAL_RANK`` set, as a launcher's has.
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ def rank_devices(n: int, kind: str = "cuda") -> list[torch.device]:
 
 def _rank_main(rank: int, fn, world: int, init_method: str, backend: str,
                devices: list[str], timeout_s: float | None, args) -> None:
+    # the ranks' local rank, as a launcher sets it: a SLURM_LOCALID or
+    # OMPI_COMM_WORLD_LOCAL_RANK inherited from a cluster start would give
+    # every rank the same card (distributed.local_card)
+    os.environ["LOCAL_RANK"] = str(rank)
     device = torch.device(devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)

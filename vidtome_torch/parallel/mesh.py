@@ -27,13 +27,15 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-import os
 import re
 import time
 from typing import Any
 
 import torch
 import torch.distributed as dist
+
+from vidtome_torch.parallel.distributed import local_card
+
 
 def split_sizes(n: int, parts: int) -> list[int]:
     """``n`` split into ``parts`` contiguous runs, the first ``n % parts``
@@ -172,22 +174,23 @@ def make_mesh(data: int = 1, model: int = 1,
     (JAX's ``devices[:n].reshape(data, model)``), rank ``r`` on
     ``devices[r]`` (a card named more than once is shared by those ranks,
     which only gloo allows); without ``devices`` each rank takes the card
-    of its ``LOCAL_RANK`` (a launcher's; else its rank), or the CPU where
-    there is none.  Every rank of the group must call it, in the same
-    order as its other group calls; a rank outside the mesh gets None.
-    Refuses a mesh larger than the ranks or the devices."""
+    of ``distributed.local_card`` (its start's local rank, else its rank
+    modulo the visible cards: the card ``initialize_multihost`` set), or
+    the CPU where there is none.  Every rank of the group must call it, in the
+    same order as its other group calls; a rank outside the mesh gets None.
+    Refuses a mesh larger than the ranks or the devices, and a rank whose
+    card is not on its host."""
     n = data * model
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     what = f"need {n} devices for mesh (data={data}, model={model}), have"
     if devices is None:
+        if world < n:
+            raise ValueError(f"{what} {world} ranks")
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        if world < n or (cards and local >= cards and rank < n):
-            raise ValueError(f"{what} {world} ranks and {cards} cards on "
-                             f"this host")
-        device = torch.device("cuda", local) if cards else torch.device(
-            "cpu")
+        device = torch.device("cpu")
+        if cards and rank < n:
+            device = torch.device("cuda", local_card(rank, world, cards))
     else:
         devices = [torch.device(d) for d in devices]
         if min(len(devices), world) < n:
