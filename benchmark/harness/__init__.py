@@ -1,0 +1,1 @@
+"""Part of the benchmark of vidtome_torch."""
