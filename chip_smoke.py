@@ -251,8 +251,9 @@ Phases (any failure exits non-zero before the last line):
      data/demo.mp4, STEPS+STEPS steps, temporary paths, tpu.profile_dir)
      through `python -m vidtome_torch.pipeline.inverter`, then
      `.generator`, as subprocesses that must exit 0 and leave the latents,
-     inversion_prompts.txt, the edited frames and one Chrome trace; the
-     trace's launches of each hand-written kernel of the exact path
+     inversion_prompts.txt, the edited frames and one Chrome trace a stage
+     (invert_*, ddim_sample_*, each with its vidtome/ step spans); the
+     generator trace's launches of each hand-written kernel of the exact path
      (TRACE_SYMBOLS) must equal what ModuleLaunches reads over the same
      config's generation in this process (cli.setup_from_argv,
      run_inversion, run_generation), whose frames must agree with the
@@ -4521,7 +4522,8 @@ def phase_stages(dev) -> None:
     """Phase 35: the two stages alone, as subprocesses (python -m
     vidtome_torch.pipeline.inverter, then .generator) on stage_yaml's
     config with tpu.profile_dir, each must exit 0, leaving the latents,
-    inversion_prompts.txt and the edited frames; the trace must name each
+    inversion_prompts.txt, the edited frames and a trace of each stage
+    holding its vidtome/ step spans; the generator's trace must name each
     hand-written kernel of the exact path as many times as ModuleLaunches
     reads from the same config's generation in this process (cli's
     setup_from_argv, run_inversion, run_generation: every call also
@@ -4543,15 +4545,24 @@ def phase_stages(dev) -> None:
                          "--config", sub)
         lat = Path(tmp, "sub", "latents", "stable-diffusion-v1-5")
         frames_sub = Path(tmp, "sub", "watercolor", "frames")
-        traces = sorted(Path(tmp, "trace").glob("*.json"))
+        traces = sorted(Path(tmp, "trace").glob("ddim_sample_*.json"))
+        inverts = sorted(Path(tmp, "trace").glob("invert_*.json"))
         have = {"latents": sorted(p.name for p in lat.glob("noisy_*.npy")),
                 "prompts": (lat / "inversion_prompts.txt").is_file(),
                 "frames": len(list(frames_sub.glob("*.png"))),
-                "traces": [p.name for p in traces]}
+                "traces": [p.name for p in traces + inverts]}
         print(f"[stages] on disk: {have}")
         if not (have["latents"] and have["prompts"]
-                and have["frames"] == N_FRAMES and len(traces) == 1):
+                and have["frames"] == N_FRAMES and len(traces) == 1
+                and len(inverts) == 1):
             raise AssertionError(f"[stages] missing outputs: {have}")
+        for path, step in ((inverts[0], "vidtome/invert_step"),
+                           (traces[0], "vidtome/gen_step")):
+            with open(path) as f:
+                if not any(e.get("name", "").startswith(step)
+                           for e in json.load(f)["traceEvents"]):
+                    raise AssertionError(f"[stages] {path.name} holds no "
+                                         f"{step} span")
         if f"profiler trace written to {traces[0]}" not in log:
             raise AssertionError("[stages] the generator did not report "
                                  "its trace")

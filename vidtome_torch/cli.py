@@ -26,8 +26,9 @@ Each stage also runs alone, through the same preamble
     python -m vidtome_torch.pipeline.generator --config configs/demo.yaml
 
 the generation from the latents a prior inversion cached.  The ``tpu``
-section: ``profile_dir`` traces the denoising loop (``torch.profiler``,
-``Generator.ddim_sample``); ``mesh`` (``{data: D, model: M}``) runs both
+section: ``profile_dir`` traces the inversion stage and the denoising
+loop (``torch.profiler``, ``Inverter.__call__`` and
+``Generator.ddim_sample``, a file each); ``mesh`` (``{data: D, model: M}``) runs both
 stages on D x M ranks, one process a card (``parallel/``): an entry point
 starts the ranks itself (``parallel/launch.run_entry``) unless torchrun
 or ``multihost`` (``coordinator`` / ``num_processes`` / ``process_id``,

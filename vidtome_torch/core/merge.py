@@ -23,6 +23,12 @@ first ``r`` merged and the rest kept in that order, as the JAX package's
 sorted plans have them); and
 ``len_quantum`` rounds ``r`` up so merged lengths land on tile multiples,
 which changes ``r`` and so is part of the semantics.
+
+In a profiler's trace the matchings (index builds, scores, sorts, plan
+gathers and scatters) run in ``vidtome/merge_plan`` spans and the plans'
+application (``merge``, ``unmerge``, ``unmerge_all`` and a computed
+``partition``) in ``vidtome/merge_apply`` spans; neither nests in the
+other, so a kernel belongs to one side.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Sequence
 
 import torch
 
+from vidtome_torch.logging_utils import span
 from vidtome_torch.ops.matching import best_match
 
 
@@ -161,6 +168,11 @@ def merge(x: torch.Tensor, plan: MergePlan,
     plan built with ``keep_sorted_indices``."""
     if mode not in MERGE_MODES:
         raise ValueError(f"unknown merge mode: {mode}")
+    with span("merge_apply"):
+        return _merge(x, plan, mode)
+
+
+def _merge(x: torch.Tensor, plan: MergePlan, mode: str) -> torch.Tensor:
     if mode == "replace" and plan.dst_starts is not None:
         parts = [_take(x, plan.merge_gather[:, :plan.unm_num])]
         parts += [x[:, s:s + plan.dst_run_len] for s in plan.dst_starts]
@@ -185,13 +197,16 @@ def merge(x: torch.Tensor, plan: MergePlan,
 def unmerge(y: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """Invert a merge: [B, U + D, C] -> [B, N, C]; merged src positions read
     their matched dst token (reference merge.py:135-155)."""
-    return _take(y, plan.unmerge_gather)
+    with span("merge_apply"):
+        return _take(y, plan.unmerge_gather)
 
 
 def unmerge_all(y: torch.Tensor, plans: Sequence[MergePlan]) -> torch.Tensor:
-    for plan in reversed(plans):
-        y = unmerge(y, plan)
-    return y
+    """:func:`unmerge` through ``plans``, the last first, in one span."""
+    with span("merge_apply"):
+        for plan in reversed(plans):
+            y = _take(y, plan.unmerge_gather)
+        return y
 
 
 # ---------------------------------------------------------------------------
@@ -262,23 +277,25 @@ def local_matching(metric: torch.Tensor, F: int, ratio: float, unm_pre: int,
     dst_frames = [f for f in range(F) if f % stride == draw]
     src_frames = [f for f in range(F) if f % stride != draw]
 
-    dev = metric.device
-    tok = torch.arange(tnum, device=dev)
-    a_idx = (unm_pre + torch.tensor(src_frames, device=dev)[:, None] * tnum
-             + tok).reshape(-1)
-    b_idx = torch.cat([
-        (unm_pre + torch.tensor(dst_frames, device=dev)[:, None] * tnum
-         + tok).reshape(-1),
-        torch.arange(unm_pre, device=dev)])
+    with span("merge_plan", lambda: f"tokens={N}"):
+        dev = metric.device
+        tok = torch.arange(tnum, device=dev)
+        a_idx = (unm_pre + torch.tensor(src_frames, device=dev)[:, None]
+                 * tnum + tok).reshape(-1)
+        b_idx = torch.cat([
+            (unm_pre + torch.tensor(dst_frames, device=dev)[:, None] * tnum
+             + tok).reshape(-1),
+            torch.arange(unm_pre, device=dev)])
 
-    S = len(src_frames) * tnum
-    r = min(S, int(S * ratio))
-    r = quantize_r(S, r, b_idx.shape[0], len_quantum)
-    return _build_plan(metric, a_idx.expand(B, S),
-                       b_idx.expand(B, b_idx.shape[0]), r, align_batch,
-                       keep_sorted_indices=keep_sorted_indices,
-                       dst_starts=[unm_pre + f * tnum for f in dst_frames],
-                       dst_run_len=tnum, dst_prefix=unm_pre)
+        S = len(src_frames) * tnum
+        r = min(S, int(S * ratio))
+        r = quantize_r(S, r, b_idx.shape[0], len_quantum)
+        return _build_plan(metric, a_idx.expand(B, S),
+                           b_idx.expand(B, b_idx.shape[0]), r, align_batch,
+                           keep_sorted_indices=keep_sorted_indices,
+                           dst_starts=[unm_pre + f * tnum
+                                       for f in dst_frames],
+                           dst_run_len=tnum, dst_prefix=unm_pre)
 
 
 def compute_local_merge(tokens: torch.Tensor, F: int, ratio: float,
@@ -324,21 +341,26 @@ def two_set_matching(metric: torch.Tensor, src_len: int, ratio: float,
     r = min(S, int(S * ratio))
     r = quantize_r(S, r, D, len_quantum)
     dev = metric.device
-    return _build_plan(metric, torch.arange(S, device=dev).expand(B, S),
-                       (S + torch.arange(D, device=dev)).expand(B, D), r,
-                       align_batch, keep_sorted_indices=keep_sorted_indices,
-                       dst_starts=[S], dst_run_len=D)
+    with span("merge_plan", lambda: f"tokens={N}"):
+        return _build_plan(metric, torch.arange(S, device=dev).expand(B, S),
+                           (S + torch.arange(D, device=dev)).expand(B, D),
+                           r, align_batch,
+                           keep_sorted_indices=keep_sorted_indices,
+                           dst_starts=[S], dst_run_len=D)
 
 
 def partition(x_full: torch.Tensor, src_len: int, chunk) -> torch.Tensor:
     """Partition 0 (``[:src_len]``) or 1 (``[src_len:]``) of an unmerged
     two-set sequence.  ``chunk`` is an int, or a 0-d tensor when both
-    partitions have ``src_len`` tokens."""
+    partitions have ``src_len`` tokens.  An int selector takes a view
+    (no device work, no span)."""
     if not isinstance(chunk, torch.Tensor):
         return x_full[:, :src_len] if chunk == 0 else x_full[:, src_len:]
     if x_full.shape[1] != 2 * src_len:
         raise ValueError("a tensor selector needs equal-size partitions")
-    return torch.where(chunk == 0, x_full[:, :src_len], x_full[:, src_len:])
+    with span("merge_apply"):
+        return torch.where(chunk == 0, x_full[:, :src_len],
+                           x_full[:, src_len:])
 
 
 # ---------------------------------------------------------------------------
@@ -374,18 +396,20 @@ def spatial_matching_2d(metric: torch.Tensor, w: int, h: int, sx: int,
         rand = torch.zeros(hsy, wsx, dtype=torch.long)
     elif rand is None:
         rand = torch.randint(0, sy * sx, (hsy, wsx), generator=generator)
-    rand = torch.as_tensor(rand, dtype=torch.long, device=dev)
-    wy, wx = torch.meshgrid(torch.arange(hsy, device=dev),
-                            torch.arange(wsx, device=dev), indexing="ij")
-    b_idx = ((wy * sy + rand // sx) * w + wx * sx + rand % sx).reshape(-1)
-    # src = every other token, in order (stable sort of the dst mask)
-    is_dst = torch.zeros(N, dtype=torch.long, device=dev)
-    is_dst[b_idx] = 1
-    a_idx = torch.sort(is_dst, stable=True).indices[:N - num_dst]
-    r = min(r, N - num_dst)
-    return _build_plan(metric, a_idx.expand(B, N - num_dst),
-                       b_idx.expand(B, num_dst), r, align_batch=False,
-                       keep_sorted_indices=keep_sorted_indices)
+    with span("merge_plan", lambda: f"tokens={N}"):
+        rand = torch.as_tensor(rand, dtype=torch.long, device=dev)
+        wy, wx = torch.meshgrid(torch.arange(hsy, device=dev),
+                                torch.arange(wsx, device=dev), indexing="ij")
+        b_idx = ((wy * sy + rand // sx) * w + wx * sx
+                 + rand % sx).reshape(-1)
+        # src = every other token, in order (stable sort of the dst mask)
+        is_dst = torch.zeros(N, dtype=torch.long, device=dev)
+        is_dst[b_idx] = 1
+        a_idx = torch.sort(is_dst, stable=True).indices[:N - num_dst]
+        r = min(r, N - num_dst)
+        return _build_plan(metric, a_idx.expand(B, N - num_dst),
+                           b_idx.expand(B, num_dst), r, align_batch=False,
+                           keep_sorted_indices=keep_sorted_indices)
 
 
 def join_frames(x: torch.Tensor, F: int) -> torch.Tensor:

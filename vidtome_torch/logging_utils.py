@@ -1,12 +1,13 @@
-"""Logging, stage timing and token-merging statistics.
+"""Logging, stage timing, tracing and token-merging statistics.
 
 Counterpart of ``vidtome_tpu/logging_utils.py``: a logger on the stdlib
 ``logging`` module with the reference's visible format (``[INFO] ...``), a
 context that logs a stage's wall seconds (the CLI's model load, inversion
 and generation, and its wall time), and the per-block merge statistics of
 a UNet call (the counterpart of the reference's collect_from_patch,
-patch.py:373-387), and the ``tpu.profile_dir`` trace of a stage's loop
-(the counterpart of ``jax.profiler.start_trace`` / ``stop_trace``).
+patch.py:373-387), the ``tpu.profile_dir`` trace of a stage (the
+counterpart of ``jax.profiler.start_trace`` / ``stop_trace``) and the
+program's spans in any ``torch.profiler`` trace (:func:`span`).
 """
 
 from __future__ import annotations
@@ -18,8 +19,11 @@ import sys
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _configured = False
+# the one context every span returns while no profiler records
+_OFF = contextlib.nullcontext()
 
 
 class _StdoutHandler(logging.StreamHandler):
@@ -53,9 +57,31 @@ def get_logger(name: str = "vidtome") -> logging.Logger:
 def timed(label: str, logger: logging.Logger | None = None):
     """Log the wall-clock seconds of a stage."""
     log = logger or get_logger()
-    t0 = time.time()
+    t0 = time.perf_counter()
     yield
-    log.info("%s took %.2fs", label, time.time() - t0)
+    log.info("%s took %.2fs", label, time.perf_counter() - t0)
+
+
+def span(name: str, args=None):
+    """A ``vidtome/<name>`` range in the trace of a recording profiler
+    (``torch.profiler.record_function``: on the clock of the CUDA runtime
+    calls and kernels the range launches), around one layer's work.
+
+    While no profiler records it returns one shared null context: no
+    string is formatted and no operator is called, about half a
+    microsecond a span.  ``args`` is the range's attributes as a string,
+    or a callable giving it, called only while a profiler records; they
+    follow the name after a space (``vidtome/unet rows=8 cache=full
+    bank=init``), since a Chrome trace does not carry a range's own
+    arguments.  The program keeps no time of its own: a span exists only
+    in the trace (``tpu.profile_dir``, or the profiler of whoever runs
+    the program)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    if callable(args):
+        args = args()
+    return _autograd_profiler.record_function(
+        f"vidtome/{name} {args}" if args else f"vidtome/{name}")
 
 
 @contextlib.contextmanager

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vidtome_torch.logging_utils import span
 from vidtome_torch.models.layers import (Conv2d, Downsample2D, ResnetBlock2D,
                                          TimestepEmbedding, Transformer2D,
                                          timestep_embedding)
@@ -110,32 +111,36 @@ class ControlNetModel(nn.Module):
         """x [B, h, w, Cin] (the UNet's input), t scalar timestep, context
         [B, S, Dctx], cond [B, 8h, 8w, 3] in [0, 1] -> (one residual per
         UNet skip, the mid residual), in the weights' dtype, each scaled by
-        ``conditioning_scale`` after its zero conv."""
-        dtype = self.conv_in.weight.dtype
-        B = x.shape[0]
-        temb = timestep_embedding(t, self.config.block_out_channels[0])
-        temb = self.time_embedding(temb.to(device=x.device, dtype=dtype), qt)
-        temb = temb.expand(B, -1)
-        context = context.to(dtype)
+        ``conditioning_scale`` after its zero conv.  A
+        ``vidtome/controlnet`` span in a profiler's trace."""
+        with span("controlnet", lambda: f"rows={x.shape[0]}"):
+            dtype = self.conv_in.weight.dtype
+            B = x.shape[0]
+            temb = timestep_embedding(t, self.config.block_out_channels[0])
+            temb = self.time_embedding(
+                temb.to(device=x.device, dtype=dtype), qt)
+            temb = temb.expand(B, -1)
+            context = context.to(dtype)
 
-        h = self.conv_in(x.to(dtype), qt)
-        h = h + self.controlnet_cond_embedding(cond.to(dtype), qt)
-        skips = [h]
-        for blk in self.down_blocks:
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb, qt=qt)
-                if len(blk.attentions):
-                    h = blk.attentions[j](h, context, qt=qt)
-                skips.append(h)
-            for down in blk.downsamplers:
-                h = down(h, qt)
-                skips.append(h)
+            h = self.conv_in(x.to(dtype), qt)
+            h = h + self.controlnet_cond_embedding(cond.to(dtype), qt)
+            skips = [h]
+            for blk in self.down_blocks:
+                for j, res in enumerate(blk.resnets):
+                    h = res(h, temb, qt=qt)
+                    if len(blk.attentions):
+                        h = blk.attentions[j](h, context, qt=qt)
+                    skips.append(h)
+                for down in blk.downsamplers:
+                    h = down(h, qt)
+                    skips.append(h)
 
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb, qt=qt)
-        h = mid.attentions[0](h, context, qt=qt)
-        h = mid.resnets[1](h, temb, qt=qt)
+            mid = self.mid_block
+            h = mid.resnets[0](h, temb, qt=qt)
+            h = mid.attentions[0](h, context, qt=qt)
+            h = mid.resnets[1](h, temb, qt=qt)
 
-        down = [conv(s, qt) * conditioning_scale
-                for conv, s in zip(self.controlnet_down_blocks, skips)]
-        return down, self.controlnet_mid_block(h, qt) * conditioning_scale
+            down = [conv(s, qt) * conditioning_scale
+                    for conv, s in zip(self.controlnet_down_blocks, skips)]
+            return down, (self.controlnet_mid_block(h, qt)
+                          * conditioning_scale)

@@ -38,6 +38,11 @@ mesh.Rows` (``rows``), and gathers the whole batch where work crosses
 rows: the token merging of a block (its matching, plans and banks are the
 whole batch's, on every rank; attn1 runs on the joined rows that hold this
 rank's) and PnP's lane 0.
+
+Spans (``logging_utils.span``, in a profiler's trace only):
+``vidtome/transformer`` a Transformer2D, ``vidtome/attn`` a CrossAttention
+and a fused sublayer, ``vidtome/ff`` a feed-forward, ``vidtome/resnet`` a
+ResnetBlock2D.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidtome_torch.core import merge as merge_ops
+from vidtome_torch.logging_utils import span
 from vidtome_torch.models.tome import ToMeCall
 from vidtome_torch.ops import quant as quant_ops
 from vidtome_torch.ops.attention import attention
@@ -221,16 +227,17 @@ class ResnetBlock2D(nn.Module):
         if resnet_mode not in RESNET_MODES:
             raise ValueError(f"resnet_mode must be one of {RESNET_MODES}, "
                              f"got {resnet_mode!r}")
-        if resnet_mode == "fused" and inject is None:
-            return self._fused(x, temb, qt)
-        h = self.conv1(self.norm1(x), qt)
-        h = h + self.time_emb_proj(F.silu(temb), qt)[:, None, None, :]
-        h = self.conv2(self.norm2(h), qt)
-        if inject:
-            h = inject_lane0(h, num_lanes, rows=rows)
-        if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x, qt)
-        return x + h
+        with span("resnet"):
+            if resnet_mode == "fused" and inject is None:
+                return self._fused(x, temb, qt)
+            h = self.conv1(self.norm1(x), qt)
+            h = h + self.time_emb_proj(F.silu(temb), qt)[:, None, None, :]
+            h = self.conv2(self.norm2(h), qt)
+            if inject:
+                h = inject_lane0(h, num_lanes, rows=rows)
+            if self.conv_shortcut is not None:
+                x = self.conv_shortcut(x, qt)
+            return x + h
 
     def _fused(self, x: torch.Tensor, temb: torch.Tensor,
                qt) -> torch.Tensor:
@@ -337,19 +344,21 @@ class CrossAttention(nn.Module):
             return t.view(B, t.shape[1], self.heads,
                           self.head_dim).transpose(1, 2)
 
-        if share_qk and num_lanes > 1 and lane0 is not None:
-            src, index = lane0
-            q = take_rows(self.to_q(src, qt), index)
-            k = take_rows(self.to_k(src, qt), index)
-        elif share_qk and num_lanes > 1:
-            q = _tile_lanes(self.to_q(x[:B // num_lanes], qt), num_lanes)
-            k = _tile_lanes(self.to_k(ctx[:ctx.shape[0] // num_lanes], qt),
-                            num_lanes)
-        else:
-            q, k = self.to_q(x, qt), self.to_k(ctx, qt)
-        out = attention(heads(q), heads(k), heads(self.to_v(ctx, qt)))
-        out = out.transpose(1, 2).reshape(B, S, self.heads * self.head_dim)
-        return self.to_out[0](out, qt)
+        with span("attn", "self" if context is None else "cross"):
+            if share_qk and num_lanes > 1 and lane0 is not None:
+                src, index = lane0
+                q = take_rows(self.to_q(src, qt), index)
+                k = take_rows(self.to_k(src, qt), index)
+            elif share_qk and num_lanes > 1:
+                q = _tile_lanes(self.to_q(x[:B // num_lanes], qt), num_lanes)
+                k = _tile_lanes(
+                    self.to_k(ctx[:ctx.shape[0] // num_lanes], qt), num_lanes)
+            else:
+                q, k = self.to_q(x, qt), self.to_k(ctx, qt)
+            out = attention(heads(q), heads(k), heads(self.to_v(ctx, qt)))
+            out = out.transpose(1, 2).reshape(B, S,
+                                              self.heads * self.head_dim)
+            return self.to_out[0](out, qt)
 
 
 class GEGLU(nn.Module):
@@ -370,7 +379,8 @@ class GEGLUFeedForward(nn.Module):
                                   Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor, qt=None) -> torch.Tensor:
-        return self.net[2](self.net[0](x, qt), qt)
+        with span("ff"):
+            return self.net[2](self.net[0](x, qt), qt)
 
 
 class TransformerBlock(nn.Module):
@@ -489,14 +499,15 @@ class TransformerBlock(nn.Module):
 
     def _fused_sublayer(self, x, a1, context):
         attn = self.attn2
-        wq, wk, wv, wout = attn.whole_weights()
-        ctx = context.to(wk.dtype)
-        return fused_cross_sublayer(
-            x.contiguous(), a1.contiguous(), F.linear(ctx, wk),
-            F.linear(ctx, wv), wq, wout, attn.to_out[0].bias,
-            self.norm2.weight, self.norm2.bias, self.norm3.weight,
-            self.norm3.bias, heads=attn.total_heads, kv_len=context.shape[1],
-            eps=self.norm2.eps)
+        with span("attn", "cross"):
+            wq, wk, wv, wout = attn.whole_weights()
+            ctx = context.to(wk.dtype)
+            return fused_cross_sublayer(
+                x.contiguous(), a1.contiguous(), F.linear(ctx, wk),
+                F.linear(ctx, wv), wq, wout, attn.to_out[0].bias,
+                self.norm2.weight, self.norm2.bias, self.norm3.weight,
+                self.norm3.bias, heads=attn.total_heads,
+                kv_len=context.shape[1], eps=self.norm2.eps)
 
     def _merged_attn1(self, norm_x: torch.Tensor, call: ToMeCall,
                       attn_inject: bool, num_lanes: int, qt, rows=None):
@@ -601,10 +612,12 @@ class Transformer2D(nn.Module):
                 num_lanes: int = 1, sublayer_mode: str = "off",
                 qt=None, rows=None) -> torch.Tensor:
         B, H, W, C = x.shape
-        # a 1x1 convolution on NHWC is the dense layer on the tokens, so
-        # both projections run on [B, H, W, C] and the reshapes are views
-        h = self.proj_in(self.norm(x), qt).reshape(B, H * W, C)
-        for blk in self.transformer_blocks:
-            h = blk(h, context, tome_call, attn_inject, num_lanes,
-                    sublayer_mode, qt, rows)
-        return self.proj_out(h.reshape(B, H, W, C), qt) + x
+        with span("transformer", lambda: f"rows={B} tokens={H * W}"):
+            # a 1x1 convolution on NHWC is the dense layer on the tokens,
+            # so both projections run on [B, H, W, C] and the reshapes are
+            # views
+            h = self.proj_in(self.norm(x), qt).reshape(B, H * W, C)
+            for blk in self.transformer_blocks:
+                h = blk(h, context, tome_call, attn_inject, num_lanes,
+                        sublayer_mode, qt, rows)
+            return self.proj_out(h.reshape(B, H, W, C), qt) + x

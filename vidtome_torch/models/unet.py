@@ -8,7 +8,8 @@ embed and micro-conditioning time ids).  Module names follow diffusers'
 ``UNet2DConditionModel`` (``down_blocks.0.resnets.1`` ...), so its state
 dict is the diffusers one.  Token merging enters through ``tome_call``
 (``models/tome.py``) in every transformer block at downsample <=
-``max_downsample``.
+``max_downsample``.  A call is a ``vidtome/unet`` span in a profiler's
+trace (``logging_utils.span``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from vidtome_torch.logging_utils import span
 from vidtome_torch.models.layers import (Conv2d, Downsample2D, GroupNorm,
                                          ResnetBlock2D, TimestepEmbedding,
                                          Transformer2D, Upsample2D,
@@ -110,6 +112,14 @@ TINY_REFINER_UNET = UNetConfig(
     up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"),
     addition_embed=True, addition_time_embed_dim=8, addition_pooled_dim=16,
     addition_num_time_ids=5)
+
+
+def _call_args(x: torch.Tensor, cache_mode: str, tome_call) -> str:
+    """A UNet call's span attributes: its rows, whether it runs the whole
+    UNet or the shallow path around the deep cache, its bank mode."""
+    cache = "shallow" if cache_mode == "shallow" else "full"
+    bank = tome_call.bank_mode if tome_call is not None else "off"
+    return f"rows={x.shape[0]} cache={cache} bank={bank}"
 
 
 class _Level(nn.Module):
@@ -239,67 +249,71 @@ class UNet2DConditionModel(nn.Module):
         run_deep = cache_mode != "shallow"
         if not run_deep and deep_cache is None:
             raise ValueError("cache_mode='shallow' needs deep_cache")
-        dtype = self.conv_in.weight.dtype
-        B = x.shape[0]
-        temb = timestep_embedding(t, self.config.block_out_channels[0])
-        temb = self.time_embedding(temb.to(device=x.device, dtype=dtype), qt)
-        temb = temb.expand(B, -1)
-        if self.add_embedding is not None:
-            temb = temb + self.add_embedding(
-                self._addition(B, x.device, dtype, add_text_embeds,
-                               add_time_ids), qt)
-        context = context.to(dtype)
+        with span("unet", lambda: _call_args(x, cache_mode, tome_call)):
+            dtype = self.conv_in.weight.dtype
+            B = x.shape[0]
+            temb = timestep_embedding(t, self.config.block_out_channels[0])
+            temb = self.time_embedding(
+                temb.to(device=x.device, dtype=dtype), qt)
+            temb = temb.expand(B, -1)
+            if self.add_embedding is not None:
+                temb = temb + self.add_embedding(
+                    self._addition(B, x.device, dtype, add_text_embeds,
+                                   add_time_ids), qt)
+            context = context.to(dtype)
 
-        h = self.conv_in(x.to(dtype), qt)
-        skips = [h]
-        blk_kw = dict(num_lanes=num_lanes, sublayer_mode=sublayer_mode,
-                      qt=qt, rows=rows)
-        for blk in self.down_blocks if run_deep else self.down_blocks[:1]:
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb, resnet_mode, qt=qt)
-                if len(blk.attentions):
-                    h = blk.attentions[j](h, context, tome_call, **blk_kw)
-                skips.append(h)
-            for down in blk.downsamplers if run_deep else ():
-                h = down(h, qt)
-                skips.append(h)
+            h = self.conv_in(x.to(dtype), qt)
+            skips = [h]
+            blk_kw = dict(num_lanes=num_lanes, sublayer_mode=sublayer_mode,
+                          qt=qt, rows=rows)
+            for blk in self.down_blocks if run_deep else self.down_blocks[:1]:
+                for j, res in enumerate(blk.resnets):
+                    h = res(h, temb, resnet_mode, qt=qt)
+                    if len(blk.attentions):
+                        h = blk.attentions[j](h, context, tome_call, **blk_kw)
+                    skips.append(h)
+                for down in blk.downsamplers if run_deep else ():
+                    h = down(h, qt)
+                    skips.append(h)
 
-        if run_deep:
-            mid = self.mid_block
-            h = mid.resnets[0](h, temb, resnet_mode, qt=qt)
-            h = mid.attentions[0](h, context, tome_call, **blk_kw)
-            h = mid.resnets[1](h, temb, resnet_mode, qt=qt)
-            if mid_residual is not None:
-                h = h + mid_residual
-            if down_residuals is not None and len(down_residuals) != len(
-                    skips):
-                raise ValueError(f"expected {len(skips)} down residuals, "
-                                 f"got {len(down_residuals)}")
-        else:
-            h = deep_cache.to(dtype)
-        if down_residuals is not None:
-            skips = [s + r for s, r in zip(skips, down_residuals)]
+            if run_deep:
+                mid = self.mid_block
+                h = mid.resnets[0](h, temb, resnet_mode, qt=qt)
+                h = mid.attentions[0](h, context, tome_call, **blk_kw)
+                h = mid.resnets[1](h, temb, resnet_mode, qt=qt)
+                if mid_residual is not None:
+                    h = h + mid_residual
+                if down_residuals is not None and len(down_residuals) != len(
+                        skips):
+                    raise ValueError(f"expected {len(skips)} down residuals, "
+                                     f"got {len(down_residuals)}")
+            else:
+                h = deep_cache.to(dtype)
+            if down_residuals is not None:
+                skips = [s + r for s, r in zip(skips, down_residuals)]
 
-        deep = None
-        for i, blk in enumerate(self.up_blocks):
-            if not run_deep and i < n_up - 1:
-                continue
-            for j, res in enumerate(blk.resnets):
-                inj = conv_inject if (i == 1 and j == 1) else None
-                h = res(torch.cat([h, skips.pop()], dim=-1), temb, resnet_mode,
-                        inject=inj, num_lanes=num_lanes, qt=qt, rows=rows)
-                if len(blk.attentions):
-                    pnp_here = i >= 2 or (i == 1 and j >= 1)
-                    h = blk.attentions[j](
-                        h, context, tome_call,
-                        attn_inject=bool(attn_inject) and pnp_here, **blk_kw)
-            for up in blk.upsamplers:
-                h = up(h, qt)
-                if i == n_up - 2:
-                    deep = h  # input of the last up block: the cache cut
+            deep = None
+            for i, blk in enumerate(self.up_blocks):
+                if not run_deep and i < n_up - 1:
+                    continue
+                for j, res in enumerate(blk.resnets):
+                    inj = conv_inject if (i == 1 and j == 1) else None
+                    h = res(torch.cat([h, skips.pop()], dim=-1), temb,
+                            resnet_mode, inject=inj, num_lanes=num_lanes,
+                            qt=qt, rows=rows)
+                    if len(blk.attentions):
+                        pnp_here = i >= 2 or (i == 1 and j >= 1)
+                        h = blk.attentions[j](
+                            h, context, tome_call,
+                            attn_inject=bool(attn_inject) and pnp_here,
+                            **blk_kw)
+                for up in blk.upsamplers:
+                    h = up(h, qt)
+                    if i == n_up - 2:
+                        deep = h  # input of the last up block: the cache cut
 
-        out = self.conv_out(self.conv_norm_out(h), qt)
-        return (out, deep) if cache_mode == "full" else out
+            out = self.conv_out(self.conv_norm_out(h), qt)
+            return (out, deep) if cache_mode == "full" else out
 
     def _addition(self, B: int, device, dtype, pooled, time_ids):
         """The addition embedding's input [B, pooled + ids * dim]: the

@@ -1,6 +1,8 @@
 """Shared pipeline pieces: text embedding, batched VAE coding, frame ids,
 stage precision, int8 serving and a stage's ControlNet.  Counterpart of
-``vidtome_tpu/pipeline/common.py``."""
+``vidtome_tpu/pipeline/common.py``.  The text encoder's and the VAE's calls
+are ``vidtome/text``, ``vidtome/vae_encode`` and ``vidtome/vae_decode``
+spans in a profiler's trace (``logging_utils.span``)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import torch
 
 from vidtome_torch.control.depth import prepare_depth_latents
 from vidtome_torch.control.preprocess import validate_control_available
+from vidtome_torch.logging_utils import span
 from vidtome_torch.models.registry import CONTROLNET_DICT, ModelBundle
 from vidtome_torch.ops import quant as quant_ops
 
@@ -32,15 +35,16 @@ class TextEncoder:
 
     @torch.no_grad()
     def __call__(self, prompts: str | list[str]):
-        ids = torch.as_tensor(self._tokenizer(prompts), dtype=torch.long,
-                              device=self._device)
-        if self.is_refiner:
-            return self._model(self._zero_after_eos(ids))
-        hidden = self._model(ids)
-        if not self.is_xl:
-            return hidden
-        hidden2, pooled = self._model_2(self._zero_after_eos(ids))
-        return torch.cat([hidden, hidden2], dim=-1), pooled
+        with span("text"):
+            ids = torch.as_tensor(self._tokenizer(prompts), dtype=torch.long,
+                                  device=self._device)
+            if self.is_refiner:
+                return self._model(self._zero_after_eos(ids))
+            hidden = self._model(ids)
+            if not self.is_xl:
+                return hidden
+            hidden2, pooled = self._model_2(self._zero_after_eos(ids))
+            return torch.cat([hidden, hidden2], dim=-1), pooled
 
     def _zero_after_eos(self, ids: torch.Tensor) -> torch.Tensor:
         """Keep the first EOS, zero every id after it."""
@@ -77,16 +81,18 @@ class VAECoder:
     def encode(self, images) -> torch.Tensor:
         """[T, H, W, 3] in [0, 1] -> scaled latents [T, H/8, W/8, 4]."""
         b = self._bundle
-        x = torch.as_tensor(np.asarray(images) if not isinstance(
-            images, torch.Tensor) else images, device=b.device)
-        return self._batched(
-            lambda f: b.vae.encode((f.float() * 2 - 1).to(b.dtype)), x)
+        with span("vae_encode", lambda: f"frames={len(images)}"):
+            x = torch.as_tensor(np.asarray(images) if not isinstance(
+                images, torch.Tensor) else images, device=b.device)
+            return self._batched(
+                lambda f: b.vae.encode((f.float() * 2 - 1).to(b.dtype)), x)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents -> images [T, H, W, 3] in [0, 1], fp32."""
         b = self._bundle
-        return self._batched(lambda z: b.vae.decode(z.to(b.device, b.dtype)),
-                             latents)
+        with span("vae_decode", lambda: f"frames={len(latents)}"):
+            return self._batched(
+                lambda z: b.vae.decode(z.to(b.device, b.dtype)), latents)
 
 
 # Options of the JAX package with the values the port runs: a config that

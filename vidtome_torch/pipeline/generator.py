@@ -123,6 +123,7 @@ from vidtome_torch.control.preprocess import control_preprocess
 from vidtome_torch.core import chunk as chunking
 from vidtome_torch.core.scheduler import DDIMScheduler, ddim_step
 from vidtome_torch.io import artifacts
+from vidtome_torch.logging_utils import profile_trace, span
 from vidtome_torch.models.layers import RESNET_MODES, SUBLAYER_MODES
 from vidtome_torch.models.lora import apply_lora_bundle
 from vidtome_torch.models.registry import ModelBundle, init_model
@@ -537,8 +538,6 @@ class Generator:
         an SDXL refiner stage writes its own beside the base's)."""
         if not self.profile_dir:
             return self._ddim_sample(*args, **kwargs)
-        from vidtome_torch.logging_utils import profile_trace
-
         with profile_trace(self.profile_dir, self.bundle.device,
                            "ddim_sample"):
             return self._ddim_sample(*args, **kwargs)
@@ -609,106 +608,120 @@ class Generator:
         calls = self.unet_calls = collections.Counter()
         self.tome_stats = {}
         for i in range(start, stop):
-            if modes is not None and not modes[i, 2]:
-                # eps skip: no UNet, the DDIM update on the predicted eps
-                calls["eps_skip"] += 1
-                x = ddim_step(x, history.predict(i),
-                              *sch.sample_alpha_pair(i)).to(x.dtype)
-                continue
-            t = int(sch.timesteps[i])
+            eps_skip = modes is not None and not modes[i, 2]
             cache_mode = "off"
             if self.cache_on:
                 cache_mode = "full" if modes[i, 0] else "shallow"
             cfg_skip = self.cfg_on and not modes[i, 1]
-            # lane-major [[source*F;] uncond*F; cond*F]; a CFG skip drops
-            # the uncond lane (row L - 2)
-            lanes = [r for r in range(L) if not (cfg_skip and r == L - 2)]
-            pnp = {}
-            if self.use_pnp:
-                pnp = dict(attn_inject=i < self.pnp_attn_steps,
-                           conv_inject=i < self.pnp_conv_steps)
-            eps = torch.zeros_like(x)
-            banks: dict = {}
-            lane_ctx = {}  # rows a call -> the lane contexts, per frame
-            for c, chunks in groups:
-                if self.merge_global:
-                    mode = "init" if c == 0 else "merge"
-                else:
-                    mode = "off"
-                if len(chunks) > 1:
-                    # every batched chunk merges against its lane's bank of
-                    # the first chunk: lane-major rows, so each bank row is
-                    # repeated per chunk (jnp.repeat, not a tiling)
-                    banks = {blk: b.repeat_interleave(len(chunks), dim=0)
-                             for blk, b in banks.items()}
-                call = draws.call(self.tome, i, c, mode, banks)
-                pairs = fidx_all[i, chunks].flatten(0, 1)
-                gather, scatter = pairs[:, 0], pairs[:, 1]
-                F = len(chunks) * cs
-                if F not in lane_ctx:
-                    lane_ctx[F] = (
-                        context[lanes].repeat_interleave(F, dim=0),
-                        {k: v[lanes].repeat_interleave(F, dim=0)
-                         for k, v in add.items()})
-                ctx, add_kw = lane_ctx[F]
-                x_chunk = x[gather]
-                deep_in = None
-                if cache_mode == "shallow":
-                    # frame gather first: the small result takes the lanes
-                    deep_in = deep[:, gather][lanes].flatten(0, 1)
-                x_lanes = [x_chunk] * (len(lanes) - self.use_pnp)
+            with span("gen_step", lambda: f"step={i} cache={cache_mode} "
+                      f"cfg_skip={cfg_skip} eps_skip={eps_skip}"):
+                if eps_skip:
+                    # no UNet, the DDIM update on the predicted eps
+                    calls["eps_skip"] += 1
+                    x = ddim_step(x, history.predict(i),
+                                  *sch.sample_alpha_pair(i)).to(x.dtype)
+                    continue
+                t = int(sch.timesteps[i])
+                # lane-major [[source*F;] uncond*F; cond*F]; a CFG skip
+                # drops the uncond lane (row L - 2)
+                lanes = [r for r in range(L)
+                         if not (cfg_skip and r == L - 2)]
+                pnp = {}
                 if self.use_pnp:
-                    x_lanes.insert(0, src_table[i][gather].to(x.dtype))
-                x_in = torch.cat(x_lanes)
-                if self.use_depth:
-                    x_in = torch.cat([x_in, depth[gather].repeat(
-                        len(lanes), 1, 1, 1).to(x_in.dtype)], -1)
-                # under the data axis this rank's rows of the call
-                rows = call_rows(self.mesh, x_in.shape[0])
-                own = (lambda a: a) if rows is None else rows.take
-                residuals = {}
-                if self.use_controlnet:
-                    down, mid = self.bundle.controlnet(
-                        own(x_in), t, own(ctx), own(control[gather].repeat(
-                            len(lanes), 1, 1, 1)),
-                        conditioning_scale=self.control_scale, qt=self.cn_qt)
-                    residuals = dict(down_residuals=down, mid_residual=mid)
-                out = unet(own(x_in), t, own(ctx), tome_call=call,
-                           cache_mode=cache_mode,
-                           deep_cache=None if deep_in is None else own(deep_in),
-                           resnet_mode=self.resnet_mode,
-                           sublayer_mode=self.sublayer_mode,
-                           num_lanes=len(lanes), qt=self.qt, **pnp,
-                           **residuals,
-                           **{k: own(v) for k, v in add_kw.items()},
-                           rows=rows)
-                if rows is not None:  # every rank holds the call's output
-                    out = (tuple(map(rows.gather, out))
-                           if cache_mode == "full" else rows.gather(out))
-                calls["shallow" if cache_mode == "shallow" else "full"] += 1
-                if self.tome.collect_stats:
-                    self.tome_stats[c] = call.stats
-                if cfg_skip:
-                    calls["cfg_skip"] += 1
-                if cache_mode == "full":
-                    out, d = out
-                    d = d.unflatten(0, (len(lanes), F))
-                    for li, lane in enumerate(lanes):
-                        deep[lane, scatter] = d[li]
-                eps_c = out[-F:].float()
-                if cfg_skip:
-                    e = eps_c + (gs - 1.0) * ucond[gather]
-                else:
-                    # CFG combine in fp32, cast before the difference
-                    eps_u = out[-2 * F:-F].float()
-                    delta = eps_c - eps_u
-                    if self.cfg_on:
-                        ucond[scatter] = delta
-                    e = eps_u + gs * delta
-                eps[scatter] = e.to(eps.dtype)
-            if self.eps_on:
-                history.push(eps.float(), i)
-            x = ddim_step(x, eps, *sch.sample_alpha_pair(i)).to(x.dtype)
+                    pnp = dict(attn_inject=i < self.pnp_attn_steps,
+                               conv_inject=i < self.pnp_conv_steps)
+                eps = torch.zeros_like(x)
+                banks: dict = {}
+                lane_ctx = {}  # rows a call -> the lane contexts, per frame
+                for c, chunks in groups:
+                    if self.merge_global:
+                        mode = "init" if c == 0 else "merge"
+                    else:
+                        mode = "off"
+                    if len(chunks) > 1:
+                        # every batched chunk merges against its lane's bank
+                        # of the first chunk: lane-major rows, so each bank
+                        # row is repeated per chunk (jnp.repeat, not a
+                        # tiling)
+                        banks = {blk: b.repeat_interleave(len(chunks),
+                                                          dim=0)
+                                 for blk, b in banks.items()}
+                    call = draws.call(self.tome, i, c, mode, banks)
+                    pairs = fidx_all[i, chunks].flatten(0, 1)
+                    gather, scatter = pairs[:, 0], pairs[:, 1]
+                    F = len(chunks) * cs
+                    if F not in lane_ctx:
+                        lane_ctx[F] = (
+                            context[lanes].repeat_interleave(F, dim=0),
+                            {k: v[lanes].repeat_interleave(F, dim=0)
+                             for k, v in add.items()})
+                    ctx, add_kw = lane_ctx[F]
+                    x_chunk = x[gather]
+                    deep_in = None
+                    if cache_mode == "shallow":
+                        # frame gather first: the small result takes the
+                        # lanes
+                        deep_in = deep[:, gather][lanes].flatten(0, 1)
+                    x_lanes = [x_chunk] * (len(lanes) - self.use_pnp)
+                    if self.use_pnp:
+                        x_lanes.insert(0,
+                                       src_table[i][gather].to(x.dtype))
+                    x_in = torch.cat(x_lanes)
+                    if self.use_depth:
+                        x_in = torch.cat([x_in, depth[gather].repeat(
+                            len(lanes), 1, 1, 1).to(x_in.dtype)], -1)
+                    # under the data axis this rank's rows of the call
+                    rows = call_rows(self.mesh, x_in.shape[0])
+                    own = (lambda a: a) if rows is None else rows.take
+                    residuals = {}
+                    if self.use_controlnet:
+                        down, mid = self.bundle.controlnet(
+                            own(x_in), t, own(ctx),
+                            own(control[gather].repeat(len(lanes), 1, 1, 1)),
+                            conditioning_scale=self.control_scale,
+                            qt=self.cn_qt)
+                        residuals = dict(down_residuals=down,
+                                         mid_residual=mid)
+                    out = unet(own(x_in), t, own(ctx), tome_call=call,
+                               cache_mode=cache_mode,
+                               deep_cache=(None if deep_in is None
+                                           else own(deep_in)),
+                               resnet_mode=self.resnet_mode,
+                               sublayer_mode=self.sublayer_mode,
+                               num_lanes=len(lanes), qt=self.qt, **pnp,
+                               **residuals,
+                               **{k: own(v) for k, v in add_kw.items()},
+                               rows=rows)
+                    if rows is not None:  # every rank: the call's output
+                        out = (tuple(map(rows.gather, out))
+                               if cache_mode == "full"
+                               else rows.gather(out))
+                    calls["shallow" if cache_mode == "shallow"
+                          else "full"] += 1
+                    if self.tome.collect_stats:
+                        self.tome_stats[c] = call.stats
+                    if cfg_skip:
+                        calls["cfg_skip"] += 1
+                    if cache_mode == "full":
+                        out, d = out
+                        d = d.unflatten(0, (len(lanes), F))
+                        for li, lane in enumerate(lanes):
+                            deep[lane, scatter] = d[li]
+                    eps_c = out[-F:].float()
+                    if cfg_skip:
+                        e = eps_c + (gs - 1.0) * ucond[gather]
+                    else:
+                        # CFG combine in fp32, cast before the difference
+                        eps_u = out[-2 * F:-F].float()
+                        delta = eps_c - eps_u
+                        if self.cfg_on:
+                            ucond[scatter] = delta
+                        e = eps_u + gs * delta
+                    eps[scatter] = e.to(eps.dtype)
+                if self.eps_on:
+                    history.push(eps.float(), i)
+                x = ddim_step(x, eps,
+                              *sch.sample_alpha_pair(i)).to(x.dtype)
         self.caches = {"deep": deep, "ucond": ucond}
         return x
 
@@ -753,22 +766,27 @@ class Generator:
         whole schedule, or with a refiner the base up to :meth:`split_step`
         and the refiner from there, both from the same chunk schedule and
         draws (JAX ``generator.py:1067-1082``).  ``inputs`` go to the base
-        stage's :meth:`ddim_sample`."""
-        context = self.context(prompt)
-        if self.refiner is None:
-            return self.ddim_sample(x0, context, fidx_table, draws, **inputs)
-        if fidx_table is None:
-            fidx_table = self.fidx_table()
-        if draws is None:
-            draws = self.draw_source(fidx_table.shape[1])
-        split = self.split_step()
-        x = self.ddim_sample(x0, context, fidx_table, draws, stop=split,
-                             **inputs)
-        r = self.refiner
-        r.configure_frames(self.n_frames)
-        print(f"[INFO] refiner stage: steps {split}..{r.scheduler.num_steps}")
-        return r.ddim_sample(x, r.context(prompt, self.aesthetic),
-                             fidx_table, draws, start=split)
+        stage's :meth:`ddim_sample`.  A ``vidtome/generate`` span in a
+        profiler's trace, named by the edit whose prompt it is."""
+        with span("generate", lambda: "prompt=" + next(
+                (k for k, v in self.prompt.items() if v == prompt), "")):
+            context = self.context(prompt)
+            if self.refiner is None:
+                return self.ddim_sample(x0, context, fidx_table, draws,
+                                        **inputs)
+            if fidx_table is None:
+                fidx_table = self.fidx_table()
+            if draws is None:
+                draws = self.draw_source(fidx_table.shape[1])
+            split = self.split_step()
+            x = self.ddim_sample(x0, context, fidx_table, draws, stop=split,
+                                 **inputs)
+            r = self.refiner
+            r.configure_frames(self.n_frames)
+            print(f"[INFO] refiner stage: steps "
+                  f"{split}..{r.scheduler.num_steps}")
+            return r.ddim_sample(x, r.context(prompt, self.aesthetic),
+                                 fidx_table, draws, start=split)
 
 
 def main(argv=None, device=None, timeout: float | None = None):

@@ -40,6 +40,7 @@ on every rank.
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -48,6 +49,7 @@ import torch
 from vidtome_torch.control.preprocess import control_preprocess
 from vidtome_torch.core.scheduler import (DDIMScheduler, ddim_inverse_step,
                                           ddim_step)
+from vidtome_torch.logging_utils import profile_trace, span
 from vidtome_torch.models.registry import ModelBundle
 from vidtome_torch.pipeline.common import (TextEncoder, VAECoder,
                                            parse_quant, reject_unported,
@@ -107,6 +109,7 @@ class Inverter:
         self.recon = bool(inv.get("recon", False))
         self.prompt = inv["prompt"]
         self.work_dir = config.get("work_dir")
+        self.profile_dir = (config.get("tpu", None) or {}).get("profile_dir")
         # SDXL's time ids: original and target size (height, width), no crop
         self.time_ids = None
         if bundle.is_xl:
@@ -226,53 +229,58 @@ class Inverter:
         update = ddim_inverse_step if inversion else ddim_step
         alphas = sch.inversion_alpha_pair if inversion else sch.sample_alpha_pair
         for i in range(sch.num_steps):
-            if eps_mask is not None and not eps_mask[i]:
-                calls["eps_skip"] += 1
-                eps = history.predict(i)
-            else:
-                t = int(ts[i])
-                mode = "off" if mask is None else (
-                    "full" if mask[i] else "shallow")
-                parts = []
-                for b in range(0, n_p, bs):
-                    x_in = x[b:b + bs]
-                    if depth is not None:
-                        x_in = torch.cat([x_in, depth[b:b + bs].to(x.dtype)],
-                                         -1)
-                    # under the data axis this rank's rows of the batch
-                    rows = call_rows(self.mesh, x_in.shape[0])
-                    own = (lambda a: a) if rows is None else rows.take
-                    residuals = {}
-                    if self.use_controlnet:
-                        down, mid = self.bundle.controlnet(
-                            own(x_in), t, own(conds[b:b + bs]),
-                            own(control[b:b + bs]),
-                            conditioning_scale=self.control_scale,
-                            qt=self.cn_qt)
-                        residuals = dict(down_residuals=down,
-                                         mid_residual=mid)
-                    out = unet(own(x_in), t, own(conds[b:b + bs]),
-                               cache_mode=mode,
-                               deep_cache=(own(deep[b:b + bs])
-                                           if mode == "shallow" else None),
-                               resnet_mode=self.resnet_mode,
-                               sublayer_mode=self.sublayer_mode, qt=self.qt,
-                               **residuals,
-                               **{k: own(v[b:b + bs]) for k, v in xl.items()},
-                               rows=rows)
-                    if rows is not None:  # every rank holds the batch's
-                        out = (tuple(map(rows.gather, out))
-                               if mode == "full" else rows.gather(out))
-                    calls["shallow" if mode == "shallow" else "full"] += 1
-                    if mode == "full":
-                        out, deep[b:b + bs] = out
-                    parts.append(out)
-                eps = torch.cat(parts)
-                if self.eps_on:
-                    history.push(eps.float(), i)
-            x = update(x, eps, *alphas(i)).to(latents.dtype)
-            if on_step is not None:
-                on_step(i, x[:n])
+            with span("invert_step", lambda: f"step={i}"):
+                if eps_mask is not None and not eps_mask[i]:
+                    calls["eps_skip"] += 1
+                    eps = history.predict(i)
+                else:
+                    t = int(ts[i])
+                    mode = "off" if mask is None else (
+                        "full" if mask[i] else "shallow")
+                    parts = []
+                    for b in range(0, n_p, bs):
+                        x_in = x[b:b + bs]
+                        if depth is not None:
+                            x_in = torch.cat(
+                                [x_in, depth[b:b + bs].to(x.dtype)], -1)
+                        # under the data axis this rank's rows of the
+                        # batch
+                        rows = call_rows(self.mesh, x_in.shape[0])
+                        own = (lambda a: a) if rows is None else rows.take
+                        residuals = {}
+                        if self.use_controlnet:
+                            down, mid = self.bundle.controlnet(
+                                own(x_in), t, own(conds[b:b + bs]),
+                                own(control[b:b + bs]),
+                                conditioning_scale=self.control_scale,
+                                qt=self.cn_qt)
+                            residuals = dict(down_residuals=down,
+                                             mid_residual=mid)
+                        out = unet(own(x_in), t, own(conds[b:b + bs]),
+                                   cache_mode=mode,
+                                   deep_cache=(own(deep[b:b + bs])
+                                               if mode == "shallow"
+                                               else None),
+                                   resnet_mode=self.resnet_mode,
+                                   sublayer_mode=self.sublayer_mode,
+                                   qt=self.qt, **residuals,
+                                   **{k: own(v[b:b + bs])
+                                      for k, v in xl.items()},
+                                   rows=rows)
+                        if rows is not None:  # every rank: the batch's
+                            out = (tuple(map(rows.gather, out))
+                                   if mode == "full" else rows.gather(out))
+                        calls["shallow" if mode == "shallow"
+                              else "full"] += 1
+                        if mode == "full":
+                            out, deep[b:b + bs] = out
+                        parts.append(out)
+                    eps = torch.cat(parts)
+                    if self.eps_on:
+                        history.push(eps.float(), i)
+                x = update(x, eps, *alphas(i)).to(latents.dtype)
+                if on_step is not None:
+                    on_step(i, x[:n])
         return x[:n]
 
     def ddim_inversion(self, latents: torch.Tensor, conds: torch.Tensor,
@@ -328,19 +336,25 @@ class Inverter:
 
     def __call__(self, frames, save_latent: Callable | None = None):
         """Invert ``frames``; returns (inverted latents, reconstructed
-        frames or None)."""
-        latents, conds = self.encode(frames)
-        control = self.control_images(frames)
-        depth = (stage_depth(self.bundle, frames, range(len(frames)),
-                             self.work_dir)
-                 if self.bundle.use_depth else None)
-        inverted = self.ddim_inversion(latents, conds, save_latent, control,
-                                       depth)
-        recon = None
-        if self.recon:
-            recon = self.vae.decode(self.ddim_sample(inverted, conds,
-                                                     control, depth))
-        return inverted, recon
+        frames or None).  With ``tpu.profile_dir`` the whole stage runs
+        under ``torch.profiler`` (``logging_utils.profile_trace``: a
+        Chrome trace ``invert_<pid>_<ns>.json`` in that directory)."""
+        trace = (profile_trace(self.profile_dir, self.bundle.device,
+                               "invert")
+                 if self.profile_dir else contextlib.nullcontext())
+        with trace, span("invert", lambda: f"frames={len(frames)}"):
+            latents, conds = self.encode(frames)
+            control = self.control_images(frames)
+            depth = (stage_depth(self.bundle, frames, range(len(frames)),
+                                 self.work_dir)
+                     if self.bundle.use_depth else None)
+            inverted = self.ddim_inversion(latents, conds, save_latent,
+                                           control, depth)
+            recon = None
+            if self.recon:
+                recon = self.vae.decode(self.ddim_sample(inverted, conds,
+                                                         control, depth))
+            return inverted, recon
 
 
 def main(argv=None, device=None, timeout: float | None = None):
