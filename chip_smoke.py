@@ -6,9 +6,10 @@ Phases (any failure exits non-zero before the last line):
   1. device: the card's name and power limit;
   2. build: compile the CUDA libraries (flash attention, single-pass
      small-KV attention, the bf16 fused resnet, the W8A8 fused resnet,
-     best match, fused cross-attention sublayer, GroupNorm: one nvcc each,
-     all started together, sm_90a) from this checkout's sources;
-  3. kernel vs plain: each of the eight kernels in bf16 against its plain
+     best match, fused cross-attention sublayer, GroupNorm, GEGLU's gate:
+     one nvcc each, all started together, sm_90a) from this checkout's
+     sources;
+  3. kernel vs plain: each of the nine kernels in bf16 against its plain
      PyTorch version (fp32 on the same bf16 inputs; the W8A8 resnet's in
      bf16, at the kernel's rounding points) at the main paths' shapes, with
      both times (CUDA events), the time of the one PyTorch call that
@@ -44,14 +45,19 @@ Phases (any failure exits non-zero before the last line):
      at the lengths each phase's merging gives, the refiner's 96-wide
      heads, the VAE's mid attention at 16384 tokens, the PnP, serving and
      chunk_batch batches), each summed per call of each kind, with
-     GN_FP32_ROWS; the W8A8 resnet at the int8 phase's rows only;
+     GN_FP32_ROWS; the W8A8 resnet at the int8 phase's rows only; GEGLU's
+     gate at the benchmark cells' rows (GEGLU_SHAPES) and every meta row,
+     equal to the eager h * F.gelu(gate) to the bit, through the call and
+     device-only beside the eager pair (its library call), the fp32 plain
+     version and the bound, summed per call of each path;
   4. exact path: SD1.5 at full width with random weights (seeded), bf16,
      512x512, 8 frames made with numpy: CLIP + VAE encode, DDIM inversion,
      chunked CFG generation with local and global token merging (2 chunks:
      the bank is initialised on one and merged against on the other), VAE
      decode -- through the port's Inverter and Generator; the launch
      counters of the kernels it runs must rise during it, GroupNorm's full
-     entry 61 times and best match 3 times a generation UNet call;
+     entry 61 times and best match 3 times a generation UNet call, GEGLU's
+     gate 16 times every UNet call;
   5. reference check: one UNet call (unfused and fused resnet blocks) and
      one VAE decode of the same SD1.5 weights at a small input, on the card
      (bf16, kernels) and on the CPU (fp32, plain versions);
@@ -397,7 +403,7 @@ POSE_SCORE_RTOL = 1e-3
 # self-attentions at 16x16 and 8x8, the full GroupNorm entry for the 20
 # resnet and 7 transformer norms; its resnets are never fused
 CONTROLNET_LAUNCHES = {"flash_attention": 4, "small_kv_attention": 10,
-                       "full_group_norm": 27}
+                       "full_group_norm": 27, "geglu": 7}
 # the int8 UNet call on the card (bf16 activations quantized to int8) vs
 # the CPU (fp32 activations quantized to int8): bf16 rounding (2^-9) moves
 # activations near 127 steps by up to a quarter step, so a share of them
@@ -532,13 +538,13 @@ def int8_config() -> dict:
 
 KERNELS = ("flash_attention", "small_kv_attention", "group_norm",
            "full_group_norm", "fused_resnet", "fused_resnet_w8a8",
-           "best_match", "fused_cross_sublayer")
+           "best_match", "fused_cross_sublayer", "geglu")
 
 
 def counters() -> dict:
     """The launch counter of each kernel wrapper."""
-    from vidtome_torch.ops import (attention, groupnorm, matching, resnet,
-                                   sublayer)
+    from vidtome_torch.ops import (attention, geglu, groupnorm, matching,
+                                   resnet, sublayer)
 
     return {"flash_attention": attention.flash_attention,
             "small_kv_attention": attention.small_kv_attention,
@@ -547,7 +553,8 @@ def counters() -> dict:
             "fused_resnet": resnet.fused_resnet,
             "fused_resnet_w8a8": resnet.fused_resnet_w8a8,
             "best_match": matching.best_match,
-            "fused_cross_sublayer": sublayer.fused_cross_sublayer}
+            "fused_cross_sublayer": sublayer.fused_cross_sublayer,
+            "geglu": geglu.geglu}
 
 
 def reset_launches() -> None:
@@ -667,6 +674,20 @@ RESNET_SHAPES = [  # (B, H, W, Cin, Cout): both fused resnet variants
     (4, 64, 64, 960, 320),     # 15 channel chunks, cfg-skip batch
     (8, 8, 8, 1280, 1280),     # 8x8 level (mid, down 3, up 0): 4 a full call
 ]
+# GEGLU's gate in the benchmark's two cells at 512x512, (B, S, inner) rows
+# by the UNet calls that run them: {path: rows of the call} x {(tokens,
+# inner): GEGLUs a call} (5 at each of the three levels, 1 in the mid
+# block: 16)
+GEGLU_CALLS = {"SD1.5 exact, first chunk": 8,
+               "SD1.5 exact, batched chunks": 56,
+               "SD1.5 / SD2.1 inversion": 32,
+               "SD2.1 PnP, first chunk": 12,
+               "SD2.1 PnP, batched chunks": 84}
+GEGLU_LEVELS = {(4096, 1280): 5, (1024, 2560): 5, (256, 5120): 5,
+                (64, 5120): 1}
+GEGLU_SHAPES = {(b, s, inner): {path: n}
+                for path, b in GEGLU_CALLS.items()
+                for (s, inner), n in GEGLU_LEVELS.items()}
 MATCH_SHAPES = [  # (B, S, D, C); a level: its global merge vs the bank
     (2, 12288, 4096, 320),     # L0 local round
     (2, 3072, 1024, 640),      # L1 local round
@@ -686,13 +707,13 @@ SDXL_SPLIT = 11  # step 9 still runs a shallow, CFG-skip serving call)
 # cross-attention (77 keys) and the refiner mid block's self-attention (16x16
 # = 256 tokens, 4 blocks), the full GroupNorm entry for every GroupNorm
 # (base: 17 resnets x 2 + 11 transformers + conv_norm_out; refiner: 22 x 2
-# + 11 + 1); best match (1 or 2 a generation call: level 1 only) is checked
-# apart
+# + 11 + 1), GEGLU's gate for every transformer block (base 70, refiner
+# 44); best match (1 or 2 a generation call: level 1 only) is checked apart
 SDXL_LAUNCHES = {
     "SDXL": {"flash_attention": 70, "small_kv_attention": 70,
-             "full_group_norm": 46},
+             "full_group_norm": 46, "geglu": 70},
     "refiner": {"flash_attention": 40, "small_kv_attention": 48,
-                "full_group_norm": 56}}
+                "full_group_norm": 56, "geglu": 44}}
 # the refiner's level-0 resnets in fp32: slices of one 12-channel group (not
 # on a main path; the bf16 rows of gn_rows are)
 GN_FP32_ROWS = [(8, 128 * 128, 384, True, 1e-5, torch.float32)]
@@ -928,8 +949,8 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build(dev) -> None:
-    from vidtome_torch.ops import (attention, groupnorm, matching, resnet,
-                                   sublayer)
+    from vidtome_torch.ops import (attention, geglu, groupnorm, matching,
+                                   resnet, sublayer)
     from vidtome_torch.ops.cuda_build import build_library
 
     t0 = time.perf_counter()
@@ -939,7 +960,8 @@ def phase_build(dev) -> None:
             "vidtome_resnet_w8a8": "resnet_w8a8.cu",
             "vidtome_matching": "matching.cu",
             "vidtome_sublayer": "sublayer.cu",
-            "vidtome_group_norm": "group_norm.cu"}
+            "vidtome_group_norm": "group_norm.cu",
+            "vidtome_geglu": "geglu.cu"}
     logs = {name: [] for name in libs}
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build_library, name, (src,), log=logs[name])
@@ -947,7 +969,7 @@ def phase_build(dev) -> None:
             fut.result()
     attention._library(), attention._small_kv_library()
     resnet._library(), matching._library(), sublayer._library()
-    groupnorm._library()
+    groupnorm._library(), geglu._library()
     t1 = time.perf_counter()
     for name, log in logs.items():
         for _name, secs, report in log:
@@ -1572,8 +1594,87 @@ def phase_kernels(dev) -> KernelStats:
         torch.cuda.empty_cache()
     print_per_call(per_call, "the unfused bf16 chain device only")
     mark("sublayer")
+    phase_geglu(dev, stats, meta["geglu"])
+    mark("GEGLU")
     print(f"[kernel] phase 3 seconds by part: {lap}")
     return stats
+
+
+def phase_geglu(dev, stats: KernelStats, meta: dict) -> None:
+    """Phase 3's GEGLU rows: GEGLU_SHAPES and every row of ``meta``
+    (meta_rows()["geglu"]), bf16 [B, S, 2 * inner] inputs drawn on the card.
+    The kernel must equal the eager h * F.gelu(gate) (geglu_plain in bf16)
+    to the bit; timed through the wrapper and device only, beside the plain
+    version in fp32, the eager pair (the library yardstick: the two calls
+    the kernel replaces) and the bound, 6 bytes an output element at
+    HBM_BYTES_S."""
+    from torch.nn import functional as F
+
+    from vidtome_torch.ops import geglu
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    per_call = {}
+    for row in dict.fromkeys([*GEGLU_SHAPES, *meta]):
+        *lead, inner = row
+        y = (torch.randn((*lead, 2 * inner), generator=gen, device=dev)
+             * 2.0).bfloat16()
+        yf = y.float()
+        h, gate = y.chunk(2, dim=-1)
+        got = geglu.geglu(y)
+        want = geglu.geglu_plain(y)
+        wrong = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        err = (got.float() - geglu.geglu_plain(yf)).abs().max().item()
+        del got, want
+
+        def eager():
+            return h * F.gelu(gate)
+        ms = cuda_time(lambda: geglu.geglu(y), 10)
+        device = graph_time(lambda: geglu.geglu(y), 10)
+        plain = cuda_time(lambda: geglu.geglu_plain(yf), 3)
+        lib = cuda_time(eager, 10)
+        lib_device = graph_time(eager, 10)
+        nbytes = 3 * y.numel()  # y read, out written once: 6 B an output
+        bound = bound_ms(nbytes)
+        shape = geglu.thread_shape(inner, 2)
+        print(f"[kernel] geglu {list(row)}: bits differing from the eager "
+              f"path {wrong} of {y.numel() // 2}; max|err| against the fp32 "
+              f"plain version {err:.2e} (bf16 rounding); kernel {ms:.4f} ms, "
+              f"device only {device:.4f} ms ({nbytes / device / 1e9:.3f} "
+              f"TB/s, {100 * bound[0] / device:.1f}% of the bound), plain "
+              f"(fp32) {plain:.4f} ms, eager h * F.gelu(gate) {lib:.4f} ms "
+              f"(device only {lib_device:.4f}), bound {bound[0]:.4f} ms "
+              f"(bytes); block {shape.threads_x}x{shape.threads_y}, "
+              f"{shape.col_blocks} a row, {shape.vec} elements an access")
+        if wrong:
+            raise AssertionError(f"GEGLU kernel differs from the eager path "
+                                 f"at {row}")
+        stats.add("geglu", err, ms, plain, lib, bound, device, lib_device)
+        for path, n in {**GEGLU_SHAPES.get(row, {}),
+                        **meta.get(row, {})}.items():
+            acc = per_call.setdefault(("geglu", path), [0] + [0.0] * 4)
+            for i, x in enumerate((1, ms, device, max(bound), lib_device)):
+                acc[i] += n * x
+        del y, yf, h, gate
+        torch.cuda.empty_cache()
+    print_per_call(per_call, "the eager pair device only")
+    # the host's cost of a call, at a row small enough that the card keeps
+    # up with the launches: the wrapper against the eager pair it replaces
+    y = torch.randn((1, 64, 2 * 320), generator=gen, device=dev).bfloat16()
+
+    def host_us(fn, n: int = 2000) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+    wrapper = host_us(lambda: geglu.geglu(y))
+    eager = host_us(lambda: geglu.geglu_plain(y))
+    print(f"[kernel] geglu host cost a call (no synchronize, [1, 64, 640]): "
+          f"the wrapper {wrapper:.2f} us, the eager chunk + gelu + mul "
+          f"{eager:.2f} us")
 
 
 def make_frames(size: int = SIZE, n: int = N_FRAMES) -> np.ndarray:
@@ -1625,10 +1726,22 @@ def phase_main_path(dev, bundle) -> dict:
     if not torch.isfinite(inverted).all():
         raise AssertionError("inverted latents not finite")
     for k in ("flash_attention", "small_kv_attention", "full_group_norm",
-              "best_match"):
+              "best_match", "geglu"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched on the exact "
                                  f"path")
+    # GEGLU's gate: once each of a call's 16 transformer blocks, in the
+    # inversion and the generation alike
+    inv_calls = sum(inverter.unet_calls.values())
+    if (gen["geglu"] != 16 * unet_calls
+            or launches["geglu"] != 16 * (unet_calls + inv_calls)):
+        raise AssertionError(f"exact path: {launches['geglu']} GEGLU "
+                             f"launches ({gen['geglu']} generating) over "
+                             f"{inv_calls} + {unet_calls} UNet calls, want "
+                             f"16 a call")
+    print(f"[main] GEGLU launches per UNet call: inversion "
+          f"{(launches['geglu'] - gen['geglu']) / inv_calls:.0f}, "
+          f"generation {gen['geglu'] / unet_calls:.0f}")
     # every GroupNorm of the exact path (no fused resnets) takes the full
     # entry, once a norm: 61 a UNet call
     if launches["group_norm"] or gen["full_group_norm"] != 61 * unet_calls:
@@ -1718,7 +1831,7 @@ def phase_serving(dev, bundle) -> dict:
     if not torch.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError("serving frames not finite or outside [0, 1]")
     for k in ("flash_attention", "small_kv_attention", "group_norm",
-              "full_group_norm", "fused_resnet", "best_match"):
+              "full_group_norm", "fused_resnet", "best_match", "geglu"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} kernel never launched on the serving "
                                  f"path")
@@ -1965,7 +2078,8 @@ class ModuleLaunches:
     stats and finalize entries for each ResnetBlock2D called with
     resnet_mode "fused" and no injection, the fused sublayer for each
     TransformerBlock whose chain fuses, best match for each matching
-    (core/merge.best_match).  Every shape a kernel is given goes into
+    (core/merge.best_match), GEGLU's gate for each GEGLU.  Every shape a
+    kernel is given goes into
     ``shapes`` ({kernel: Counter}) and, inside a call, into its call's."""
 
     def __init__(self, unets: dict, count: bool = True):
@@ -1977,8 +2091,8 @@ class ModuleLaunches:
 
     def watch(self, path: str, unet) -> None:
         """Record the calls of ``unet`` under ``path`` too."""
-        from vidtome_torch.models.layers import (CrossAttention, GroupNorm,
-                                                 ResnetBlock2D,
+        from vidtome_torch.models.layers import (GEGLU, CrossAttention,
+                                                 GroupNorm, ResnetBlock2D,
                                                  TransformerBlock)
         from vidtome_torch.models.vae import VAEAttentionBlock
 
@@ -1996,7 +2110,8 @@ class ModuleLaunches:
                     self._handles.append(m.register_forward_pre_hook(
                         hook, with_kwargs=True))
             for kind, hook in ((GroupNorm, self._group_norm),
-                               (VAEAttentionBlock, self._vae_attention)):
+                               (VAEAttentionBlock, self._vae_attention),
+                               (GEGLU, self._geglu)):
                 if isinstance(m, kind):
                     self._handles.append(m.register_forward_pre_hook(hook))
 
@@ -2070,6 +2185,12 @@ class ModuleLaunches:
     def _vae_attention(self, mod, args):
         B, H, W, C = args[0].shape
         self._add("flash_attention", (B, 1, H * W, H * W, C))
+
+    def _geglu(self, mod, args):
+        # (rows..., inner): the projection's output is [rows..., 2 * inner]
+        # (a model rank's share on the model axis)
+        self._add("geglu", (*args[0].shape[:-1],
+                            mod.proj.weight.shape[0] // 2))
 
     def _group_norm(self, mod, args):
         from vidtome_torch.ops import groupnorm
@@ -2431,6 +2552,11 @@ def phase_pnp(dev, bundle) -> tuple[dict, torch.Tensor, torch.Tensor]:
     if gen_launches["fused_cross_sublayer"] != n_blocks * gen_calls:
         raise AssertionError("sublayer launches differ from 16 per "
                              "generation UNet call")
+    if (gen_launches["geglu"] != n_blocks * gen_calls
+            or inv_launches["geglu"] != n_blocks * inv_calls):
+        raise AssertionError(f"GEGLU launches {inv_launches['geglu']} / "
+                             f"{gen_launches['geglu']} differ from 16 per "
+                             f"UNet call ({inv_calls} / {gen_calls})")
     if (inv_launches["fused_cross_sublayer"] or launches["fused_resnet"]
             or launches["group_norm"]):
         raise AssertionError("a kernel outside this path launched")
@@ -2781,8 +2907,8 @@ def unet_call_want(unet) -> dict:
     """The launches of one UNet call at the smoke frames' latent, by the
     topology: flash for the self-attentions over more than SMALL_KV tokens,
     small-KV for the rest and every cross-attention, the full GroupNorm
-    entry for all 61 GroupNorms; best match (2 or 4 a generation call) is
-    left at 0."""
+    entry for all 61 GroupNorms, GEGLU's gate once a transformer block;
+    best match (2 or 4 a generation call) is left at 0."""
     from vidtome_torch.models.layers import TransformerBlock
     from vidtome_torch.ops.attention import SMALL_KV
 
@@ -2792,7 +2918,8 @@ def unet_call_want(unet) -> dict:
     want.update(flash_attention=sum((latent // b.downsample) ** 2 > SMALL_KV
                                     for b in blocks),
                 full_group_norm=61,
-                small_kv_attention=small_kv_blocks(unet, latent))
+                small_kv_attention=small_kv_blocks(unet, latent),
+                geglu=len(blocks))
     return want
 
 
@@ -3803,7 +3930,8 @@ def phase3_rows() -> dict:
         "best_match": {match_shape(r) for r in MATCH_SHAPES}
         | set(meta["best_match"]),
         "fused_cross_sublayer": set(SUBLAYER_SHAPES)
-        | set(meta["fused_cross_sublayer"])}
+        | set(meta["fused_cross_sublayer"]),
+        "geglu": set(GEGLU_SHAPES) | set(meta["geglu"])}
 
 
 def print_stats(tag: str, generator, unet) -> None:
@@ -4355,7 +4483,8 @@ PARITY_PROFILES = ("int8", "serve_maxe3xb")
 TRACE_SYMBOLS = {"flash_attention": "flash_fwd_kernel",
                  "small_kv_attention": "small_kv_kernel",
                  "full_group_norm": "group_norm_kernel",
-                 "best_match": "best_match_kernel"}
+                 "best_match": "best_match_kernel",
+                 "geglu": "geglu_kernel"}
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -5567,7 +5696,9 @@ def main(argv: list[str]) -> int:
         "fused_resnet_w8a8": ("cuda", "vidtome_torch/csrc/resnet_w8a8.cu",
                               "vidtome_tpu/ops/resnet.py:232"),
         "best_match": ("cuda", "vidtome_torch/csrc/matching.cu",
-                       "vidtome_tpu/ops/matching.py:72")}
+                       "vidtome_tpu/ops/matching.py:72"),
+        "geglu": ("cuda", "vidtome_torch/csrc/geglu.cu",
+                  "none (XLA fused it: vidtome_tpu/models/layers.py:446)")}
     rows = stats.rows
     print(json.dumps({"kernels": [
         {"name": k, "route": sources[k][0], "source": sources[k][1],

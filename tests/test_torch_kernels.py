@@ -30,7 +30,9 @@ int8 activations but where fp32 sums in another order move a value across
 a rounding boundary), 2e-2 of max |ref| as the bf16 kernel.  The
 GroupNorm entries: y as above (in fp32 to 1e-4 relative to max(1, |y|)),
 the statistics to 1e-4 relative (fp32 sums in another order), and the same
-bits on a second call (no atomics).
+bits on a second call (no atomics).  GEGLU's gate equals its plain version
+h * F.gelu(gate) to the bit in bf16 and fp32: the kernel runs the eager
+path's fp32 arithmetic with the same two roundings.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ import numpy as np
 import pytest
 import torch
 
+from vidtome_torch.models.layers import GEGLU
 from vidtome_torch.ops import attention as t_attn
+from vidtome_torch.ops import geglu as t_geglu
 from vidtome_torch.ops import groupnorm as t_gn
 from vidtome_torch.ops import matching as t_match
 from vidtome_torch.ops import quant as t_quant
@@ -925,3 +929,129 @@ def test_gn_mode_routes_cuda_tensors(cuda, monkeypatch):
     monkeypatch.setenv("VIDTOME_DISABLE_PALLAS_GN", "1")
     with pytest.raises(ValueError, match="xla"):
         t_gn.group_norm(x, w, b, 32)
+
+
+def _geglu_input(cuda, rows, inner, dtype, seed=0):
+    """[..., 2 * inner] projection outputs drawn on the card (gate values
+    across gelu's bend and tails)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((*rows, 2 * inner), generator=gen, device=cuda)
+            * 2.0).to(dtype)
+
+
+def _bits(t):
+    """t's bits as integers: equal bits, not equal values (-0 is not 0, a
+    NaN is itself)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _check_geglu(y):
+    before = t_geglu.geglu.launches
+    got = t_geglu.geglu(y)
+    want = t_geglu.geglu_plain(y)
+    torch.cuda.synchronize()
+    assert t_geglu.geglu.launches == before + 1
+    assert got.shape == want.shape and got.dtype == y.dtype
+    assert got.is_contiguous()
+    assert torch.equal(_bits(got), _bits(want)), (
+        int((_bits(got) != _bits(want)).sum()),
+        (got.float() - want.float()).abs().max().item())
+
+
+# (tokens, inner) at each level of SD1.5 / SD2.x at 512x512
+GEGLU_LEVELS = [(4096, 1280), (1024, 2560), (256, 5120), (64, 5120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tokens,inner", GEGLU_LEVELS)
+@pytest.mark.parametrize("batch", [8, 12, 32, 56, 84])
+def test_geglu_kernel_equals_plain_at_the_cells_rows(cuda, batch, tokens,
+                                                     inner, dtype):
+    """Inversion (32 rows), the first chunk (8 / 12) and the batched call
+    (56 / 84) of both cells, bit for bit."""
+    _check_geglu(_geglu_input(cuda, (batch, tokens), inner, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,inner", [
+    ((8, 4096), 2560), ((8, 1024), 5120),       # SDXL levels 1, 2
+    ((8, 4096), 3072), ((8, 1024), 6144),       # the refiner's
+    ((8, 256), 6144),                           # the refiner's mid block
+    ((8, 4096), 640), ((12, 4096), 768),        # {model: 2} shares
+    ((12, 4096), 512), ((6, 1024), 1280),
+    ((3, 77), 37), ((2, 5), 1), ((4, 33), 12),  # odd widths: scalar path
+    ((2, 300), 20), ((5,), 1284), ((1, 1), 8),
+])
+def test_geglu_kernel_equals_plain_at_other_widths(cuda, rows, inner, dtype):
+    _check_geglu(_geglu_input(cuda, rows, inner, dtype, seed=inner))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_geglu_kernel_gives_the_same_bits_twice(cuda, dtype):
+    y = _geglu_input(cuda, (56, 4096), 1280, dtype, seed=3)
+    got = t_geglu.geglu(y)
+    again = t_geglu.geglu(y)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(again))
+
+
+@pytest.mark.cuda
+def test_geglu_kernel_handles_infinities_and_zeros(cuda):
+    """gelu's limits as the eager path computes them, bit for bit: a -inf
+    gate gives -inf * 0 (NaN), +inf the product with inf, zeros zero."""
+    y = _geglu_input(cuda, (4, 64), 1280, torch.bfloat16, seed=4)
+    y[0, :, 1280:] = float("-inf")
+    y[1, :, 1280:] = float("inf")
+    y[2, :, 1280:] = 0.0
+    y[3, :, :1280] = 0.0
+    _check_geglu(y)
+
+
+@pytest.mark.cuda
+def test_geglu_kernel_launches_on_the_current_stream(cuda):
+    y = _geglu_input(cuda, (8, 1024), 2560, torch.bfloat16, seed=5)
+    want = t_geglu.geglu(y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert (torch._C._cuda_getCurrentRawStream(y.get_device())
+                == side.cuda_stream)
+        got = t_geglu.geglu(y)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_geglu_kernel_refuses_what_it_cannot_take(cuda):
+    y = _geglu_input(cuda, (4, 64), 64, torch.bfloat16)
+    before = t_geglu.geglu.launches
+    with pytest.raises(TypeError):
+        t_geglu.geglu(y.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        t_geglu.geglu(y.transpose(0, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_geglu.geglu(y[..., :64])
+    flat = torch.zeros(4 * 64 * 128 + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        t_geglu.geglu(flat[1:1 + 4 * 64 * 128].view(4, 64, 128))
+    assert t_geglu.geglu.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_geglu_module_launches_the_kernel_once_a_call(cuda, dtype):
+    torch.manual_seed(6)
+    mod = GEGLU(320, 1280).to(cuda, dtype)
+    x = torch.randn(2, 256, 320, device=cuda).to(dtype)
+    with torch.no_grad():
+        before = t_geglu.geglu.launches
+        got = mod(x)
+        assert t_geglu.geglu.launches == before + 1
+        mod(x)
+        assert t_geglu.geglu.launches == before + 2
+        h, gate = mod.proj(x).chunk(2, dim=-1)
+        assert torch.equal(_bits(got),
+                           _bits(h * torch.nn.functional.gelu(gate)))

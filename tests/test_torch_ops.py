@@ -8,7 +8,11 @@ held against the Pallas ``fused_resnet`` in interpret mode on bf16 inputs
 (2e-2 of max |ref|: both round activations and h to bf16, at different
 points of an fp32 sum order) and against the port's unfused block in fp32
 (1e-5); the plain best match against the Pallas ``best_match`` in
-interpret mode and ``best_match_reference`` (max to 1e-6, argmax equal).
+interpret mode and ``best_match_reference`` (max to 1e-6, argmax equal);
+the plain GEGLU gate against the gate of the JAX package's
+``GEGLUFeedForward`` on the same projection output (1e-6: the two erf
+implementations, on O(1) values) and the port's feed-forward against the
+JAX module on the same weights (1e-5, two fp32 matmuls).
 The Hopper kernels themselves are checked on the card by
 ``tests/test_torch_kernels.py``.
 """
@@ -19,13 +23,17 @@ import numpy as np
 import pytest
 import torch
 
+import flax.linen as jnn
+import jax
 import jax.numpy as jnp
 
-from vidtome_torch.models.layers import ResnetBlock2D
+from vidtome_torch.models.layers import GEGLUFeedForward, ResnetBlock2D
 from vidtome_torch.ops import attention as t_attn
+from vidtome_torch.ops import geglu as t_geglu
 from vidtome_torch.ops import groupnorm as t_gn
 from vidtome_torch.ops import matching as t_match
 from vidtome_torch.ops import resnet as t_res
+from vidtome_tpu.models.layers import GEGLUFeedForward as JGEGLUFeedForward
 from vidtome_tpu.ops import attention as j_attn
 from vidtome_tpu.ops import groupnorm as j_gn
 from vidtome_tpu.ops import matching as j_match
@@ -206,3 +214,56 @@ def test_plain_best_match_ties_and_masks_match_jax(case):
         np.testing.assert_array_equal(got_idx.numpy(), pick)
     else:
         assert (got_max < 0).all() and (got_idx < 211).all()
+
+
+def _jax_feed_forward(dim: int, x: np.ndarray, seed: int):
+    """The JAX package's fp32 GEGLUFeedForward on x with random weights and
+    biases: (params, its projection's output [h | gate], the gate's output
+    h * gelu(gate) that proj_out is given, the module's output)."""
+    mod = JGEGLUFeedForward(dim, dtype=jnp.float32)
+    params = mod.init(jax.random.PRNGKey(seed), jnp.asarray(x))
+    keys = iter(jax.random.split(jax.random.PRNGKey(seed + 1), 2))
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, p: (0.1 * jax.random.normal(next(keys), p.shape)
+                         if path[-1].key == "bias" else p), params)
+    seen = {}
+
+    def grab(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if context.method_name == "__call__":
+            if context.module.name == "proj_in":
+                seen["y"] = np.array(out)
+            elif context.module.name == "proj_out":
+                seen["gate"] = np.asarray(args[0])
+        return out
+
+    with jnn.intercept_methods(grab):
+        out = mod.apply(params, jnp.asarray(x))
+    return params, seen["y"], seen["gate"], np.asarray(out)
+
+
+@pytest.mark.parametrize("dim,shape", [(8, (2, 37)), (40, (3, 64)),
+                                       (10, (1, 77))])
+def test_plain_geglu_matches_the_jax_gate(dim, shape):
+    """geglu_plain on the JAX projection's output is the gate the JAX
+    GEGLUFeedForward computes (layers.py: split, exact gelu, product), and
+    the port's feed-forward on the same weights gives the module's output,
+    in fp32."""
+    rng = np.random.default_rng(dim)
+    x = rng.normal(size=(*shape, dim)).astype(np.float32)
+    params, y, gate, want = _jax_feed_forward(dim, x, seed=dim)
+    got = t_geglu.geglu_plain(torch.from_numpy(y))
+    np.testing.assert_allclose(got.numpy(), gate, atol=1e-6, rtol=1e-6)
+    p = params["params"]
+    ff = GEGLUFeedForward(dim)
+    with torch.no_grad():
+        for lin, name in ((ff.net[0].proj, "proj_in"), (ff.net[2],
+                                                        "proj_out")):
+            lin.weight.copy_(torch.from_numpy(np.array(p[name]["kernel"]).T))
+            lin.bias.copy_(torch.from_numpy(np.array(p[name]["bias"])))
+        out = ff(torch.from_numpy(x))
+        np.testing.assert_allclose(out.numpy(), want, atol=1e-5, rtol=1e-5)
+        # the module's gate is the plain version's, to the bit, on the CPU
+        proj = ff.net[0].proj(torch.from_numpy(x))
+        assert torch.equal(ff.net[0](torch.from_numpy(x)),
+                           t_geglu.geglu_plain(proj))

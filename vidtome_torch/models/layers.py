@@ -56,6 +56,7 @@ from vidtome_torch.logging_utils import span
 from vidtome_torch.models.tome import ToMeCall
 from vidtome_torch.ops import quant as quant_ops
 from vidtome_torch.ops.attention import attention
+from vidtome_torch.ops.geglu import geglu
 from vidtome_torch.ops.groupnorm import group_norm
 from vidtome_torch.ops.resnet import fused_resnet, fused_resnet_w8a8
 from vidtome_torch.ops.sublayer import fused_cross_sublayer
@@ -367,9 +368,9 @@ class GEGLU(nn.Module):
         self.proj = Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor, qt=None) -> torch.Tensor:
-        h, gate = self.proj(x, qt).chunk(2, dim=-1)
-        # exact (erf) gelu, as diffusers' GEGLU and the JAX package
-        return h * F.gelu(gate)
+        # h * gelu(gate), exact (erf) gelu as diffusers' GEGLU and the JAX
+        # package: one kernel pass over the projection's output on the card
+        return geglu(self.proj(x, qt))
 
 
 class GEGLUFeedForward(nn.Module):
